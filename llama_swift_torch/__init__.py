@@ -1,0 +1,44 @@
+"""llama_swift_torch: the PyTorch/CUDA port of tpu-llama, for an NVIDIA H100.
+
+It mirrors ``llama_swift_tpu`` module for module and does not depend on
+it.  The batch-1 serving path runs through three hand-written CUDA kernels
+(``csrc/``): the Q4_0 matvec, flash-decode attention and the Q4_0 dequant
+that feeds the prefill matmuls.  They are built with ``nvcc`` at first use.
+
+    from llama_swift_torch import LlamaRunner, RunnerConfig
+
+    runner = LlamaRunner("ggml-model-q4_0.bin")          # CUDA card
+    for event in runner.run_events("Hello", RunnerConfig(num_tokens=32)):
+        ...
+"""
+
+from .config import GGMLType, ModelConfig, QK, RunnerConfig, SamplingConfig
+from .runtime.errors import (
+    ERROR_DOMAIN,
+    FailedToLoadModelError,
+    LlamaError,
+    PredictionFailedError,
+)
+from .runtime.events import Event, EventKind, RunState
+from .runtime.runner import LlamaRunner
+from .tokenizer import BOS_TOKEN_ID, Vocab
+
+__all__ = [
+    "BOS_TOKEN_ID",
+    "ERROR_DOMAIN",
+    "Event",
+    "EventKind",
+    "FailedToLoadModelError",
+    "GGMLType",
+    "LlamaError",
+    "LlamaRunner",
+    "ModelConfig",
+    "PredictionFailedError",
+    "QK",
+    "RunState",
+    "RunnerConfig",
+    "SamplingConfig",
+    "Vocab",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,136 @@
+// Batch-1 Q4_0 matvec with the reference's int4 x int4 block dot.
+//
+// Replaces the TPU kernel `_q4_0_vpu_kernel` / `_q4_0_vpu_kernel_stacked`
+// (llama_swift_tpu/ops/q4_vpu_pallas.py, entry points q4_0_vpu_matvec and
+// q4_0_vpu_matvec_stacked), which is itself the device form of
+// ggml_vec_dot_q4_0 (ggml.c:1296-1582).
+//
+//   y[o] = sum_b  d_w[o,b] * d_x[b] * ( sum_i n[o,32b+i] * q[32b+i]  -  8 * sum_i q[32b+i] )
+//
+// with n the stored nibbles (0..15) and q the activation quantized per
+// 32-block to integers in [-7, 7] (d_x = amax/7, round half away from zero).
+//
+// What bounds it on the H100: device-memory bandwidth.  Each weight costs
+// 0.625 bytes (half a byte of nibble + 4 bytes of scale per 32) and 2 integer
+// operations, far below the int8 tensor rate, so the kernel exists to stream
+// the packed weight once at full rate.
+//
+// Design:
+//  * Pre-pass (quantize_x_kernel): one warp per 32-block of x computes amax
+//    with shuffles, d_x and the integer q, bit-identical to
+//    quantize_activations_q4_0_int (explicit _rn intrinsics: nvcc would
+//    otherwise contract x*inv + 0.5 into one FMA and round ties differently).
+//    It stores q de-interleaved per block so that it lines up with the
+//    nibble bytes: bytes 0..15 hold the even elements of each 8-group, bytes
+//    16..31 the odd ones, plus sum(q) per block.
+//  * Main kernel: one warp per output row, eight rows per block.  Lane l
+//    reads block b = l, l+32, ... of its row: 16 contiguous bytes of
+//    nibbles (a warp reads 512 contiguous bytes per step) and the matching
+//    32 bytes of q.  Low nibbles (w & 0x0F0F0F0F) pair with the even q
+//    bytes, high nibbles with the odd ones; __dp4a takes four products a
+//    time, so a block is 8 dp4a.  The -8 offset is removed once per block
+//    as 8*sum(q), like the TPU kernel's aux row.  Block partials are exact
+//    integers; only the f32 sum over blocks is reassociated (per lane, then
+//    a warp shuffle reduction).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int QK = 32;
+constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_i(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum_f(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// x [nb*32] f32 -> xq [nb][32] int8 (de-interleaved), qsum [nb] int32, dx [nb] f32
+__global__ void quantize_x_kernel(const float* __restrict__ x, int nb,
+                                  int8_t* __restrict__ xq, int* __restrict__ qsum,
+                                  float* __restrict__ dx) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= nb) return;
+  const float v = x[b * QK + lane];
+  const float amax = warp_max(fabsf(v));
+  const float d = __fdiv_rn(amax, 7.0f);
+  const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
+  const float q = truncf(__fadd_rn(__fmul_rn(v, inv), v >= 0.0f ? 0.5f : -0.5f));
+  const int qi = static_cast<int>(q);
+  // element e = 8g + 2t + parity  ->  byte (parity*4 + g)*4 + t
+  const int g = lane >> 3, r = lane & 7;
+  xq[b * QK + ((r & 1) * 4 + g) * 4 + (r >> 1)] = static_cast<int8_t>(qi);
+  const int s = warp_sum_i(qi);
+  if (lane == 0) {
+    qsum[b] = s;
+    dx[b] = d;
+  }
+}
+
+__device__ __forceinline__ int dot_word(uint32_t w, uint32_t qe, uint32_t qo, int acc) {
+  acc = __dp4a(static_cast<int>(w & 0x0F0F0F0Fu), static_cast<int>(qe), acc);
+  return __dp4a(static_cast<int>((w >> 4) & 0x0F0F0F0Fu), static_cast<int>(qo), acc);
+}
+
+// qs [out][nb*16] u8, dw [out][nb] f32 -> y [out] f32
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+q4_0_matvec_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
+                   const int8_t* __restrict__ xq, const int* __restrict__ qsum,
+                   const float* __restrict__ dx, float* __restrict__ y,
+                   int out, int nb) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  if (row >= out) return;
+  const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
+  const float* drow = dw + static_cast<size_t>(row) * nb;
+  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int b = lane; b < nb; b += 32) {
+    const uint4 w = __ldg(wrow + b);
+    const uint4 qe = __ldg(xq4 + 2 * b);
+    const uint4 qo = __ldg(xq4 + 2 * b + 1);
+    int s = dot_word(w.x, qe.x, qo.x, 0);
+    s = dot_word(w.y, qe.y, qo.y, s);
+    s = dot_word(w.z, qe.z, qo.z, s);
+    s = dot_word(w.w, qe.w, qo.w, s);
+    const int part = s - 8 * __ldg(qsum + b);
+    const float scale = __fmul_rn(__ldg(drow + b), __ldg(dx + b));
+    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(part), scale));
+  }
+  acc = warp_sum_f(acc);
+  if (lane == 0) y[row] = acc;
+}
+
+}  // namespace
+
+// Launches the pre-pass and the matvec on `stream`; scratch xq [in] int8,
+// qsum [in/32] int32 and dx [in/32] f32 come from the caller.
+extern "C" int q4_0_matvec(const void* qs, const void* dw, const void* x, void* xq,
+                           void* qsum, void* dx, void* y, int out, int in_dim,
+                           void* stream) {
+  const int nb = in_dim / QK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_x_kernel<<<(nb + 7) / 8, 256, 0, s>>>(
+      static_cast<const float*>(x), nb, static_cast<int8_t*>(xq),
+      static_cast<int*>(qsum), static_cast<float*>(dx));
+  q4_0_matvec_kernel<<<(out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, ROWS_PER_BLOCK * 32, 0, s>>>(
+      static_cast<const uint8_t*>(qs), static_cast<const float*>(dw),
+      static_cast<const int8_t*>(xq), static_cast<const int*>(qsum),
+      static_cast<const float*>(dx), static_cast<float*>(y), out, nb);
+  return static_cast<int>(cudaGetLastError());
+}

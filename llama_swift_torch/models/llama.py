@@ -1,0 +1,369 @@
+"""LLaMA forward pass in PyTorch (counterpart of ``llama_swift_tpu/models/llama.py``).
+
+Graph, op for op (``LlamaPredictOperation.mm:558-712``): tok_embedding
+get_rows → per layer [ norm·attention_norm → wq/wk/wv → rope(Q)/rope(K) → KV
+store → softmax(K·Qᵀ/√d, causal) · V → wo → +residual → norm·ffn_norm →
+silu(w1·x)·(w3·x) → w2 → +residual ] → final norm·norm → output matmul.
+
+The port runs eagerly: layers are a Python loop over views of stacked
+``[L, ...]`` weights (the JAX package's unrolled path), and the KV cache is
+written in place.  Single-token steps reach two CUDA kernels — the Q4_0
+matvec for every matmul and flash-decode attention — and multi-token
+(prefill) steps reach the Q4_0 dequant kernel before each matmul.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import QK, ModelConfig
+from ..formats.ggml import GGMLModelFile, expected_tensor_shapes
+from ..formats.quant import Q4_0Tensor, Q4_1Tensor
+from ..ops import quantized_matmul as qmm
+from ..ops.attention import flash_decode_attention
+from ..ops.norms import norm
+from ..ops.q4_matvec import Q4_0Weight
+from ..ops.rope import rope
+
+Params = dict
+Cache = dict
+
+LAYER_WEIGHTS = (
+    "attention_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3",
+)
+
+#: prefill contexts at/above this use the chunked online-softmax attention
+#: (peak score memory [H, N, chunk] instead of [H, N, n_ctx])
+FLASH_PREFILL_MIN_CTX = 1024
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another device (``"cpu"`` in the tests); no silent fallback."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _loader_name(il: int, w: str) -> str:
+    if w in ("wq", "wk", "wv", "wo"):
+        return f"layers.{il}.attention.{w}.weight"
+    if w in ("w1", "w2", "w3"):
+        return f"layers.{il}.feed_forward.{w}.weight"
+    return f"layers.{il}.{w}.weight"
+
+
+def _to_device(a, device, dense_dtype):
+    """One loader tensor → the port's device form (Q4_0 stays packed)."""
+    if isinstance(a, Q4_0Tensor):
+        return Q4_0Weight.from_q4_0(a, device)
+    if isinstance(a, Q4_1Tensor):
+        raise NotImplementedError("Q4_1 weights are not served by the port yet")
+    a = np.asarray(a)
+    dtype = torch.float32 if a.ndim == 1 else dense_dtype
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device, dtype)
+
+
+def params_from_tensors(
+    tensors: dict,
+    cfg: ModelConfig,
+    *,
+    device=None,
+    param_dtype: Optional[torch.dtype] = None,
+) -> Params:
+    """Arrange loader output (``formats/ggml.py``) into the model's params.
+
+    Q4_0 tensors stay packed (:class:`Q4_0Weight`); dense f16/f32 weights
+    become ``param_dtype`` (default f32 on the CPU, bf16 on the card — the
+    JAX package's choice off and on the TPU); norms are always f32.  Layer
+    weights are stacked ``[L, ...]`` in ``params["layers_stacked"]``,
+    filled layer by layer on the device (no host-side stack).
+    """
+    device = resolve_device(device)
+    if param_dtype is None:
+        param_dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    cvt = functools.partial(_to_device, device=device, dense_dtype=param_dtype)
+    stacked: dict = {}
+    for il in range(cfg.n_layer):
+        for w in LAYER_WEIGHTS:
+            t = _to_device(tensors[_loader_name(il, w)], "cpu", param_dtype)
+            if w not in stacked:
+                stacked[w] = _empty_stack(t, cfg.n_layer, device)
+            dst = _stack_at(stacked[w], il)
+            if isinstance(t, Q4_0Weight):
+                dst.qs.copy_(t.qs)
+                dst.d.copy_(t.d)
+            else:
+                dst.copy_(t)
+    return {
+        "tok_embeddings": cvt(tensors["tok_embeddings.weight"]),
+        "norm": cvt(tensors["norm.weight"]),
+        "output": cvt(tensors["output.weight"]),
+        "layers_stacked": stacked,
+    }
+
+
+def _empty_stack(t, n_layer: int, device):
+    if isinstance(t, Q4_0Weight):
+        return Q4_0Weight(_empty_stack(t.qs, n_layer, device), _empty_stack(t.d, n_layer, device))
+    return torch.empty((n_layer,) + tuple(t.shape), dtype=t.dtype, device=device)
+
+
+def _stack_at(stack, il: int):
+    return stack.layer(il) if isinstance(stack, Q4_0Weight) else stack[il]
+
+
+def params_from_file(model: GGMLModelFile, *, device=None, param_dtype=None) -> Params:
+    return params_from_tensors(model.tensors, model.config, device=device, param_dtype=param_dtype)
+
+
+def _unpack_qs_v(qs4v: np.ndarray) -> np.ndarray:
+    """JAX V layout words ``[..., out/128, 128, in/8]`` (group-major lanes:
+    lane ``g·nb + b`` holds u32 #g of block b) → logical nibble bytes
+    ``[..., out, in/2]`` — the inverse of ``_pack_qs_v``
+    (``llama_swift_tpu/ops/q4_vpu_pallas.py:62-89``)."""
+    qs4 = np.asarray(qs4v).view(np.uint32)
+    *lead, ot, lt, kh4 = qs4.shape
+    nb = kh4 // 4
+    qs4 = qs4.reshape(*lead, ot * lt, 4, nb).swapaxes(-1, -2)  # [..., out, nb, 4]
+    return np.ascontiguousarray(qs4).view(np.uint8).reshape(*lead, ot * lt, kh4 * 4)
+
+
+def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Params:
+    """Carry JAX params across: ``tree`` is the JAX package's stacked params
+    pytree after ``jax.tree_util.tree_map(np.asarray, ...)``.
+
+    Q4_0 containers are recognised by their field names, without importing
+    the JAX classes: ``qs4v``/``scales_v`` (V layout: unpacked to logical
+    order, the 4096 in-dim zero padding dropped) or ``qs``/``scales``
+    (logical).  Dense leaves become f32 tensors.
+    """
+    device = resolve_device(device)
+    if "layers_stacked" not in tree:
+        raise ValueError("params_from_jax_numpy: expected stacked JAX params (layers_stacked)")
+    in_dims = {"w2": cfg.n_ff}
+
+    def cvt(a, in_dim: int, out_dim: Optional[int] = None):
+        if hasattr(a, "qs4v"):
+            qs = _unpack_qs_v(a.qs4v)[..., : in_dim // 2]
+            sc = np.asarray(a.scales_v, dtype=np.float32)
+            sc = sc.reshape(*sc.shape[:-3], -1, sc.shape[-1])[..., : in_dim // QK]
+        elif hasattr(a, "qs") and hasattr(a, "scales"):
+            qs, sc = np.asarray(a.qs), np.asarray(a.scales, dtype=np.float32)
+        elif hasattr(a, "qs4w") or hasattr(a, "qs4") or hasattr(a, "sm_v"):
+            raise NotImplementedError(f"params_from_jax_numpy: layout {type(a).__name__} is not carried across")
+        else:
+            return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        if out_dim is not None:
+            qs, sc = qs[..., :out_dim, :], sc[..., :out_dim, :]
+        return Q4_0Weight(
+            torch.from_numpy(np.ascontiguousarray(qs, dtype=np.uint8)).to(device),
+            torch.from_numpy(np.ascontiguousarray(sc)).to(device),
+        )
+
+    stacked = tree["layers_stacked"]
+    if "wqkv" in stacked or "w13" in stacked:
+        raise NotImplementedError("params_from_jax_numpy: fused wqkv/w13 params are not carried across")
+    return {
+        "tok_embeddings": cvt(tree["tok_embeddings"], cfg.n_embd, cfg.n_vocab),
+        "norm": cvt(tree["norm"], cfg.n_embd),
+        "output": cvt(tree["output"], cfg.n_embd, cfg.n_vocab),
+        "layers_stacked": {
+            k: cvt(v, in_dims.get(k, cfg.n_embd), cfg.n_ff if k in ("w1", "w3") else None)
+            for k, v in stacked.items()
+        },
+    }
+
+
+def random_params(
+    cfg: ModelConfig, seed: int = 0, scale: float = 0.05, dtype=np.float32
+) -> dict:
+    """Random numpy weights in loader-tensor naming, for tests/fixtures."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in expected_tensor_shapes(cfg).items():
+        if len(shape) == 1:
+            out[name] = (1.0 + scale * rng.standard_normal(shape)).astype(np.float32)
+        else:
+            out[name] = (scale * rng.standard_normal(shape)).astype(dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, dtype=None, *, device=None) -> Cache:
+    """Dense KV cache ``[L, H, n_ctx, Dh]`` (head-major: each head's history
+    contiguous; keys stored post-rope), f32 or bf16.  ``forward`` writes it
+    in place at ``(il, :, n_past, :)``."""
+    if dtype is None:
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError("the int8 KV cache is not served by the port yet")
+        dtype = getattr(torch, cfg.kv_cache_dtype)
+    shape = (cfg.n_layer, cfg.n_head, cfg.n_ctx, cfg.head_dim)
+    device = resolve_device(device)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _attention_chunked(q, keys, values, n_past: int, n_ctx: int, compute_dtype, chunk: int = 512):
+    """Online-softmax prefill attention over key chunks, so peak score
+    memory is ``[H, N, chunk]`` (counterpart of ``_attention_flash_xla``).
+    Same mask as :func:`_attention`, softmax reassociated."""
+    N, d = q.shape[0], q.shape[-1]
+    H = keys.shape[0]
+    scale = 1.0 / np.sqrt(float(d))
+    qf = q.float().transpose(0, 1)  # [H, N, Dh]
+    i_idx = torch.arange(N, device=q.device)[:, None]
+    m = torch.full((H, N, 1), float("-inf"), device=q.device)
+    l = torch.zeros((H, N, 1), device=q.device)
+    acc = torch.zeros((H, N, d), device=q.device)
+    for c0 in range(0, n_ctx, chunk):
+        kc = keys[:, c0 : c0 + chunk].float()
+        vc = values[:, c0 : c0 + chunk].float()
+        s = torch.einsum("hnd,hjd->hnj", qf, kc) * scale
+        allowed = (c0 + torch.arange(kc.shape[1], device=q.device)[None, :]) <= (n_past + i_idx)
+        s = torch.where(allowed[None], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+        p = torch.exp(s - m_safe)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("hnj,hjd->hnd", p, vc)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(0, 1).to(compute_dtype)
+
+
+def _attention(q, keys, values, n_past: int, n_ctx: int, compute_dtype):
+    """Causal attention over the full cache buffer: q ``[N, H, Dh]``,
+    keys/values ``[H, n_ctx, Dh]``; query i attends keys ``j <= n_past + i``
+    (``ggml_diag_mask_inf``, ``ggml.c:6921-6981``), so stale slots beyond
+    the high-water mark are never attended."""
+    if n_ctx >= FLASH_PREFILL_MIN_CTX and n_ctx % 512 == 0:
+        return _attention_chunked(q, keys, values, n_past, n_ctx, compute_dtype)
+    N, d = q.shape[0], q.shape[-1]
+    scale = 1.0 / np.sqrt(float(d))
+    scores = torch.einsum("nhd,hjd->hnj", q.float(), keys.float()) * scale
+    i_idx = torch.arange(N, device=q.device)[:, None]
+    j_idx = torch.arange(n_ctx, device=q.device)[None, :]
+    scores = torch.where((j_idx <= n_past + i_idx)[None], scores, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("hnj,hjd->nhd", p, values.float()).to(compute_dtype)
+
+
+def _layer_at(stacked: dict, il: int) -> dict:
+    return {k: _stack_at(v, il) for k, v in stacked.items()}
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,  # [N] int64 on the params' device (may include right-padding)
+    n_past: int,  # tokens already in the cache
+    cache: Cache,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, Cache]:
+    """One evaluation over N token slots starting at position ``n_past``.
+
+    Returns (logits ``[N, n_vocab]`` f32, cache).  The cache is updated in
+    place: the JAX package's functional ``dynamic_update_slice`` at
+    ``(il, :, n_past, :)`` (``models/llama.py:697-722`` there) becomes a
+    slice assignment into the preallocated buffer.
+    """
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+    N = tokens.shape[0]
+    if n_past + N > cfg.n_ctx:
+        raise ValueError(f"forward: {N} tokens at n_past={n_past} overflow n_ctx={cfg.n_ctx}")
+    lin = functools.partial(
+        qmm.linear,
+        quantize_activations=cfg.quantize_activations,
+        compute_dtype=compute_dtype,
+        dense_matmul_dtype=torch.bfloat16 if (cfg.prefill_bf16 and N > 1) else None,
+    )
+    H, Dh = cfg.n_head, cfg.head_dim
+    positions = torch.arange(n_past, n_past + N, device=tokens.device)
+    x = qmm.embedding_lookup(tokens, params["tok_embeddings"], compute_dtype=compute_dtype)
+    k_cache, v_cache = cache["k"], cache["v"]
+    use_flash = cfg.use_flash_decode and N == 1
+    stacked = params["layers_stacked"]
+    for il in range(cfg.n_layer):
+        layer = _layer_at(stacked, il)
+        h = norm(x, layer["attention_norm"], cfg.norm_type, cfg.norm_eps)
+        q = lin(h, layer["wq"]).reshape(N, H, Dh)
+        k = lin(h, layer["wk"]).reshape(N, H, Dh)
+        v = lin(h, layer["wv"]).reshape(N, H, Dh)
+        # rope over the full head dim (eval recomputes n_rot = n_embd/n_head,
+        # .mm:528, ignoring the file's n_rot field)
+        q = rope(q, positions, Dh)
+        k = rope(k, positions, Dh)
+        k_cache[il, :, n_past : n_past + N] = k.transpose(0, 1).to(k_cache.dtype)
+        v_cache[il, :, n_past : n_past + N] = v.transpose(0, 1).to(v_cache.dtype)
+        if use_flash:
+            ctx = flash_decode_attention(q[0].float().contiguous(), k_cache, v_cache, il, n_past)
+            ctx = ctx[None].to(compute_dtype)
+        else:
+            ctx = _attention(q, k_cache[il], v_cache[il], n_past, cfg.n_ctx, compute_dtype)
+        x = x + lin(ctx.reshape(N, cfg.n_embd), layer["wo"])
+        # feed-forward block: silu(w1·h) * (w3·h) → w2   (.mm:658-684)
+        h = norm(x, layer["ffn_norm"], cfg.norm_type, cfg.norm_eps)
+        g1 = lin(h, layer["w1"])
+        g3 = lin(h, layer["w3"])
+        gate = torch.nn.functional.silu(g1.float()).to(compute_dtype)
+        x = x + lin(gate * g3, layer["w2"])
+    x = norm(x, params["norm"], cfg.norm_type, cfg.norm_eps)
+    logits = lin(x, params["output"]).float()
+    return logits[:, : cfg.n_vocab], cache
+
+
+def prefill(params, tokens, n_past: int, cache, cfg: ModelConfig):
+    """Process a (padded) prompt chunk; returns (all logits, cache)."""
+    return forward(params, tokens, n_past, cache, cfg)
+
+
+def decode_step(params, token, n_past: int, cache, cfg: ModelConfig):
+    """Single-token decode; ``token`` is a 0-d int64 tensor.  Returns
+    (logits ``[n_vocab]``, cache)."""
+    logits, cache = forward(params, token.reshape(1), n_past, cache, cfg)
+    return logits[0], cache
+
+
+def greedy_decode_loop(params, first_token, n_past: int, cache, cfg: ModelConfig, n_steps: int):
+    """``n_steps`` of greedy decode; tokens stay on the device between
+    steps (no host read until the caller asks).  Returns (token ids
+    ``[n_steps]``, cache)."""
+    token = first_token.reshape(1)
+    toks = []
+    for i in range(n_steps):
+        logits, cache = forward(params, token, n_past + i, cache, cfg)
+        token = logits[0].argmax().reshape(1)
+        toks.append(token)
+    return torch.cat(toks), cache
+
+
+def pad_tokens(ids: list[int], multiple: int) -> tuple[np.ndarray, int]:
+    """Right-pad a token list to a shape bucket (pad id 0); returns
+    (padded ``[P]`` int32, true length)."""
+    n = len(ids)
+    p = max(multiple, ((n + multiple - 1) // multiple) * multiple)
+    out = np.zeros(p, dtype=np.int32)
+    out[:n] = ids
+    return out, n

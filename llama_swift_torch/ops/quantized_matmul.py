@@ -1,0 +1,116 @@
+"""Quantized linear ops: ``y = x @ W.T`` for dense and Q4_0 weights
+(counterpart of ``llama_swift_tpu/ops/quantized_matmul.py``).
+
+Parity-relevant semantics of the reference's quantized matmul
+(``ggml_compute_forward_mul_mat_q4_0_f32``, ``ggml.c:5987-6285``): the
+activations are quantized to Q4_0 too and the dot is int4×int4, scaled by
+the product of block scales; rounding is half away from zero.
+
+:func:`linear` dispatches on the weight type and the number of rows:
+
+* Q4_0, one row → the matvec kernel (``ops/q4_matvec.py``), exact integer
+  block dots;
+* Q4_0, more rows → fake-quantize the activations, dequantize the weight
+  with the dequant kernel (``ops/q4_dequant.py``), then one ``torch.matmul``
+  (the JAX package leaves this product to XLA);
+* dense → ``torch.matmul`` in f32.
+
+A CPU tensor takes each kernel's plain version.  Q4_1 weights are not served
+by the port yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import QK
+from .q4_dequant import dequantize_q4_0, q4_0_dequant
+from .q4_matvec import Q4_0Weight, q4_0_matvec
+
+# f32 products on the card run in full f32: TF32 would keep ~3 decimal
+# digits.  Both flags default to these values; set explicitly.  bf16
+# products reduce in f32 as well.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+__all__ = [
+    "dequantize_q4_0", "embedding_lookup", "fake_quantize_q4_0",
+    "fake_quantize_q4_1", "linear", "round_half_away",
+]
+
+
+def round_half_away(v: torch.Tensor) -> torch.Tensor:
+    """C ``round()``: half away from zero (``ggml.c:588``); ``torch.round``
+    rounds half to even."""
+    return torch.trunc(v + torch.where(v >= 0, 0.5, -0.5))
+
+
+def fake_quantize_q4_0(x: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize activation rows through Q4_0 (the INIT phase of
+    the reference's quantized matmul, ``ggml.c:6134-6151``).  x ``[..., k]``,
+    k % 32 == 0; same shape and dtype out."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], shape[-1] // QK, QK)
+    d = xf.abs().amax(dim=-1, keepdim=True) / 7.0
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
+    return (round_half_away(xf * inv) * d).reshape(shape).to(x.dtype)
+
+
+def fake_quantize_q4_1(x: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize through Q4_1 (runtime ``quantize_row_q4_1``
+    semantics, true min/max — ``ggml.c:606-648``)."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], shape[-1] // QK, QK)
+    mn = xf.amin(dim=-1, keepdim=True)
+    d = (xf.amax(dim=-1, keepdim=True) - mn) / 15.0
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
+    return (round_half_away((xf - mn) * inv) * d + mn).reshape(shape).to(x.dtype)
+
+
+def _matmul_f32_out(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """``x @ wd.T`` with f32 accumulation and an f32 result (bf16 operands
+    keep f32 outputs, as ``preferred_element_type=f32`` does in JAX)."""
+    if wd.dtype == torch.float32:
+        return torch.matmul(x.float(), wd.t())
+    return torch.mm(x.to(wd.dtype), wd.t(), out_dtype=torch.float32)
+
+
+def linear(
+    x: torch.Tensor,
+    w,
+    *,
+    quantize_activations: bool = True,
+    compute_dtype=torch.float32,
+    dense_matmul_dtype=None,
+) -> torch.Tensor:
+    """``y[..., out] = x[..., in] @ W[out, in].T`` (``ggml_mul_mat(w, x)``,
+    ``ggml.c:3623-3646``).
+
+    ``dense_matmul_dtype``: operand dtype of the prefill dense-dequant
+    matmul on the card (``torch.bfloat16`` when ``cfg.prefill_bf16``); CPU
+    tensors always compute in f32, as the JAX package does off the TPU.
+    """
+    lead = x.shape[:-1]
+    if isinstance(w, Q4_0Weight):
+        out_dim, in_dim = w.shape
+        n_rows = x.numel() // x.shape[-1]
+        if n_rows == 1 and quantize_activations:
+            y = q4_0_matvec(x.reshape(in_dim).float().contiguous(), w)
+            return y.reshape(*lead, out_dim).to(compute_dtype)
+        if quantize_activations:
+            x = fake_quantize_q4_0(x)
+        mm_dtype = dense_matmul_dtype if (dense_matmul_dtype is not None and x.is_cuda) else torch.float32
+        y = _matmul_f32_out(x.reshape(n_rows, in_dim), q4_0_dequant(w, mm_dtype))
+        return y.reshape(*lead, out_dim).to(compute_dtype)
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(f"linear: weights of type {type(w).__name__} are not served by the port")
+    return torch.matmul(x.float(), w.float().t()).to(compute_dtype)
+
+
+def embedding_lookup(tokens: torch.Tensor, w, *, compute_dtype=torch.float32) -> torch.Tensor:
+    """``ggml_get_rows`` (``ggml.c:6760-6920``): rows of the (possibly
+    quantized) embedding table, dequantized to f32 per row."""
+    if isinstance(w, Q4_0Weight):
+        rows = Q4_0Weight(w.qs.index_select(0, tokens), w.d.index_select(0, tokens))
+        return dequantize_q4_0(rows, compute_dtype)
+    return w.index_select(0, tokens).to(compute_dtype)
