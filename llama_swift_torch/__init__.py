@@ -3,7 +3,9 @@
 It mirrors ``llama_swift_tpu`` module for module and does not depend on
 it.  The batch-1 serving path runs through three hand-written CUDA kernels
 (``csrc/``): the Q4_0 matvec, flash-decode attention and the Q4_0 dequant
-that feeds the prefill matmuls.  They are built with ``nvcc`` at first use.
+that feeds the prefill matmuls.  The continuous-batching ``Engine`` adds
+three more: the multi-row Q4_0 matmul and the batched and paged
+flash-decode attention.  They are built with ``nvcc`` at first use.
 
     from llama_swift_torch import LlamaRunner, RunnerConfig
 
@@ -19,6 +21,7 @@ from .runtime.errors import (
     LlamaError,
     PredictionFailedError,
 )
+from .runtime.engine import Engine, StreamHandle
 from .runtime.events import Event, EventKind, RunState
 from .runtime.runner import LlamaRunner
 from .tokenizer import BOS_TOKEN_ID, Vocab
@@ -26,6 +29,7 @@ from .tokenizer import BOS_TOKEN_ID, Vocab
 __all__ = [
     "BOS_TOKEN_ID",
     "ERROR_DOMAIN",
+    "Engine",
     "Event",
     "EventKind",
     "FailedToLoadModelError",
@@ -38,6 +42,7 @@ __all__ = [
     "RunState",
     "RunnerConfig",
     "SamplingConfig",
+    "StreamHandle",
     "Vocab",
 ]
 

@@ -32,6 +32,32 @@
 //    as 8*sum(q), like the TPU kernel's aux row.  Block partials are exact
 //    integers; only the f32 sum over blocks is reassociated (per lane, then
 //    a warp shuffle reduction).
+//
+// Multi-row matmul (q4_0_matmul_multi, 2..32 activation rows, the batched
+// decode step of the continuous-batching engine).
+//
+// Replaces the TPU kernel `_make_multi_kernel` / `_multi_grid_kernel*`
+// (llama_swift_tpu/ops/q4_vpu_pallas.py, entry point q4_0_vpu_matmul_multi):
+//
+//   y[r, o] = sum_b d_w[o,b] * d_x[r,b] * (sum_i n[o,32b+i] q[r,32b+i] - 8 sum_i q[r,32b+i])
+//
+// What bounds it on the H100: still the weight stream at small B (the same
+// 0.625 bytes a weight as the matvec, now shared by B rows); the work grows
+// to 2*B integer operations a weight, which at B = 32 is still far below
+// the dp4a rate.  The activation side is B times larger than for the
+// matvec: 88 KB of int8 at B = 8, in = 11008, and 352 KB at B = 32, more
+// than a block's 227 KB of shared memory.
+//
+// Design: the pre-pass is the matvec's quantize_x_kernel over all B*nb
+// blocks of the row-major [B, in] activation (a row's blocks follow each
+// other, so one launch quantizes every row with the same rounding).  The
+// main kernel keeps the matvec's warp-per-output-row shape: lane l loads
+// weight block b = l, l+32, ... ONCE (16 bytes of nibbles and its scale)
+// and dp4a-dots it against the matching 32 bytes of every row's q, which
+// are read through L1/L2 with __ldg rather than staged in shared memory,
+// so no row count overflows it.  The lane keeps one f32 accumulator per
+// row (a compile-time row count R in {2, 4, 8, 16, 32}; rows >= B are
+// skipped), and a warp reduction per row finishes each output.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,6 +142,51 @@ q4_0_matvec_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
   if (lane == 0) y[row] = acc;
 }
 
+// qs [out][nb*16] u8, dw [out][nb] f32, xq [B][nb*32] i8, qsum/dx [B][nb]
+//   -> y [B][out] f32; R >= B accumulators per lane
+template <int R>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+q4_0_matmul_multi_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
+                         const int8_t* __restrict__ xq, const int* __restrict__ qsum,
+                         const float* __restrict__ dx, float* __restrict__ y,
+                         int out, int nb, int B) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  if (row >= out) return;
+  const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
+  const float* drow = dw + static_cast<size_t>(row) * nb;
+  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+  for (int b = lane; b < nb; b += 32) {
+    const uint4 w = __ldg(wrow + b);
+    const float d = __ldg(drow + b);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < B) {
+        const size_t xb = static_cast<size_t>(r) * nb + b;  // block b of row r
+        const uint4 qe = __ldg(xq4 + 2 * xb);
+        const uint4 qo = __ldg(xq4 + 2 * xb + 1);
+        int s = dot_word(w.x, qe.x, qo.x, 0);
+        s = dot_word(w.y, qe.y, qo.y, s);
+        s = dot_word(w.z, qe.z, qo.z, s);
+        s = dot_word(w.w, qe.w, qo.w, s);
+        const int part = s - 8 * __ldg(qsum + xb);
+        const float scale = __fmul_rn(d, __ldg(dx + xb));
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(static_cast<float>(part), scale));
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < B) {
+      const float v = warp_sum_f(acc[r]);
+      if (lane == 0) y[static_cast<size_t>(r) * out + row] = v;
+    }
+  }
+}
+
 }  // namespace
 
 // Launches the pre-pass and the matvec on `stream`; scratch xq [in] int8,
@@ -132,5 +203,36 @@ extern "C" int q4_0_matvec(const void* qs, const void* dw, const void* x, void* 
       static_cast<const uint8_t*>(qs), static_cast<const float*>(dw),
       static_cast<const int8_t*>(xq), static_cast<const int*>(qsum),
       static_cast<const float*>(dx), static_cast<float*>(y), out, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows (2..32) of x [B, in] against one weight; scratch xq [B, in] int8,
+// qsum and dx [B, in/32] come from the caller; y is [B, out].
+extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, void* xq,
+                                 void* qsum, void* dx, void* y, int out, int in_dim,
+                                 int B, void* stream) {
+  const int nb = in_dim / QK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > 32) return static_cast<int>(cudaErrorInvalidValue);
+  quantize_x_kernel<<<(B * nb + 7) / 8, 256, 0, s>>>(
+      static_cast<const float*>(x), B * nb, static_cast<int8_t*>(xq),
+      static_cast<int*>(qsum), static_cast<float*>(dx));
+  const dim3 grid((out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK), block(ROWS_PER_BLOCK * 32);
+  const uint8_t* q = static_cast<const uint8_t*>(qs);
+  const float* d = static_cast<const float*>(dw);
+  const int8_t* xqp = static_cast<const int8_t*>(xq);
+  const int* qsp = static_cast<const int*>(qsum);
+  const float* dxp = static_cast<const float*>(dx);
+  float* yp = static_cast<float*>(y);
+  if (B <= 2)
+    q4_0_matmul_multi_kernel<2><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
+  else if (B <= 4)
+    q4_0_matmul_multi_kernel<4><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
+  else if (B <= 8)
+    q4_0_matmul_multi_kernel<8><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
+  else if (B <= 16)
+    q4_0_matmul_multi_kernel<16><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
+  else
+    q4_0_matmul_multi_kernel<32><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
   return static_cast<int>(cudaGetLastError());
 }

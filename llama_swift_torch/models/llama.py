@@ -9,7 +9,15 @@ The port runs eagerly: layers are a Python loop over views of stacked
 ``[L, ...]`` weights (the JAX package's unrolled path), and the KV cache is
 written in place.  Single-token steps reach two CUDA kernels — the Q4_0
 matvec for every matmul and flash-decode attention — and multi-token
-(prefill) steps reach the Q4_0 dequant kernel before each matmul.
+(prefill) steps reach the Q4_0 dequant kernel before each matmul (the
+multi-row kernel for 2–32 rows).
+
+The continuous-batching engine (``runtime/engine.py``) adds a batched
+cache, dense (``init_cache_batched``, ``[L, B, H, n_ctx, Dh]``) or paged
+(``init_cache_paged``, a page pool and a page table), the slot admission
+path ``forward(..., slot=)`` and ``forward_batched``: one decode step for B
+slots, whose matmuls reach the multi-row Q4_0 kernel and whose attention
+reaches the batched or paged flash-decode kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +32,13 @@ from ..config import QK, ModelConfig
 from ..formats.ggml import GGMLModelFile, expected_tensor_shapes
 from ..formats.quant import Q4_0Tensor, Q4_1Tensor
 from ..ops import quantized_matmul as qmm
-from ..ops.attention import flash_decode_attention
+from ..ops.attention import (
+    flash_decode_attention,
+    flash_decode_attention_batched,
+    flash_decode_attention_paged,
+    gather_pages,
+    reference_decode_attention_batched,
+)
 from ..ops.norms import norm
 from ..ops.q4_matvec import Q4_0Weight
 from ..ops.rope import rope
@@ -205,20 +219,73 @@ def random_params(
 # ---------------------------------------------------------------------------
 
 
+def _cache_dtype(cfg: ModelConfig, dtype):
+    if dtype is not None:
+        return dtype
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("the int8 KV cache is not served by the port yet")
+    return getattr(torch, cfg.kv_cache_dtype)
+
+
 def init_cache(cfg: ModelConfig, dtype=None, *, device=None) -> Cache:
     """Dense KV cache ``[L, H, n_ctx, Dh]`` (head-major: each head's history
     contiguous; keys stored post-rope), f32 or bf16.  ``forward`` writes it
     in place at ``(il, :, n_past, :)``."""
-    if dtype is None:
-        if cfg.kv_cache_dtype == "int8":
-            raise NotImplementedError("the int8 KV cache is not served by the port yet")
-        dtype = getattr(torch, cfg.kv_cache_dtype)
+    dtype = _cache_dtype(cfg, dtype)
     shape = (cfg.n_layer, cfg.n_head, cfg.n_ctx, cfg.head_dim)
     device = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def init_cache_batched(cfg: ModelConfig, batch: int, dtype=None, *, device=None) -> Cache:
+    """Layer-major batched KV cache ``[L, B, H, n_ctx, Dh]`` for
+    :func:`forward_batched` and the slot path of :func:`forward`: layer
+    ``il``'s planes of all slots are one contiguous ``[B, H, n_ctx, Dh]``
+    block, which the batched flash kernel reads in place."""
+    dtype = _cache_dtype(cfg, dtype)
+    shape = (cfg.n_layer, batch, cfg.n_head, cfg.n_ctx, cfg.head_dim)
+    device = resolve_device(device)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def init_cache_paged(
+    cfg: ModelConfig, n_pages: int, max_slots: int, dtype=None, page: int = 128, *, device=None,
+) -> Cache:
+    """Paged batched KV cache: a pool ``[n_pages, L, H, page, Dh]`` of
+    position-range pages, each holding one slot's ``page`` positions across
+    all layers, and a table ``[max_slots, MP]`` int32 of page ids
+    (``MP = ceil(n_ctx / page)``).  A slot's footprint grows with its
+    sequence instead of a dense ``n_ctx`` plane.
+
+    The LAST page is scratch: every table entry points at it until the
+    engine allocates, so writes from idle slots (a step computes all B
+    lanes) land there instead of on a live page."""
+    dtype = _cache_dtype(cfg, dtype)
+    page = min(page, cfg.n_ctx)
+    mp = -(-cfg.n_ctx // page)
+    shape = (n_pages, cfg.n_layer, cfg.n_head, page, cfg.head_dim)
+    device = resolve_device(device)
+    return {
+        "k_pool": torch.zeros(shape, dtype=dtype, device=device),
+        "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+        "page_table": torch.full((max_slots, mp), n_pages - 1, dtype=torch.int32, device=device),
+    }
+
+
+def _paged_write(pool, table, il: int, positions, val) -> None:
+    """Store ``val [N, H, Dh]`` at ``positions [N]`` (device int64) of layer
+    ``il`` through one table row ``table [MP]``: per-position page ids, so
+    a chunk may start at any position and straddle pages (the JAX package's
+    single-write fast path assumes an aligned start)."""
+    page = pool.shape[3]
+    pids = table[positions // page].long().clamp(0, pool.shape[0] - 1)
+    pool.select(1, il)[pids, :, positions % page] = val.to(pool.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +348,7 @@ def forward(
     n_past: int,  # tokens already in the cache
     cache: Cache,
     cfg: ModelConfig,
+    slot: Optional[int] = None,
 ) -> tuple[torch.Tensor, Cache]:
     """One evaluation over N token slots starting at position ``n_past``.
 
@@ -288,6 +356,12 @@ def forward(
     place: the JAX package's functional ``dynamic_update_slice`` at
     ``(il, :, n_past, :)`` (``models/llama.py:697-722`` there) becomes a
     slice assignment into the preallocated buffer.
+
+    ``slot``: the engine's admission path.  ``cache`` is then a batched
+    cache (:func:`init_cache_batched` or :func:`init_cache_paged`) and only
+    slot ``slot``'s positions are written and read: the dense planes at
+    ``(il, slot)``, or the slot's pages through its table row (attention
+    then runs over the slot's pages gathered into a dense ``[H, n_ctx, Dh]``).
     """
     compute_dtype = getattr(torch, cfg.compute_dtype)
     N = tokens.shape[0]
@@ -302,8 +376,14 @@ def forward(
     H, Dh = cfg.n_head, cfg.head_dim
     positions = torch.arange(n_past, n_past + N, device=tokens.device)
     x = qmm.embedding_lookup(tokens, params["tok_embeddings"], compute_dtype=compute_dtype)
-    k_cache, v_cache = cache["k"], cache["v"]
-    use_flash = cfg.use_flash_decode and N == 1
+    paged = "page_table" in cache
+    if paged:
+        k_cache, v_cache, table = cache["k_pool"], cache["v_pool"], cache["page_table"][slot]
+    elif slot is not None:
+        k_cache, v_cache = cache["k"][:, slot], cache["v"][:, slot]  # [L, H, n_ctx, Dh] views
+    else:
+        k_cache, v_cache = cache["k"], cache["v"]
+    use_flash = cfg.use_flash_decode and N == 1 and slot is None
     stacked = params["layers_stacked"]
     for il in range(cfg.n_layer):
         layer = _layer_at(stacked, il)
@@ -315,20 +395,112 @@ def forward(
         # .mm:528, ignoring the file's n_rot field)
         q = rope(q, positions, Dh)
         k = rope(k, positions, Dh)
-        k_cache[il, :, n_past : n_past + N] = k.transpose(0, 1).to(k_cache.dtype)
-        v_cache[il, :, n_past : n_past + N] = v.transpose(0, 1).to(v_cache.dtype)
+        if paged:
+            _paged_write(k_cache, table, il, positions, k)
+            _paged_write(v_cache, table, il, positions, v)
+            keys = gather_pages(k_cache, table[None], il, cfg.n_ctx)[0]
+            values = gather_pages(v_cache, table[None], il, cfg.n_ctx)[0]
+        else:
+            k_cache[il, :, n_past : n_past + N] = k.transpose(0, 1).to(k_cache.dtype)
+            v_cache[il, :, n_past : n_past + N] = v.transpose(0, 1).to(v_cache.dtype)
+            keys, values = k_cache[il], v_cache[il]
         if use_flash:
             ctx = flash_decode_attention(q[0].float().contiguous(), k_cache, v_cache, il, n_past)
             ctx = ctx[None].to(compute_dtype)
         else:
-            ctx = _attention(q, k_cache[il], v_cache[il], n_past, cfg.n_ctx, compute_dtype)
+            ctx = _attention(q, keys, values, n_past, cfg.n_ctx, compute_dtype)
         x = x + lin(ctx.reshape(N, cfg.n_embd), layer["wo"])
-        # feed-forward block: silu(w1·h) * (w3·h) → w2   (.mm:658-684)
-        h = norm(x, layer["ffn_norm"], cfg.norm_type, cfg.norm_eps)
-        g1 = lin(h, layer["w1"])
-        g3 = lin(h, layer["w3"])
-        gate = torch.nn.functional.silu(g1.float()).to(compute_dtype)
-        x = x + lin(gate * g3, layer["w2"])
+        x = _ffn(x, layer, lin, cfg, compute_dtype)
+    x = norm(x, params["norm"], cfg.norm_type, cfg.norm_eps)
+    logits = lin(x, params["output"]).float()
+    return logits[:, : cfg.n_vocab], cache
+
+
+def _ffn(x, layer, lin, cfg: ModelConfig, compute_dtype):
+    """Feed-forward block with its residual: silu(w1·h) * (w3·h) → w2
+    (``.mm:658-684``)."""
+    h = norm(x, layer["ffn_norm"], cfg.norm_type, cfg.norm_eps)
+    g1 = lin(h, layer["w1"])
+    g3 = lin(h, layer["w3"])
+    gate = torch.nn.functional.silu(g1.float()).to(compute_dtype)
+    return x + lin(gate * g3, layer["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Batched decode (continuous batching: one weight stream for all slots)
+# ---------------------------------------------------------------------------
+
+
+def forward_batched(
+    params: Params,
+    tokens: torch.Tensor,  # [B] int64 on the params' device, one pending token per slot
+    n_pasts,  # [B] host ints (list, numpy array or CPU tensor): per-slot positions
+    cache: Cache,  # init_cache_batched or init_cache_paged
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, Cache]:
+    """One decode step for B slots sharing the weights.
+
+    Every matmul sees all B rows at once (the multi-row Q4_0 kernel for
+    B ≤ 32), so the packed weights cross device memory once per step
+    whatever the occupancy.  Slot b's new K/V land at position
+    ``n_pasts[b]`` (dense: ``k[il, b, :, n_pasts[b]]``; paged: through its
+    table row), then attention reads each slot's keys ``j <= n_pasts[b]``:
+    the batched flash kernel over the dense cache, the paged one over the
+    pool, or the plain masked softmax when ``cfg.use_flash_decode`` is off
+    (dense cache only).  ``n_pasts`` stay host values so that the kernels'
+    grid needs no read back from the card.
+
+    Returns (logits ``[B, n_vocab]`` f32, cache), the cache updated in place.
+    """
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+    host = np.asarray(n_pasts, dtype=np.int64).reshape(-1)
+    B = tokens.shape[0]
+    if host.shape != (B,) or host.min() < 0 or host.max() >= cfg.n_ctx:
+        raise ValueError(f"forward_batched: n_pasts {host.tolist()} must be {B} positions in [0, {cfg.n_ctx})")
+    max_n_past = int(host.max())
+    dev = tokens.device
+    pos = torch.as_tensor(host, device=dev)  # [B] int64: rope, writes, plain attention
+    pos32 = pos.to(torch.int32)  # the kernels' per-slot positions
+    lin = functools.partial(
+        qmm.linear, quantize_activations=cfg.quantize_activations, compute_dtype=compute_dtype,
+    )
+    H, Dh = cfg.n_head, cfg.head_dim
+    paged = "page_table" in cache
+    if paged:
+        k_cache, v_cache, table = cache["k_pool"], cache["v_pool"], cache["page_table"]
+        page = k_cache.shape[3]
+        pids = table[torch.arange(B, device=dev), pos // page].long().clamp(0, k_cache.shape[0] - 1)
+        offs = pos % page
+    else:
+        k_cache, v_cache = cache["k"], cache["v"]
+        slots = torch.arange(B, device=dev)
+    x = qmm.embedding_lookup(tokens, params["tok_embeddings"], compute_dtype=compute_dtype)
+    stacked = params["layers_stacked"]
+    for il in range(cfg.n_layer):
+        layer = _layer_at(stacked, il)
+        h = norm(x, layer["attention_norm"], cfg.norm_type, cfg.norm_eps)
+        q = lin(h, layer["wq"]).reshape(B, H, Dh)
+        k = lin(h, layer["wk"]).reshape(B, H, Dh)
+        v = lin(h, layer["wv"]).reshape(B, H, Dh)
+        # rope treats the slot axis as the position axis: slot b rotates at
+        # its own n_pasts[b]
+        q = rope(q, pos, Dh)
+        k = rope(k, pos, Dh)
+        if paged:
+            k_cache.select(1, il)[pids, :, offs] = k.to(k_cache.dtype)
+            v_cache.select(1, il)[pids, :, offs] = v.to(v_cache.dtype)
+            ctx = flash_decode_attention_paged(
+                q.float().contiguous(), k_cache, v_cache, table, il, pos32, max_n_past)
+        else:
+            k_cache[il, slots, :, pos] = k.to(k_cache.dtype)
+            v_cache[il, slots, :, pos] = v.to(v_cache.dtype)
+            if cfg.use_flash_decode:
+                ctx = flash_decode_attention_batched(
+                    q.float().contiguous(), k_cache, v_cache, il, pos32, max_n_past)
+            else:
+                ctx = reference_decode_attention_batched(q, k_cache[il], v_cache[il], pos)
+        x = x + lin(ctx.to(compute_dtype).reshape(B, cfg.n_embd), layer["wo"])
+        x = _ffn(x, layer, lin, cfg, compute_dtype)
     x = norm(x, params["norm"], cfg.norm_type, cfg.norm_eps)
     logits = lin(x, params["output"]).float()
     return logits[:, : cfg.n_vocab], cache

@@ -1,12 +1,17 @@
-"""Ops of the port: plain PyTorch tensor code, and the three hand-written
-CUDA kernels of the batch-1 serving path (matvec, flash decode, dequant)."""
+"""Ops of the port: plain PyTorch tensor code, and the hand-written CUDA
+kernels of the serving paths: the batch-1 path (matvec, flash decode,
+dequant) and the engine's batched decode (multi-row matmul, batched and
+paged flash decode)."""
 
-from .attention import flash_decode_attention
+from .attention import flash_decode_attention, flash_decode_attention_batched, flash_decode_attention_paged
 from .q4_dequant import q4_0_dequant
-from .q4_matvec import q4_0_matvec
+from .q4_matvec import q4_0_matmul_multi, q4_0_matvec
 
 #: every kernel wrapper; each carries a ``launches`` counter
-KERNELS = (q4_0_matvec, flash_decode_attention, q4_0_dequant)
+KERNELS = (
+    q4_0_matvec, flash_decode_attention, q4_0_dequant,
+    q4_0_matmul_multi, flash_decode_attention_batched, flash_decode_attention_paged,
+)
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,21 @@
-"""Decode attention: the flash-decode kernel's wrapper (``csrc/flash_decode.cu``),
-its plain version, and the unfused reference.
+"""Decode attention: the wrappers of the flash-decode kernels
+(``csrc/flash_decode.cu``), their plain versions, and the unfused reference.
 
 Counterpart of ``llama_swift_tpu/ops/attention.py`` (``flash_decode_attention``,
-``flash_decode_attention_stacked``, ``reference_decode_attention``).  The
-kernel reads one layer of the stacked head-major cache ``[L, H, n_ctx, Dh]``
-in place and only its keys ``j <= n_past``; the note at the top of the CUDA
-source says what bounds it on the H100.
+``flash_decode_attention_stacked``, ``flash_decode_attention_batched``,
+``flash_decode_attention_paged``, ``reference_decode_attention``).  Each
+kernel reads one layer of its cache in place and only the keys
+``j <= n_past`` of each slot:
+
+* batch 1: the stacked head-major cache ``[L, H, n_ctx, Dh]``;
+* batched: the engine's layer-major cache ``[L, B, H, n_ctx, Dh]``;
+* paged: a page pool ``[P, L, H, page, Dh]`` through a table ``[B, MP]``.
+
+The batched and paged entry points take the per-slot positions as a device
+int32 tensor ``n_pasts [B]`` and their largest value ``max_n_past`` as a
+host int (the engine keeps both), so a step reads nothing back from the
+card.  The note at the top of the CUDA source says what bounds the kernels
+on the H100.
 """
 
 from __future__ import annotations
@@ -79,3 +89,118 @@ def flash_decode_attention(q, k_cache, v_cache, il: int, n_past: int) -> torch.T
 
 
 flash_decode_attention.launches = 0
+
+
+def reference_decode_attention_batched(q, keys, values, n_pasts) -> torch.Tensor:
+    """Unfused B-slot reference: q ``[B, H, Dh]``, keys/values ``[B, H, n,
+    Dh]``; slot b attends ``j <= n_pasts[b]`` (the batched
+    ``ggml_diag_mask_inf``).  Returns ``[B, H, Dh]`` f32."""
+    dh = q.shape[-1]
+    s = torch.einsum("bhd,bhjd->bhj", q.float(), keys.float()) * (1.0 / math.sqrt(float(dh)))
+    j = torch.arange(keys.shape[2], device=keys.device)
+    s = torch.where(j[None, None, :] <= n_pasts.to(keys.device)[:, None, None], s, float("-inf"))
+    return torch.einsum("bhj,bhjd->bhd", torch.softmax(s, dim=-1), values.float())
+
+
+def flash_decode_attention_batched_plain(q, k_cache, v_cache, il: int, n_pasts, max_n_past: int):
+    """Plain PyTorch version of the batched kernel: masked softmax over
+    layer ``il`` of the batched cache, keys ``j <= n_pasts[b]`` per slot."""
+    n = max_n_past + 1
+    return reference_decode_attention_batched(q, k_cache[il, :, :, :n], v_cache[il, :, :, :n], n_pasts)
+
+
+def gather_pages(pool, page_table, il: int, n_keys: int) -> torch.Tensor:
+    """Slot-major dense view of the first ``n_keys`` positions of layer
+    ``il``: pool ``[P, L, H, page, Dh]``, table ``[B, MP]`` → ``[B, H,
+    n_keys, Dh]`` (a copy).  Table ids are clamped to the pool, as the
+    kernel does; only the pages that hold those positions are read."""
+    P, _, H, page, dh = pool.shape
+    tab = page_table[:, : -(-n_keys // page)].long().clamp(0, P - 1)  # [B, mp]
+    planes = pool[tab, il]  # [B, mp, H, page, Dh]
+    B, mp = tab.shape
+    return planes.permute(0, 2, 1, 3, 4).reshape(B, H, mp * page, dh)[:, :, :n_keys]
+
+
+def flash_decode_attention_paged_plain(q, k_pool, v_pool, page_table, il: int, n_pasts, max_n_past: int):
+    """Plain PyTorch version of the paged kernel: gather each slot's pages
+    into a dense ``[B, H, n, Dh]``, then the batched masked softmax."""
+    n = max_n_past + 1
+    return reference_decode_attention_batched(
+        q, gather_pages(k_pool, page_table, il, n), gather_pages(v_pool, page_table, il, n), n_pasts)
+
+
+def _check_batched_inputs(what, q, k, v, n_pasts, B, H, dh):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device and n_pasts.device == q.device):
+        raise ValueError(f"{what}: q, the caches and n_pasts must be on the same CUDA device")
+    if q.dtype != torch.float32 or q.shape != (B, H, dh) or not q.is_contiguous():
+        raise ValueError(f"{what}: q must be contiguous float32 [{B}, {H}, {dh}]")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise ValueError(f"{what}: caches must both be float32 or both bfloat16")
+    if v.shape != k.shape or not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{what}: caches must be contiguous and of one shape")
+    if dh % 32 or not 32 <= dh <= 1024:
+        raise ValueError(f"{what}: head dim {dh} must be a multiple of 32 in [32, 1024]")
+    if n_pasts.dtype != torch.int32 or n_pasts.shape != (B,) or not n_pasts.is_contiguous():
+        raise ValueError(f"{what}: n_pasts must be contiguous int32 [{B}]")
+
+
+def flash_decode_attention_batched(q, k_cache, v_cache, il: int, n_pasts, max_n_past: int) -> torch.Tensor:
+    """B-slot single-query attention of ``q [B, H, Dh]`` f32 over layer
+    ``il`` of the batched caches ``[L, B, H, n_ctx, Dh]`` (f32 or bf16):
+    slot b attends keys ``j <= n_pasts[b]`` (int32 ``[B]`` on q's device;
+    ``max_n_past`` bounds them).  Returns ``[B, H, Dh]`` f32.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_batched_plain(q, k_cache, v_cache, il, n_pasts, max_n_past)
+    L, B, H, n_ctx, dh = k_cache.shape
+    _check_batched_inputs("flash_decode_attention_batched", q, k_cache, v_cache, n_pasts, B, H, dh)
+    if not (0 <= il < L and 0 <= max_n_past < n_ctx):
+        raise ValueError(f"flash_decode_attention_batched: il={il}, max_n_past={max_n_past} out of range")
+    n_keys = max_n_past + 1
+    part = torch.empty(B * H * -(-n_keys // SPLIT) * (dh + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    code = build.lib("flash_decode").flash_decode_batched(
+        q.data_ptr(), k_cache[il].data_ptr(), v_cache[il].data_ptr(), n_pasts.data_ptr(),
+        part.data_ptr(), out.data_ptr(), B, H, n_ctx, dh, n_keys,
+        1.0 / math.sqrt(float(dh)), int(k_cache.dtype == torch.bfloat16),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+    build.check(code, "flash_decode_attention_batched")
+    flash_decode_attention_batched.launches += 1
+    return out
+
+
+flash_decode_attention_batched.launches = 0
+
+
+def flash_decode_attention_paged(q, k_pool, v_pool, page_table, il: int, n_pasts, max_n_past: int) -> torch.Tensor:
+    """B-slot single-query attention through a page table: pools ``[P, L,
+    H, page, Dh]`` (f32 or bf16), ``page_table [B, MP]`` int32; key j of
+    slot b is row ``j % page`` of page ``page_table[b, j // page]`` (clamped
+    to the pool).  Entries beyond a slot's live pages are never read.
+    Returns ``[B, H, Dh]`` f32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_paged_plain(q, k_pool, v_pool, page_table, il, n_pasts, max_n_past)
+    P, L, H, page, dh = k_pool.shape
+    B, MP = page_table.shape
+    _check_batched_inputs("flash_decode_attention_paged", q, k_pool, v_pool, n_pasts, B, H, dh)
+    if page_table.dtype != torch.int32 or page_table.device != q.device or not page_table.is_contiguous():
+        raise ValueError("flash_decode_attention_paged: page_table must be contiguous int32 on q's device")
+    if not (0 <= il < L and 0 <= max_n_past < MP * page):
+        raise ValueError(f"flash_decode_attention_paged: il={il}, max_n_past={max_n_past} out of range")
+    n_keys = max_n_past + 1
+    part = torch.empty(B * H * -(-n_keys // SPLIT) * (dh + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    code = build.lib("flash_decode").flash_decode_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+        n_pasts.data_ptr(), part.data_ptr(), out.data_ptr(), B, P, L, H, page, MP, il, dh,
+        n_keys, 1.0 / math.sqrt(float(dh)), int(k_pool.dtype == torch.bfloat16),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+    build.check(code, "flash_decode_attention_paged")
+    flash_decode_attention_paged.launches += 1
+    return out
+
+
+flash_decode_attention_paged.launches = 0

@@ -30,10 +30,15 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = {
     "q4_matvec": {
         "q4_0_matvec": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "q4_0_matmul_multi": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
     "flash_decode": {
         "flash_decode": [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "flash_decode_batched": [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "flash_decode_paged": [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     },
     "q4_dequant": {
         "q4_0_dequant": [ctypes.c_void_p] * 3

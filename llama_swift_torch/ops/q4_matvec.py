@@ -1,9 +1,11 @@
-"""Batch-1 Q4_0 matvec: the port's device layout, its plain version and the
-wrapper of the CUDA kernel ``csrc/q4_matvec.cu``.
+"""Q4_0 matvec (batch 1) and multi-row matmul (2–32 rows): the port's device
+layout, the plain versions and the wrappers of the CUDA kernels in
+``csrc/q4_matvec.cu``.
 
-Counterpart of ``llama_swift_tpu/ops/q4_vpu_pallas.py`` (``q4_0_vpu_matvec``
-and ``q4_0_vpu_matvec_stacked``).  The kernel note at the top of the CUDA
-source says what bounds it on the H100 and how the design answers.
+Counterpart of ``llama_swift_tpu/ops/q4_vpu_pallas.py`` (``q4_0_vpu_matvec``,
+``q4_0_vpu_matvec_stacked`` and ``q4_0_vpu_matmul_multi``).  The kernel notes
+at the top of the CUDA source say what bounds each kernel on the H100 and
+how the design answers.
 
 **Layout.**  :class:`Q4_0Weight` keeps the ggml logical order: ``qs`` uint8
 ``[..., out, in/2]`` (byte j of a block holds elements 2j and 2j+1, low
@@ -62,34 +64,59 @@ def unpack_nibbles(qs: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_activations_q4_0_int(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x ``[in]`` → (q f32 integer-valued ``[in]`` in [-7, 7], d_x ``[in/32]``);
-    scalar reference semantics (``ggml.c:568-601``)."""
+    """x ``[..., in]`` → (q f32 integer-valued ``[..., in]`` in [-7, 7], d_x
+    ``[..., in/32]``); scalar reference semantics (``ggml.c:568-601``)."""
     xb = x.float().reshape(-1, QK)
     amax = xb.abs().amax(dim=-1)
     d = amax / 7.0
     inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
     half = torch.where(xb >= 0, 0.5, -0.5)
     q = torch.trunc(xb * inv[:, None] + half)
-    return q.reshape(-1), d
+    return q.reshape(x.shape), d.reshape(*x.shape[:-1], x.shape[-1] // QK)
 
 
 def q4_0_block_partials(q: torch.Tensor, w: Q4_0Weight, rows: int = 4096) -> torch.Tensor:
-    """Exact integer block dots ``Σ_i (n−8)·q`` → int32 ``[out, in/32]``
-    (row chunks bound the int32 temporaries)."""
-    qi = q.to(torch.int32)
+    """Exact integer block dots ``Σ_i (n−8)·q`` → int32 ``[..., out, in/32]``
+    for q ``[..., in]``.  Each block dot is a batched f32 product of 32
+    integer terms of magnitude ≤ 56: every partial sum is an integer below
+    2^24, so the f32 result is exact in any summation order.  Row chunks
+    bound the temporaries."""
     out, in_dim = w.shape
+    nb = in_dim // QK
+    lead = q.shape[:-1]
+    qb = q.float().reshape(-1, nb, QK).permute(1, 2, 0)  # [nb, 32, R]
     parts = []
     for r0 in range(0, out, rows):
-        n = unpack_nibbles(w.qs[r0 : r0 + rows]).to(torch.int32) - 8
-        parts.append((n * qi).reshape(n.shape[0], in_dim // QK, QK).sum(dim=-1, dtype=torch.int32))
-    return torch.cat(parts)
+        n = unpack_nibbles(w.qs[r0 : r0 + rows]).float() - 8.0  # [rows, in]
+        n = n.reshape(-1, nb, QK).transpose(0, 1)  # [nb, rows, 32]
+        parts.append(torch.bmm(n, qb).permute(2, 1, 0))  # [R, rows, nb]
+    return torch.cat(parts, dim=1).to(torch.int32).reshape(*lead, out, nb)
+
+
+def q4_0_matmul_multi_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """Plain PyTorch version of both kernels: ``y [B, out]`` f32 from ``x
+    [B, in]``, each row quantized on its own, exact integer block partials,
+    then ``Σ_b partial · (d_w · d_x)``."""
+    q, dx = quantize_activations_q4_0_int(x)
+    partials = q4_0_block_partials(q, w)  # [B, out, nb]
+    return (partials.float() * (w.d[None] * dx[:, None, :])).sum(dim=-1)
 
 
 def q4_0_matvec_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``y [out]`` f32 from ``x [in]``."""
-    q, dx = quantize_activations_q4_0_int(x)
-    partials = q4_0_block_partials(q, w)
-    return (partials.float() * (w.d * dx[None, :])).sum(dim=-1)
+    """Plain PyTorch version of the matvec: ``y [out]`` f32 from ``x [in]``."""
+    return q4_0_matmul_multi_plain(x[None], w)[0]
+
+
+def _check_weight(w: Q4_0Weight, x: torch.Tensor, what: str) -> None:
+    out, in_dim = w.shape
+    if not (x.is_cuda and w.qs.device == x.device and w.d.device == x.device):
+        raise ValueError(f"{what}: x and the weight must be on the same CUDA device")
+    if w.qs.dtype != torch.uint8 or w.qs.dim() != 2 or not w.qs.is_contiguous():
+        raise ValueError(f"{what}: qs must be contiguous uint8 [out, in/2]")
+    if w.d.dtype != torch.float32 or w.d.shape != (out, in_dim // QK) or not w.d.is_contiguous():
+        raise ValueError(f"{what}: d must be contiguous float32 [out, in/32]")
+    if in_dim % QK:
+        raise ValueError(f"{what}: in dim {in_dim} is not a multiple of {QK}")
 
 
 def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
@@ -99,16 +126,9 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     if x.device.type == "cpu":
         return q4_0_matvec_plain(x, w)
     out, in_dim = w.shape
-    if not (x.is_cuda and w.qs.device == x.device and w.d.device == x.device):
-        raise ValueError("q4_0_matvec: x and the weight must be on the same CUDA device")
+    _check_weight(w, x, "q4_0_matvec")
     if x.dtype != torch.float32 or x.shape != (in_dim,) or not x.is_contiguous():
         raise ValueError(f"q4_0_matvec: x must be contiguous float32 [{in_dim}], got {x.dtype} {tuple(x.shape)}")
-    if w.qs.dtype != torch.uint8 or w.qs.dim() != 2 or not w.qs.is_contiguous():
-        raise ValueError("q4_0_matvec: qs must be contiguous uint8 [out, in/2]")
-    if w.d.dtype != torch.float32 or w.d.shape != (out, in_dim // QK) or not w.d.is_contiguous():
-        raise ValueError("q4_0_matvec: d must be contiguous float32 [out, in/32]")
-    if in_dim % QK:
-        raise ValueError(f"q4_0_matvec: in dim {in_dim} is not a multiple of {QK}")
     nb = in_dim // QK
     xq = torch.empty(in_dim, dtype=torch.int8, device=x.device)
     qsum = torch.empty(nb, dtype=torch.int32, device=x.device)
@@ -125,3 +145,40 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
 
 
 q4_0_matvec.launches = 0
+
+
+#: rows the multi-row kernel accepts (``MAX_MULTI_ROWS`` of the TPU kernel)
+MAX_MULTI_ROWS = 32
+
+
+def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """``y [B, out] = x [B, in] · Wᵀ`` for 2 ≤ B ≤ 32 activation rows f32,
+    each row with the reference's int4×int4 dot, streaming the packed weight
+    once for all rows.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return q4_0_matmul_multi_plain(x, w)
+    out, in_dim = w.shape
+    _check_weight(w, x, "q4_0_matmul_multi")
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != in_dim or not x.is_contiguous():
+        raise ValueError(f"q4_0_matmul_multi: x must be contiguous float32 [B, {in_dim}], "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    B = x.shape[0]
+    if not 1 <= B <= MAX_MULTI_ROWS:
+        raise ValueError(f"q4_0_matmul_multi: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
+    nb = in_dim // QK
+    xq = torch.empty((B, in_dim), dtype=torch.int8, device=x.device)
+    qsum = torch.empty((B, nb), dtype=torch.int32, device=x.device)
+    dx = torch.empty((B, nb), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, out), dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_0_matmul_multi(
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
+        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, B,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    build.check(code, "q4_0_matmul_multi")
+    q4_0_matmul_multi.launches += 1
+    return y
+
+
+q4_0_matmul_multi.launches = 0

@@ -10,6 +10,9 @@ the product of block scales; rounding is half away from zero.
 
 * Q4_0, one row → the matvec kernel (``ops/q4_matvec.py``), exact integer
   block dots;
+* Q4_0, 2–32 rows (the engine's batched decode step, short prefill chunks)
+  → the multi-row kernel (same file): one weight stream for all rows, exact
+  integer block dots per row;
 * Q4_0, more rows → fake-quantize the activations, dequantize the weight
   with the dequant kernel (``ops/q4_dequant.py``), then one ``torch.matmul``
   (the JAX package leaves this product to XLA);
@@ -25,7 +28,7 @@ import torch
 
 from ..config import QK
 from .q4_dequant import dequantize_q4_0, q4_0_dequant
-from .q4_matvec import Q4_0Weight, q4_0_matvec
+from .q4_matvec import MAX_MULTI_ROWS, Q4_0Weight, q4_0_matmul_multi, q4_0_matvec
 
 # f32 products on the card run in full f32: TF32 would keep ~3 decimal
 # digits.  Both flags default to these values; set explicitly.  bf16
@@ -96,6 +99,9 @@ def linear(
         n_rows = x.numel() // x.shape[-1]
         if n_rows == 1 and quantize_activations:
             y = q4_0_matvec(x.reshape(in_dim).float().contiguous(), w)
+            return y.reshape(*lead, out_dim).to(compute_dtype)
+        if 1 < n_rows <= MAX_MULTI_ROWS and quantize_activations:
+            y = q4_0_matmul_multi(x.reshape(n_rows, in_dim).float().contiguous(), w)
             return y.reshape(*lead, out_dim).to(compute_dtype)
         if quantize_activations:
             x = fake_quantize_q4_0(x)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at small
 and ragged shapes (row counts that are not a multiple of a block's rows,
-in-dims that are not a multiple of a warp's blocks, several head dims).
+in-dims that are not a multiple of a warp's blocks, several head dims,
+multi-row counts on both sides of the kernel's row templates, per-slot
+n_pasts on both sides of a 64-key split, page sizes 16 and 128).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -79,10 +81,92 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         att.flash_decode_attention(torch.zeros((2, 128), device=cuda), kc, kc, 0, 16)  # n_past >= n_ctx
     with pytest.raises(ValueError):
         dq.q4_0_dequant(w, torch.float16)
+    with pytest.raises(ValueError):
+        mv.q4_0_matmul_multi(torch.randn((33, 256), device=cuda), w)  # more rows than the kernel takes
+    q = torch.zeros((2, 2, 128), device=cuda)
+    kb = torch.zeros((1, 2, 2, 16, 128), device=cuda)
+    with pytest.raises(ValueError):
+        att.flash_decode_attention_batched(q, kb, kb, 0, torch.zeros(2, dtype=torch.int64, device=cuda), 3)
+    pool = torch.zeros((3, 1, 2, 16, 128), device=cuda)
+    table = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # max_n_past beyond the table's pages
+        att.flash_decode_attention_paged(q, pool, pool, table, 0, torch.zeros(2, dtype=torch.int32, device=cuda), 16)
 
 
 def test_counters_reset(cuda):
     w, g = _q4(64, 256, cuda)
     ops.reset_launch_counts()
     mv.q4_0_matvec(torch.randn(256, device=cuda, generator=g), w)
-    assert ops.launch_counts() == {"q4_0_matvec": 1, "flash_decode_attention": 0, "q4_0_dequant": 0}
+    counts = ops.launch_counts()
+    assert counts.pop("q4_0_matvec") == 1
+    assert set(counts.values()) == {0}
+
+
+@pytest.mark.parametrize("B", [2, 5, 32])
+@pytest.mark.parametrize("out,in_dim", [(77, 352), (1000, 4096), (300, 11008)])
+def test_matmul_multi_kernel_matches_plain(cuda, B, out, in_dim):
+    """Row counts on both sides of the kernel's row templates; out not a
+    multiple of a block's 8 rows."""
+    w, g = _q4(out, in_dim, cuda, seed=B)
+    x = torch.randn((B, in_dim), device=cuda, generator=g)
+    before = mv.q4_0_matmul_multi.launches
+    y = mv.q4_0_matmul_multi(x, w)
+    torch.cuda.synchronize()
+    assert mv.q4_0_matmul_multi.launches == before + 1
+    assert y.shape == (B, out)
+    assert _rel(y, mv.q4_0_matmul_multi_plain(x, w)) <= 1e-5
+    assert _rel(y[B - 1], mv.q4_0_matvec(x[B - 1].contiguous(), w)) <= 1e-5
+
+
+def _batched_case(cuda, dtype, dh, n_pasts, n_ctx=256, L=2, H=4, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B = len(n_pasts)
+    kc = torch.randn((L, B, H, n_ctx, dh), device=cuda, generator=g)
+    vc = torch.randn((L, B, H, n_ctx, dh), device=cuda, generator=g)
+    for b, n in enumerate(n_pasts):  # stale data beyond each slot's n_past
+        kc[:, b, :, n + 1 :] = 1e4
+        vc[:, b, :, n + 1 :] = -1e4
+    q = torch.randn((B, H, dh), device=cuda, generator=g)
+    return q, kc.to(dtype), vc.to(dtype), torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("n_pasts", [[0, 63], [64, 0, 255, 130, 63], [200] * 5 + [1, 2]])
+def test_flash_batched_kernel_matches_plain(cuda, dtype, dh, n_pasts):
+    q, kc, vc, np_ = _batched_case(cuda, dtype, dh, n_pasts)
+    out = att.flash_decode_attention_batched(q, kc, vc, 1, np_, max(n_pasts))
+    ref = att.flash_decode_attention_batched_plain(q, kc, vc, 1, np_, max(n_pasts))
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("n_pasts", [[0, 63, 64, 255], [127, 128, 5]])
+def test_flash_paged_kernel_matches_plain_and_dense(cuda, dtype, page, n_pasts):
+    """A shuffled page table with garbage (out-of-range ids) beyond each
+    slot's live pages; the paged kernel equals the dense batched one."""
+    q, kc, vc, np_ = _batched_case(cuda, dtype, 128, n_pasts, seed=page)
+    L, B, H, n_ctx, dh = kc.shape
+    mp = n_ctx // page
+    live = [n // page + 1 for n in n_pasts]
+    P = sum(live) + 1
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(page)).tolist()
+    table = torch.full((B, mp), 10**6, dtype=torch.int32)
+    kp = torch.zeros((P, L, H, page, dh), dtype=dtype, device=cuda)
+    vp = torch.zeros_like(kp)
+    for b in range(B):
+        for c in range(live[b]):
+            pid = ids.pop()
+            table[b, c] = pid
+            kp[pid] = kc[:, b, :, c * page : (c + 1) * page]
+            vp[pid] = vc[:, b, :, c * page : (c + 1) * page]
+    table = table.to(cuda)
+    for il in range(L):
+        out = att.flash_decode_attention_paged(q, kp, vp, table, il, np_, max(n_pasts))
+        ref = att.flash_decode_attention_paged_plain(q, kp, vp, table, il, np_, max(n_pasts))
+        dense = att.flash_decode_attention_batched(q, kc, vc, il, np_, max(n_pasts))
+        torch.cuda.synchronize()
+        assert _rel(out, ref) <= 1e-5
+        assert _rel(out, dense) <= 1e-5
