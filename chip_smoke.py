@@ -10,30 +10,38 @@ Phases:
 1. identify the card (name and power limit from nvidia-smi) and build the
    CUDA kernels from ``llama_swift_torch/csrc`` (one nvcc per source, all
    started together);
-2. hold each of the six kernels against its plain PyTorch version on the
+2. hold each of the nine kernels against its plain PyTorch version on the
    card at the 7B shapes of the serving paths, and time kernel, plain
    version, bound and (where one exists) a single PyTorch call computing
-   the same function;
+   the same function; the int8 flash kernels read caches written by the
+   port's own int8 write, with stale codes and huge scales beyond n_past;
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
-   prefill logits within 0.25 (see ``check_parity``);
+   prefill logits within 0.25 (see ``check_parity``); then the same over an
+   int8 cache (``check_parity_int8``): within 2e-3 with f32 activations, and
+   with 4-bit activations on a run with no activation-quantization flip,
+   the flips and the int8 codes that differ between the devices counted;
 3b. batched parity at 7B width and 2 layers: slot prefills of 3 slots, then
-   4 ``forward_batched`` steps at B=8, dense and paged caches, card vs CPU
-   within 2e-3 (see ``check_batched_parity`` for how activation-quantization
-   flips are told apart); the card's batched rows are also held against
-   batch-1 ``decode_step`` of the same slot state;
-4. serve three requests through ``LlamaRunner`` on a synthetic 32-layer 7B
-   Q4_0 GGML file written from a seed, with the launch counters reset just
-   before and read just after, and checked against 225 matvec and 32 flash
-   launches per decoded token and 225 dequant launches per prefill;
-4b. serve two waves through the continuous-batching ``Engine`` on the same
-   params: 12 requests through 8 slots of a dense f32 cache, then 8 through
+   4 ``forward_batched`` steps at B=8, dense and paged caches, f32 and int8,
+   card vs CPU within 2e-3 (see ``check_batched_parity`` for how
+   activation-quantization flips are told apart); the card's batched rows
+   are also held against batch-1 ``decode_step`` of the same slot state;
+4. serve four requests through ``LlamaRunner`` on a synthetic 32-layer 7B
+   Q4_0 GGML file written from a seed (three on the f32 cache, the fourth
+   with ``runner.config.kv_cache_dtype = "int8"``), with the launch counters
+   reset just before and read just after, and checked against 225 matvec
+   and 32 flash (f32) or int8 flash launches per decoded token and 225
+   dequant launches per prefill;
+4b. serve four waves through the continuous-batching ``Engine`` on the same
+   params: A, 12 requests through 8 slots of a dense f32 cache; B, 8 through
    8 slots of a paged bf16 cache (half of them seeded, so the host sampler
-   runs too); counters reset before and read after each wave, and checked
-   against 225 multi-row matmul and 32 batched or paged flash launches per
-   engine decode step, 225 dequant launches per prefill chunk, and no
-   batch-1 launch; every stream completes and every page comes back;
+   runs too); C, 20 through 16 slots of a dense int8 cache; D, 8 (half
+   seeded) through 8 slots of a paged int8 cache.  Counters reset before
+   and read after each wave, and checked against 225 multi-row matmul and
+   32 flash launches of the wave's kernel per engine decode step, 225
+   dequant launches per prefill chunk, and no other launch; every stream
+   completes and every page comes back;
 5. print the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -43,6 +51,8 @@ There is no CPU mode: without a CUDA device the script exits nonzero.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -63,6 +73,8 @@ MATVEC_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
 FLASH_NPAST = [0, 127, 128, 511]
 MULTI_ROWS = 8  # the engine's slots
 BATCHED_NPASTS = [0, 63, 64, 127, 200, 311, 511, 5]  # per slot, at n_ctx 512
+BATCHED_NPASTS_16 = BATCHED_NPASTS + [31, 400, 256, 1, 450, 99, 64, 383]  # wave C's 16 slots
+STALE_CODE, STALE_SCALE = 127, 1e3  # int8 rows beyond n_past: never to be attended
 PROMPTS = [
     "The rain in Spain stays mainly in the plain",
     "Once upon a time, in a land far away,",
@@ -311,6 +323,8 @@ def check_kernels(torch) -> dict:
                                      + (f" page{page}" if "paged" in name else ""))
         del kc, vc, kp, vp
 
+    failed += check_int8_kernels(torch, g, summary)
+
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
     w = rand_q4(4, out, in_dim)
@@ -347,6 +361,134 @@ def check_kernels(torch) -> dict:
     if failed:
         raise SystemExit(f"chip_smoke: {len(failed)} kernel case(s) disagree with the plain version")
     return summary
+
+
+def int8_cache(torch, shape, g):
+    """Codes and row scales of a seeded f32 cache ``shape = [L, ...]``, made
+    by the port's own int8 write a layer at a time."""
+    from llama_swift_torch.models.llama import quantize_kv
+
+    codes = torch.empty(shape, dtype=torch.int8, device="cuda")
+    scales = torch.empty(shape[:-1] + (1,), device="cuda")
+    for il in range(shape[0]):
+        codes[il], scales[il] = quantize_kv(torch.randn(shape[1:], device="cuda", generator=g))
+    return codes, scales
+
+
+def make_stale(codes, scale, n_past: int) -> None:
+    """Stale codes and huge scales in the rows beyond ``n_past``."""
+    codes[..., n_past + 1 :, :] = STALE_CODE
+    scale[..., n_past + 1 :, :] = STALE_SCALE
+
+
+def to_pages(torch, dense, table, live, n_pool: int, page: int):
+    """Scatter a dense ``[L, B, H, n_ctx, X]`` into a pool ``[n_pool, L, H,
+    page, X]`` at each slot's live table entries."""
+    L, B, H, _, X = dense.shape
+    pool = torch.zeros((n_pool, L, H, page, X), dtype=dense.dtype, device=dense.device)
+    for b in range(B):
+        for c in range(live[b]):
+            pool[int(table[b, c])] = dense[:, b, :, c * page : (c + 1) * page]
+    return pool
+
+
+def check_int8_kernels(torch, g, summary) -> list:
+    """The three int8 flash kernels against their plain versions at 7B
+    shapes, on caches written by the port's int8 write with stale codes and
+    huge scales beyond each n_past: batch 1 at ``FLASH_NPAST``; batched at
+    B = 8 and B = 16; paged at B = 8 over 17 pages of 128 and over pages of
+    16 (each 64-key chunk then crosses pages), garbage table entries beyond
+    each slot's live pages.  Returns the cases that disagree.  No PyTorch
+    call folds per-row scales into attention, so ``library_ms`` is None."""
+    from llama_swift_torch.ops import attention as att
+
+    L, H, n_ctx, dh = 32, 32, 512, 128
+    failed = []
+
+    def bound_ms(keys: int, n_q: int) -> float:
+        # K and V rows of int8 codes and their f32 scales, q in, out out
+        nbytes = 2 * H * keys * (dh + 4) + 2 * n_q * H * dh * 4
+        return max(nbytes / HBM_BYTES_PER_S, 4 * H * keys * dh / F32_FLOPS) * 1e3
+
+    def measure(case, out, ref, fn, plain, bound):
+        err = rel_err(out, ref)
+        case.update(max_rel_err=err, max_abs_err=float((out - ref).abs().max()),
+                    kernel_ms=time_ms(torch, fn, 200), plain_ms=time_ms(torch, plain, 20),
+                    bound_ms=bound, library_ms=None, ok=err <= 1e-5)
+        log(case)
+        if not case["ok"]:
+            failed.append(case)
+        return case
+
+    # batch 1: the stacked cache [L, H, n_ctx, Dh], a layer per call
+    k8, ks = int8_cache(torch, (L, H, n_ctx, dh), g)
+    v8, vs = int8_cache(torch, (L, H, n_ctx, dh), g)
+    fresh = [t[3].clone() for t in (k8, ks, v8, vs)]
+    for n_past in FLASH_NPAST:
+        for t, f in zip((k8, ks, v8, vs), fresh):
+            t[3].copy_(f)
+        make_stale(k8[3], ks[3], n_past)
+        make_stale(v8[3], vs[3], n_past)
+        q = torch.randn((H, dh), device="cuda", generator=g)
+        case = measure(
+            {"case": "flash_decode_attention_stacked_int8", "n_past": n_past},
+            att.flash_decode_attention_stacked_int8(q, k8, v8, ks, vs, 3, n_past),
+            att.flash_decode_attention_stacked_int8_plain(q, k8, v8, ks, vs, 3, n_past),
+            lambda i: att.flash_decode_attention_stacked_int8(q, k8, v8, ks, vs, i % L, n_past),
+            lambda i: att.flash_decode_attention_stacked_int8_plain(q, k8, v8, ks, vs, i % L, n_past),
+            bound_ms(n_past + 1, 1))
+        if n_past == 511:
+            summary["flash_decode_attention_stacked_int8"] = dict(
+                case, bound_by="bytes", shape=f"H{H} Dh{dh} n_past{n_past} int8")
+    del k8, ks, v8, vs, fresh
+
+    # batched at B = 8 and 16, per-slot n_past; paged at B = 8
+    for n_list in (BATCHED_NPASTS, BATCHED_NPASTS_16):
+        B = len(n_list)
+        n_pasts = torch.tensor(n_list, dtype=torch.int32, device="cuda")
+        max_np, keys = max(n_list), sum(n + 1 for n in n_list)
+        k8, ks = int8_cache(torch, (L, B, H, n_ctx, dh), g)
+        v8, vs = int8_cache(torch, (L, B, H, n_ctx, dh), g)
+        for b, n in enumerate(n_list):
+            make_stale(k8[:, b], ks[:, b], n)
+            make_stale(v8[:, b], vs[:, b], n)
+        q = torch.randn((B, H, dh), device="cuda", generator=g)
+        ref = att.flash_decode_attention_batched_int8_plain(q, k8, v8, ks, vs, 3, n_pasts, max_np)
+        case = measure(
+            {"case": "flash_decode_attention_batched_int8", "B": B, "n_pasts": n_list},
+            att.flash_decode_attention_batched_int8(q, k8, v8, ks, vs, 3, n_pasts, max_np), ref,
+            lambda i: att.flash_decode_attention_batched_int8(q, k8, v8, ks, vs, i % L, n_pasts, max_np),
+            lambda i: att.flash_decode_attention_batched_int8_plain(q, k8, v8, ks, vs, i % L, n_pasts, max_np),
+            bound_ms(keys, B))
+        if B != MULTI_ROWS:  # B = 16: the batched kernel only
+            del k8, ks, v8, vs
+            continue
+        summary["flash_decode_attention_batched_int8"] = dict(
+            case, bound_by="bytes", shape=f"B{B} H{H} Dh{dh} n_ctx{n_ctx} int8")
+        for page, n_pool in ((128, 17), (16, None)):
+            live = [n // page + 1 for n in n_list]
+            n_pool = n_pool or sum(live) + 1
+            perm = torch.randperm(n_pool - 1, generator=torch.Generator().manual_seed(page)).tolist()
+            table = torch.full((B, n_ctx // page), 10**6, dtype=torch.int32)  # garbage beyond live pages
+            for b in range(B):
+                for c in range(live[b]):
+                    table[b, c] = perm.pop()
+            kp, vp, ksp, vsp = (to_pages(torch, t, table, live, n_pool, page) for t in (k8, v8, ks, vs))
+            table = table.to("cuda")
+            case = measure(
+                {"case": "flash_decode_attention_paged_int8", "B": B, "n_pasts": n_list, "page": page,
+                 "pages": n_pool},
+                att.flash_decode_attention_paged_int8(q, kp, vp, ksp, vsp, table, 3, n_pasts, max_np), ref,
+                lambda i: att.flash_decode_attention_paged_int8(q, kp, vp, ksp, vsp, table, i % L, n_pasts, max_np),
+                lambda i: att.flash_decode_attention_paged_int8_plain(
+                    q, kp, vp, ksp, vsp, table, i % L, n_pasts, max_np),
+                bound_ms(keys, B))
+            if page == 128:
+                summary["flash_decode_attention_paged_int8"] = dict(
+                    case, bound_by="bytes", shape=f"B{B} H{H} Dh{dh} n_ctx{n_ctx} int8 page{page}")
+            del kp, vp, ksp, vsp
+        del k8, ks, v8, vs
+    return failed
 
 
 # ---------------------------------------------------------------------------
@@ -403,14 +545,96 @@ def check_parity(torch) -> None:
         raise SystemExit("chip_smoke: 2-layer parity outside its bars")
 
 
+@contextlib.contextmanager
+def recording(record, tag):
+    """While active, every Q4_0 matvec and multi-row product appends
+    ``(tag[0], activation rows on the CPU)`` to ``record`` (None: no
+    recording), so that two runs can be compared activation by activation."""
+    from llama_swift_torch.ops import quantized_matmul as qmm
+
+    matvec, multi = qmm.q4_0_matvec, qmm.q4_0_matmul_multi
+    if record is not None:
+        qmm.q4_0_matvec = lambda x, w: record.append((tag[0], x[None].cpu())) or matvec(x, w)
+        qmm.q4_0_matmul_multi = lambda x, w: record.append((tag[0], x.cpu())) or multi(x, w)
+    try:
+        yield
+    finally:
+        qmm.q4_0_matvec, qmm.q4_0_matmul_multi = matvec, multi
+
+
+def flip_counts(rec_cpu, rec_card):
+    """Per recorded product: [rows] counts of 4-bit activation codes that
+    differ between the two runs."""
+    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
+
+    return [(quantize_activations_q4_0_int(xc)[0] != quantize_activations_q4_0_int(xg)[0]).sum(-1)
+            for (_, xc), (_, xg) in zip(rec_cpu, rec_card)]
+
+
+def check_parity_int8(torch) -> None:
+    """Batch-1 parity over an int8 cache at 7B width, 2 layers: an 8-token
+    prefill and 4 decode steps (the int8 batch-1 flash kernel on the card,
+    its plain version on the CPU).  With f32 activations (as the JAX
+    package's int8 tests run) prefill and decode logits within 2e-3.  With
+    the reference's 4-bit activations the same bar holds when no activation
+    quantized differently on the two devices; the flips are counted either
+    way (see ``check_batched_parity``).  Also counts the int8 codes that
+    differ between the card's and the CPU's caches."""
+    import dataclasses
+
+    from llama_swift_torch.config import GGMLType, ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+
+    base = dataclasses.replace(ModelConfig.llama_7b(ftype=GGMLType.Q4_0), n_layer=2, kv_cache_dtype="int8",
+                               prefill_bf16=False)
+    tensors = dict(synthetic_tensors(base, seed=7))
+    params = {dev: model_lib.params_from_tensors(tensors, base, device=dev) for dev in ("cpu", "cuda")}
+    prompt = [1, 450, 17, 3000, 9, 222, 31000, 5]
+    steps = [77, 12000, 345, 6]
+
+    def run(device, cfg, record):
+        with recording(record, [None]):
+            cache = model_lib.init_cache(cfg, device=device)
+            logits, cache = model_lib.prefill(params[device], torch.tensor(prompt, device=device), 0, cache, cfg)
+            out = [logits[-1].float().cpu()]
+            for i, tok in enumerate(steps):
+                lg, cache = model_lib.decode_step(params[device], torch.tensor(tok, device=device), len(prompt) + i,
+                                                  cache, cfg)
+                out.append(lg.float().cpu())
+        return out, cache
+
+    rec = {"case": "parity_int8_7b_width_2_layers"}
+    for act in ("f32", "q4"):
+        cfg = dataclasses.replace(base, quantize_activations=act == "q4")
+        rec_cpu, rec_card = ([], []) if act == "q4" else (None, None)
+        t0 = time.perf_counter()
+        cpu, cpu_cache = run("cpu", cfg, rec_cpu)
+        rec[f"{act}_act_cpu_s"] = time.perf_counter() - t0
+        card, card_cache = run("cuda", cfg, rec_card)
+        rec[f"{act}_act_prefill_rel_err"] = rel_err(card[0], cpu[0])
+        rec[f"{act}_act_decode_rel_err_max"] = max(rel_err(a, b) for a, b in zip(card[1:], cpu[1:]))
+        rec[f"{act}_act_codes_differing"] = sum(
+            int((card_cache[k].cpu() != cpu_cache[k]).sum()) for k in ("k", "v"))
+        rec[f"{act}_act_finite"] = all(bool(torch.isfinite(t).all()) for t in card)
+        if act == "q4":
+            rec["q4_act_flips"] = sum(int(f.sum()) for f in flip_counts(rec_cpu, rec_card))
+    bar_ok = {act: rec[f"{act}_act_prefill_rel_err"] <= 2e-3 and rec[f"{act}_act_decode_rel_err_max"] <= 2e-3
+              for act in ("f32", "q4")}
+    rec["ok"] = (rec["f32_act_finite"] and rec["q4_act_finite"] and bar_ok["f32"]
+                 and (bar_ok["q4"] or rec["q4_act_flips"] > 0))
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: int8 parity outside its bars")
+
+
 # ---------------------------------------------------------------------------
 # phase 3b: batched parity at 7B width, 2 layers, dense and paged caches
 # ---------------------------------------------------------------------------
 
 
-def check_batched_parity(torch) -> None:
+def check_batched_parity(torch, cache_dtype=None) -> None:
     """Slot prefills of 3 slots, then 4 ``forward_batched`` steps at B=8, in
-    the dense and the paged cache, card vs CPU.
+    the dense and the paged cache (f32, or ``cache_dtype``), card vs CPU.
 
     With the reference's 4-bit activation quantization, an ulp-level
     difference between the devices (a norm or rope computed in another
@@ -419,16 +643,16 @@ def check_batched_parity(torch) -> None:
     H100 80GB HBM3 at 700 W, see PERF.md).  So the bars are: card vs CPU
     within 2e-3 with f32 activations (no quantization, both modes); with
     quantized activations, within 2e-3 for every slot whose quantized
-    activations came out the same on both devices (flips counted per slot,
-    at least one slot must be flip-free); and the card's batched rows
-    against batch-1 ``decode_step`` of the same slot state within 2e-3
-    (same device, so no flip)."""
+    activations came out the same on both devices (flips counted per slot;
+    at least one slot must be flip-free unless every slot is within 2e-3:
+    a flip in a row that never reaches the compared logits, such as the
+    last layer's products at an earlier position, changes nothing); and the
+    card's batched rows against batch-1 ``decode_step`` of the same slot
+    state within 2e-3 (same device, so no flip)."""
     import dataclasses
 
     from llama_swift_torch.config import GGMLType, ModelConfig
     from llama_swift_torch.models import llama as model_lib
-    from llama_swift_torch.ops import quantized_matmul as qmm
-    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
 
     base = dataclasses.replace(ModelConfig.llama_7b(ftype=GGMLType.Q4_0), n_layer=2, prefill_bf16=False)
     tensors = dict(synthetic_tensors(base, seed=11))
@@ -444,15 +668,12 @@ def check_batched_parity(torch) -> None:
         """Logits [prefill of each slot] + [steps × active rows]; ``record``
         collects (slot or None, activation rows) of each multi-row product."""
         tag = [None]
-        multi = qmm.q4_0_matmul_multi
-        if record is not None:
-            qmm.q4_0_matmul_multi = lambda x, w: record.append((tag[0], x.cpu())) or multi(x, w)
-        try:
+        with recording(record, tag):
             if paged:
-                cache = model_lib.init_cache_paged(cfg, n_pages, B, page=page, device=device)
+                cache = model_lib.init_cache_paged(cfg, n_pages, B, dtype=cache_dtype, page=page, device=device)
                 cache["page_table"][:S, 0] = torch.tensor(table, dtype=torch.int32)
             else:
-                cache = model_lib.init_cache_batched(cfg, B, device=device)
+                cache = model_lib.init_cache_batched(cfg, B, dtype=cache_dtype, device=device)
             out = []
             for b, ids in enumerate(prompts):
                 tag[0] = b
@@ -465,8 +686,6 @@ def check_batched_parity(torch) -> None:
                                                       cache, cfg)
                 out.append(lg[:S].float().cpu())  # idle slots' rows are not compared
                 n_pasts[:S] += 1
-        finally:
-            qmm.q4_0_matmul_multi = multi
         return out
 
     def slot_errs(card, cpu):
@@ -476,7 +695,8 @@ def check_batched_parity(torch) -> None:
             errs = [max(e, rel_err(c[b], r[b])) for b, e in enumerate(errs)]
         return errs
 
-    rec = {"case": "batched_parity_7b_width_2_layers", "B": B, "slots": S, "steps": len(steps)}
+    dtype_name = str(cache_dtype or torch.float32).split(".")[-1]
+    rec = {"case": f"batched_parity_{dtype_name}_7b_width_2_layers", "B": B, "slots": S, "steps": len(steps)}
     f32 = dataclasses.replace(base, quantize_activations=False)
     for mode in ("dense", "paged"):
         t0 = time.perf_counter()
@@ -489,21 +709,24 @@ def check_batched_parity(torch) -> None:
         cpu = run("cpu", base, mode == "paged", rec_cpu)
         card = run("cuda", base, mode == "paged", rec_card)
         flips = [0] * S
-        for (slot, xc), (_, xg) in zip(rec_cpu, rec_card):
-            diff = (quantize_activations_q4_0_int(xc)[0] != quantize_activations_q4_0_int(xg)[0]).sum(-1)
+        for (slot, _), diff in zip(rec_cpu, flip_counts(rec_cpu, rec_card)):
             for b in range(S):
                 flips[b] += int(diff.sum() if slot == b else diff[b] if slot is None else 0)
         errs = slot_errs(card, cpu)
         rec[f"{mode}_q4_act_rel_err_per_slot"] = errs
         rec[f"{mode}_q4_act_flips_per_slot"] = flips
-        rec[f"{mode}_q4_act_ok"] = any(f == 0 for f in flips) and all(
-            e <= 2e-3 for e, f in zip(errs, flips) if f == 0)
+        # every flip-free slot within the bar; and a flip-free slot exists,
+        # unless every slot is within the bar anyway (flips at rows whose
+        # outputs never reach the compared logits change nothing)
+        within = [e <= 2e-3 for e in errs]
+        rec[f"{mode}_q4_act_ok"] = all(w for w, f in zip(within, flips) if f == 0) and (
+            any(f == 0 for f in flips) or all(within))
     # the card's batched rows (multi-row kernel, batched flash) against
     # batch-1 decode (matvec, batch-1 flash) of the same slot state
     card = run("cuda", base, paged=False)
     errs = []
     for b, ids in enumerate(prompts):
-        cache = model_lib.init_cache(base, device="cuda")
+        cache = model_lib.init_cache(base, dtype=cache_dtype, device="cuda")
         _, cache = model_lib.prefill(params["cuda"], torch.tensor(ids, device="cuda"), 0, cache, base)
         for s, toks in enumerate(steps):
             lg, cache = model_lib.decode_step(params["cuda"], torch.tensor(toks[b], device="cuda"), len(ids) + s,
@@ -519,7 +742,7 @@ def check_batched_parity(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve three requests through LlamaRunner on a 32-layer 7B file
+# phase 4: serve four requests through LlamaRunner on a 32-layer 7B file
 # ---------------------------------------------------------------------------
 
 
@@ -536,23 +759,29 @@ def serve(torch, workdir: str, profile: bool) -> dict:
     log({"case": "write_model", "seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path)})
 
     runner = LlamaRunner(path)
+    # (name, config, KV cache dtype of runner.config for the request)
     requests = [
-        ("greedy_device", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=1, top_k=1))),
-        ("sampled_device", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=2))),
-        ("sampled_host", RunnerConfig(num_tokens=32, device_sampling=False, sampling=SamplingConfig(seed=3))),
+        ("greedy_device", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=1, top_k=1)), "float32"),
+        ("sampled_device", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=2)), "float32"),
+        ("sampled_host", RunnerConfig(num_tokens=32, device_sampling=False, sampling=SamplingConfig(seed=3)),
+         "float32"),
+        ("greedy_device_int8", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=4, top_k=1)), "int8"),
     ]
     runner.ensure_loaded()
     os.remove(path)
     log({"case": "load", "seconds": runner.stats["t_load_s"],
          "device_gib": torch.cuda.memory_allocated() / 2**30})
+    model_cfg = runner.config
     ops.reset_launch_counts()  # the main path's run starts here
     per_request = []
-    for (name, rcfg), prompt in zip(requests, PROMPTS):
+    for (name, rcfg, kv_dtype), prompt in zip(requests, PROMPTS + ENGINE_PROMPTS[3:]):
+        runner.config = dataclasses.replace(model_cfg, kv_cache_dtype=kv_dtype)
         before = ops.launch_counts()
         t1 = time.perf_counter()
         events = list(runner.run_events(prompt, rcfg))
         wall = time.perf_counter() - t1
         after = ops.launch_counts()
+        runner.config = model_cfg
         kinds = [e.kind for e in events]
         if kinds[-1] != EventKind.COMPLETED:
             raise SystemExit(f"chip_smoke: request {name} failed: {events[-1].error}")
@@ -560,8 +789,9 @@ def serve(torch, workdir: str, profile: bool) -> dict:
         forwards = st["generated_tokens"] - (0 if rcfg.device_sampling else 1)
         delta = {k: after[k] - before[k] for k in after}
         expect = {k: 0 for k in delta}  # the batched kernels stay at 0 on the batch-1 path
-        expect.update({"q4_0_matvec": 225 * forwards, "flash_decode_attention": 32 * forwards, "q4_0_dequant": 225})
-        rec = {"case": "serve", "request": name, "prompt_tokens": st["prompt_tokens"],
+        flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
+        expect.update({"q4_0_matvec": 225 * forwards, flash: 32 * forwards, "q4_0_dequant": 225})
+        rec = {"case": "serve", "request": name, "kv_cache": kv_dtype, "prompt_tokens": st["prompt_tokens"],
                "generated_tokens": st["generated_tokens"], "t_prefill_s": st["t_prefill_s"],
                "t_decode_s": st["t_decode_s"], "decode_tok_per_s": st.get("decode_tok_per_s"),
                "wall_s": wall, "launches": delta, "expected_launches": expect,
@@ -586,25 +816,40 @@ ENGINE_PROMPTS = PROMPTS + [
     "Hello, world",
     "The capital of France is",
     "Water boils at",
+    "Once more unto the breach, dear friends,",
+    "A journey of a thousand miles",
+    "for i in range(10):",
+    "The answer to the question is",
+    "She sells sea shells",
+    "Under the sea",
+    "To be or not to be",
+    "In a hole in the ground there lived",
 ]
 
 
 def serve_engine(torch, runner) -> dict:
-    """Two waves through the continuous-batching Engine on the runner's
+    """Four waves through the continuous-batching Engine on the runner's
     32-layer 7B params (nothing written or loaded again)."""
     from llama_swift_torch import ops
     from llama_swift_torch.config import SamplingConfig
     from llama_swift_torch.runtime.engine import Engine
 
+    half_seeded = [None, 11, None, 12, None, 13, None, 14]
+    # (name, slots, cache, prompts, per-request seeds, the flash kernel of the wave)
     waves = [
-        ("A_dense_f32", dict(cache_dtype=torch.float32), ENGINE_PROMPTS[:12],
+        ("A_dense_f32", 8, dict(cache_dtype=torch.float32), ENGINE_PROMPTS[:12],
          [None] * 12, "flash_decode_attention_batched"),
-        ("B_paged_bf16", dict(cache_dtype=torch.bfloat16, paged_pages=17, page=128), ENGINE_PROMPTS[:8],
-         [None, 11, None, 12, None, 13, None, 14], "flash_decode_attention_paged"),
+        ("B_paged_bf16", 8, dict(cache_dtype=torch.bfloat16, paged_pages=17, page=128), ENGINE_PROMPTS[:8],
+         half_seeded, "flash_decode_attention_paged"),
+        ("C_dense_int8", 16, dict(cache_dtype=torch.int8), ENGINE_PROMPTS[:20],
+         [None] * 20, "flash_decode_attention_batched_int8"),
+        ("D_paged_int8", 8, dict(cache_dtype=torch.int8, paged_pages=17, page=128), ENGINE_PROMPTS[12:20],
+         half_seeded, "flash_decode_attention_paged_int8"),
     ]
     counts = {}
-    for name, kw, prompts, seeds, flash in waves:
-        eng = Engine(runner.params, runner.config, runner.vocab, max_slots=8, prefill_bucket=64, seed=2024, **kw)
+    for name, slots, kw, prompts, seeds, flash in waves:
+        eng = Engine(runner.params, runner.config, runner.vocab, max_slots=slots, prefill_bucket=64, seed=2024,
+                     **kw)
         torch.cuda.synchronize()
         ops.reset_launch_counts()  # this wave's run starts here
         t0 = time.perf_counter()
@@ -628,7 +873,7 @@ def serve_engine(torch, runner) -> dict:
                 runner.vocab.piece_str(t) for t in runner.vocab.tokenize(p, bos=True))
             for p, h, o in zip(prompts, handles, outs))
         ttft = sorted(st.get("ttft_s", []))
-        rec = {"case": "engine_serve", "wave": name, "requests": len(prompts), "max_slots": 8,
+        rec = {"case": "engine_serve", "wave": name, "requests": len(prompts), "max_slots": slots,
                "decode_steps": st["decode_steps"], "device_sampled_steps": st["device_sampled_steps"],
                "prefill_chunks": st["prefill_chunks"], "tokens_generated": st["tokens_generated"],
                "wall_s": wall, "aggregate_tok_per_s": st["tokens_generated"] / wall,
@@ -673,34 +918,43 @@ def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
 
 
 def profile_decode(torch, runner) -> None:
-    """Batch-1 decode steps, and engine decode steps at B=8 (dense f32 cache)."""
+    """Batch-1 decode steps and engine decode steps: f32 cache at B = 8 as
+    before, then an int8 batch-1 step and an int8 engine step at B = 16."""
     from llama_swift_torch.models import llama as model_lib
 
     cfg, params = runner.config, runner.params
-    cache = model_lib.init_cache(cfg, device="cuda")
     tok = torch.tensor(1, device="cuda")
-    profile_window(torch, "profile_decode_8_steps",
-                   lambda i: model_lib.decode_step(params, tok, i, cache, cfg))
-    del cache
-    cache = model_lib.init_cache_batched(cfg, 8, device="cuda")
-    toks = torch.ones(8, dtype=torch.int64, device="cuda")
-    n_pasts = np.arange(8) * 8  # slots at different positions
-    profile_window(torch, "profile_engine_step_8_steps_B8",
-                   lambda i: model_lib.forward_batched(params, toks, n_pasts + i, cache, cfg))
+    for name, dtype in (("profile_decode_8_steps", None), ("profile_decode_int8_8_steps", torch.int8)):
+        cache = model_lib.init_cache(cfg, dtype=dtype, device="cuda")
+        profile_window(torch, name, lambda i: model_lib.decode_step(params, tok, i, cache, cfg))
+        del cache
+    for name, B, dtype in (("profile_engine_step_8_steps_B8", 8, None),
+                           ("profile_engine_step_int8_8_steps_B16", 16, torch.int8)):
+        cache = model_lib.init_cache_batched(cfg, B, dtype=dtype, device="cuda")
+        toks = torch.ones(B, dtype=torch.int64, device="cuda")
+        n_pasts = np.arange(B) * 8  # slots at different positions
+        profile_window(torch, name, lambda i: model_lib.forward_batched(params, toks, n_pasts + i, cache, cfg))
+        del cache
 
 
 # ---------------------------------------------------------------------------
 
 
-KERNEL_META = {
-    "q4_0_matvec": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:443"),
-    "flash_decode_attention": ("llama_swift_torch/csrc/flash_decode.cu", "llama_swift_tpu/ops/attention.py:454"),
-    "q4_0_dequant": ("llama_swift_torch/csrc/q4_dequant.cu", "llama_swift_tpu/ops/q4_dequant_pallas.py:145"),
+KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, at its def)
+    "q4_0_matvec": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:276"),
+    "flash_decode_attention": ("llama_swift_torch/csrc/flash_decode.cu", "llama_swift_tpu/ops/attention.py:229"),
+    "q4_0_dequant": ("llama_swift_torch/csrc/q4_dequant.cu", "llama_swift_tpu/ops/q4_dequant_pallas.py:109"),
     "q4_0_matmul_multi": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
     "flash_decode_attention_batched": ("llama_swift_torch/csrc/flash_decode.cu",
                                        "llama_swift_tpu/ops/attention.py:498"),
     "flash_decode_attention_paged": ("llama_swift_torch/csrc/flash_decode.cu",
                                      "llama_swift_tpu/ops/attention.py:744"),
+    "flash_decode_attention_stacked_int8": ("llama_swift_torch/csrc/flash_decode.cu",
+                                            "llama_swift_tpu/ops/attention.py:277"),
+    "flash_decode_attention_batched_int8": ("llama_swift_torch/csrc/flash_decode.cu",
+                                            "llama_swift_tpu/ops/attention.py:544"),
+    "flash_decode_attention_paged_int8": ("llama_swift_torch/csrc/flash_decode.cu",
+                                          "llama_swift_tpu/ops/attention.py:789"),
 }
 
 
@@ -738,7 +992,9 @@ def main(argv=None) -> int:
     if args.only == "kernels":
         return 0
     check_parity(torch)
+    check_parity_int8(torch)
     check_batched_parity(torch)
+    check_batched_parity(torch, torch.int8)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         served = serve(torch, workdir, args.profile)

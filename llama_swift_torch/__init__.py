@@ -5,7 +5,10 @@ it.  The batch-1 serving path runs through three hand-written CUDA kernels
 (``csrc/``): the Q4_0 matvec, flash-decode attention and the Q4_0 dequant
 that feeds the prefill matmuls.  The continuous-batching ``Engine`` adds
 three more: the multi-row Q4_0 matmul and the batched and paged
-flash-decode attention.  They are built with ``nvcc`` at first use.
+flash-decode attention.  An int8 KV cache (``kv_cache_dtype="int8"`` or
+``cache_dtype=torch.int8``) reaches an int8 flash-decode kernel in each
+cache mode: batch 1 (the runner), dense batched and paged (the engine).
+They are built with ``nvcc`` at first use.
 
     from llama_swift_torch import LlamaRunner, RunnerConfig
 

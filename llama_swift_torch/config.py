@@ -87,10 +87,12 @@ class ModelConfig:
     #: with the 128-row tiled Q4 layout (e.g. 2·11008/128 tiles % 8 ≠ 0).
     fuse_layer_matmuls: bool = False
     #: KV cache dtype ("float32" matches the reference's f32 cache,
-    #: .mm:297-304; "bfloat16" halves attention HBM traffic)
+    #: .mm:297-304; "bfloat16" halves attention HBM traffic; "int8" stores
+    #: symmetric codes with one f32 scale per (head, position) row, about a
+    #: quarter of the f32 bytes)
     kv_cache_dtype: str = "float32"
-    #: use the flash-decode attention kernel (ops/attention.py) for
-    #: single-token steps over f32/bf16 caches; it reads the stacked cache
+    #: use the flash-decode attention kernels (ops/attention.py) for
+    #: single-token steps over f32, bf16 or int8 caches; they read the cache
     #: in place.  Off: the plain masked-softmax attention.
     use_flash_decode: bool = True
     #: kept for config compatibility with the JAX package (it picks a

@@ -1,39 +1,50 @@
 // Single-query (decode) attention over one layer of a KV cache: batch 1,
-// B slots of a dense batched cache, and B slots of a paged cache.
+// B slots of a dense batched cache, and B slots of a paged cache; each over
+// an f32, bf16 or int8 cache.
 //
 // Replaces the TPU kernels (llama_swift_tpu/ops/attention.py):
 //  * `_flash_decode_kernel`, `_flash_decode_stacked_kernel` (entry points
-//    flash_decode_attention, flash_decode_attention_stacked) -> flash_decode;
-//  * `_flash_batched_kernel` (flash_decode_attention_batched) ->
-//    flash_decode_batched;
-//  * `_flash_paged_kernel` (flash_decode_attention_paged) -> flash_decode_paged.
+//    flash_decode_attention, flash_decode_attention_stacked) and
+//    `_flash_decode_stacked_int8_kernel` (flash_decode_attention_stacked_int8)
+//    -> flash_decode;
+//  * `_flash_batched_kernel`, `_flash_batched_int8_kernel`
+//    (flash_decode_attention_batched, _int8) -> flash_decode_batched;
+//  * `_flash_paged_kernel`, `_flash_paged_int8_kernel`
+//    (flash_decode_attention_paged, _int8) -> flash_decode_paged.
 //
 //   out[b, h] = softmax_j( q[b, h] . k[b, h, j] / sqrt(Dh) ) . v[b, h, j],   j = 0..n_past[b]
 //
-// Caches (f32 or bf16), read in place at layer il:
+// Caches, read in place at layer il (`kind`: 0 f32, 1 bf16, 2 int8):
 //  * batch 1: head-major [L, H, n_ctx, Dh];
 //  * batched: layer-major [L, B, H, n_ctx, Dh];
 //  * paged: a pool [P, L, H, page, Dh] of position-range pages and a table
 //    [B, MP] int32; key j of slot b lives in page table[b, j / page]
 //    (clamped to [0, P-1], as the TPU kernel's index map does) at row
 //    j % page.  Table entries beyond a slot's live keys are never read.
+// An int8 cache carries one f32 scale per (head, position) row beside it
+// ([..., n_ctx, 1], or a scale pool [P, L, H, page, 1] under the same page
+// ids), folded in as the TPU kernels do: s_j = (q . k8_j) * ks_j / sqrt(Dh);
+// the chunk's l sums the unscaled exp(s_j - m) and acc sums
+// exp(s_j - m) * vs_j * v8_j.
 // Only keys j <= n_past[b] are read, so the bytes moved grow with each
 // slot's own n_past, not with n_ctx (stale rows beyond it are never touched).
 //
-// What bounds it on the H100: device-memory bandwidth (2 * (n_past+1) * H *
-// Dh cache elements per slot, 4 flops each), and at 7B decode shapes also
-// launch and latency: 32 heads are fewer blocks than the card's 132 SMs.
+// What bounds it on the H100: device-memory bandwidth (2 * (n_past+1) * H
+// rows of Dh elements per slot, plus 8 B of scales per int8 row; 4 flops
+// per element), and at 7B decode shapes also launch and latency: 32 heads
+// are fewer blocks than the card's 132 SMs.
 //
 // Design (split-K flash decoding, two launches):
 //  * split kernel, grid (H, S, B): block (h, c, b) takes keys
 //    [64c, 64c+64) of slot b, head h, one thread per head dim.  Warps compute
-//    the scores (a warp reads a 128-dim key row as one coalesced line, lanes
-//    split the dims, shuffles reduce), the block takes the chunk max m_c,
-//    p_j = exp(s_j - m_c), l_c = sum p_j, and thread d accumulates
-//    acc_c[d] = sum_j p_j v[j, d] (the block reads each value row coalesced).
-//    Splitting the keys puts H * S * B blocks on the card instead of H * B.
-//    S covers the largest n_past of the step (the host knows it); a block
-//    whose chunk starts past its own slot's n_past exits at once.
+//    the scores (a warp reads a key row as one coalesced line: lanes split
+//    the dims, a char4 per lane for int8, shuffles reduce), the block takes
+//    the chunk max m_c, p_j = exp(s_j - m_c), l_c = sum p_j, and thread d
+//    accumulates acc_c[d] = sum_j p_j v[j, d] (the block reads each value
+//    row coalesced).  Splitting the keys puts H * S * B blocks on the card
+//    instead of H * B.  S covers the largest n_past of the step (the host
+//    knows it); a block whose chunk starts past its own slot's n_past exits
+//    at once.
 //  * combine kernel, grid (H, B): rescales slot b's live partials by
 //    exp(m_c - max m) and normalises (online softmax across chunks).
 // Per-slot n_past is read on the device from an int32 tensor, so a step
@@ -43,12 +54,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int CHUNK = 64;  // keys per split
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -56,58 +70,86 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows of one (slot, head) of a contiguous [.., n_ctx, Dh] plane.
+// This lane's share of q . row: lanes split the dims.
+template <typename T>
+__device__ __forceinline__ float lane_dot(const float* qs, const T* row, int dh, int lane) {
+  float s = 0.0f;
+  for (int d = lane; d < dh; d += 32) s += qs[d] * to_f32(row[d]);
+  return s;
+}
+
+// int8 rows: four codes per lane (a 128-code row is one 128-byte line per
+// warp).  Rows start at multiples of dh % 32 == 0 bytes, so char4 is aligned.
+__device__ __forceinline__ float lane_dot(const float* qs, const int8_t* row, int dh, int lane) {
+  float s = 0.0f;
+  for (int d = 4 * lane; d < dh; d += 128) {
+    const char4 c = *reinterpret_cast<const char4*>(row + d);
+    s += qs[d] * c.x + qs[d + 1] * c.y + qs[d + 2] * c.z + qs[d + 3] * c.w;
+  }
+  return s;
+}
+
+// Rows of one (slot, head) of a contiguous [.., n_ctx, Dh] plane; `scale`
+// points at the plane's [n_ctx] row scales (int8 caches only).
 template <typename T>
 struct DenseRows {
   const T* base;
+  const float* scale;
   int dh;
   __device__ const T* row(int j) const { return base + static_cast<size_t>(j) * dh; }
+  __device__ float row_scale(int j) const { return __ldg(scale + j); }
 };
 
-// Rows of one (slot, head) of a paged pool, through the slot's table row.
+// Rows of one (slot, head) of a paged pool, through the slot's table row;
+// `scale` is the scale pool at the same (layer, head), page 0 (int8 only).
 template <typename T>
 struct PagedRows {
   const T* base;        // pool + (il * H + h) * page * dh: page 0 of this (layer, head)
+  const float* scale;   // scale pool + (il * H + h) * page
   const int* trow;      // page_table + b * MP
-  size_t page_stride;   // L * H * page * dh: elements from one page to the next
+  size_t page_stride;   // L * H * page: rows from one page to the next
   int page, n_pages, dh;
-  __device__ const T* row(int j) const {
+  __device__ size_t row_index(int j) const {
     const int pid = min(max(__ldg(trow + j / page), 0), n_pages - 1);
-    return base + pid * page_stride + static_cast<size_t>(j % page) * dh;
+    return pid * page_stride + static_cast<size_t>(j % page);
   }
+  __device__ const T* row(int j) const { return base + row_index(j) * dh; }
+  __device__ float row_scale(int j) const { return __ldg(scale + row_index(j)); }
 };
 
 // Keys [j0, j0 + jn) of one (slot, head), keys and values read through
 // the accessors: writes (acc[0..dh), m, l) to out.  Block of dh threads;
-// dynamic shared memory (dh + CHUNK) floats.
+// dynamic shared memory (dh + 2 * CHUNK) floats.
 template <typename T, typename Rows>
 __device__ void split_chunk_kv(const float* __restrict__ qrow, const Rows& krows, const Rows& vrows,
                                int j0, int jn, float scale, float* __restrict__ out) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
   extern __shared__ float smem[];
   const int dh = krows.dh;
-  float* qs = smem;        // [dh]
-  float* sc = smem + dh;   // [CHUNK]
+  float* qs = smem;                // [dh]
+  float* sc = smem + dh;           // [CHUNK] scores, then exp(s - m)
+  float* pv = smem + dh + CHUNK;   // [CHUNK] value weights (int8: exp(s - m) * vs)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   qs[tid] = qrow[tid];
   __syncthreads();
   for (int j = warp; j < jn; j += nwarps) {
-    const T* kr = krows.row(j0 + j);
-    float s = 0.0f;
-    for (int d = lane; d < dh; d += 32) s += qs[d] * to_f32(kr[d]);
-    s = warp_sum(s);
-    if (lane == 0) sc[j] = s * scale;
+    const float s = warp_sum(lane_dot(qs, krows.row(j0 + j), dh, lane));
+    if (lane == 0) sc[j] = (kScaled ? s * krows.row_scale(j0 + j) : s) * scale;
   }
   __syncthreads();
   float m = -INFINITY;
   for (int j = 0; j < jn; ++j) m = fmaxf(m, sc[j]);
   __syncthreads();
-  for (int j = tid; j < jn; j += blockDim.x) sc[j] = expf(sc[j] - m);
+  for (int j = tid; j < jn; j += blockDim.x) {
+    const float e = expf(sc[j] - m);
+    sc[j] = e;
+    pv[j] = kScaled ? e * vrows.row_scale(j0 + j) : e;
+  }
   __syncthreads();
   float l = 0.0f, acc = 0.0f;
   for (int j = 0; j < jn; ++j) {
-    const float p = sc[j];
-    l += p;
-    acc += p * to_f32(vrows.row(j0 + j)[tid]);
+    l += sc[j];
+    acc += pv[j] * to_f32(vrows.row(j0 + j)[tid]);
   }
   out[tid] = acc;
   if (tid == 0) {
@@ -121,10 +163,12 @@ __device__ __forceinline__ int slot_keys(const int* n_pasts, int b, int n_keys) 
   return n_pasts ? min(max(__ldg(n_pasts + b), 0) + 1, n_keys) : n_keys;
 }
 
-// q [B, H, Dh]; k/v: layer plane [B, H, n_ctx, Dh]; part [B, H, S, Dh + 2]
+// q [B, H, Dh]; k/v: layer plane [B, H, n_ctx, Dh]; ks/vs: its row scales
+// [B, H, n_ctx] (int8) or null; part [B, H, S, Dh + 2]
 template <typename T>
 __global__ void flash_split_batched_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                                           const T* __restrict__ v, const int* __restrict__ n_pasts,
+                                           const T* __restrict__ v, const float* __restrict__ ks,
+                                           const float* __restrict__ vs, const int* __restrict__ n_pasts,
                                            float* __restrict__ part, int H, int n_ctx, int dh,
                                            int n_keys, float scale) {
   const int h = blockIdx.x, c = blockIdx.y, S = gridDim.y, b = blockIdx.z;
@@ -133,14 +177,18 @@ __global__ void flash_split_batched_kernel(const float* __restrict__ q, const T*
   if (j0 >= keys) return;  // chunk past this slot's n_past: combine skips it
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t plane = bh * n_ctx * dh;
-  split_chunk_kv<T>(q + bh * dh, DenseRows<T>{k + plane, dh}, DenseRows<T>{v + plane, dh}, j0,
+  const size_t rows = bh * n_ctx;
+  split_chunk_kv<T>(q + bh * dh, DenseRows<T>{k + plane, ks ? ks + rows : nullptr, dh},
+                    DenseRows<T>{v + plane, vs ? vs + rows : nullptr, dh}, j0,
                     min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
 }
 
-// q [B, H, Dh]; pools [P, L, H, page, Dh]; table [B, MP]; part [B, H, S, Dh + 2]
+// q [B, H, Dh]; pools [P, L, H, page, Dh]; scale pools [P, L, H, page]
+// (int8) or null; table [B, MP]; part [B, H, S, Dh + 2]
 template <typename T>
 __global__ void flash_split_paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
-                                         const T* __restrict__ v_pool, const int* __restrict__ table,
+                                         const T* __restrict__ v_pool, const float* __restrict__ ks_pool,
+                                         const float* __restrict__ vs_pool, const int* __restrict__ table,
                                          const int* __restrict__ n_pasts, float* __restrict__ part,
                                          int P, int L, int H, int page, int MP, int il, int dh,
                                          int n_keys, float scale) {
@@ -149,12 +197,13 @@ __global__ void flash_split_paged_kernel(const float* __restrict__ q, const T* _
   const int keys = slot_keys(n_pasts, b, n_keys);
   if (j0 >= keys) return;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t head = (static_cast<size_t>(il) * H + h) * page * dh;
-  const size_t stride = static_cast<size_t>(L) * H * page * dh;
+  const size_t head = (static_cast<size_t>(il) * H + h) * page;  // row offset of page 0
+  const size_t stride = static_cast<size_t>(L) * H * page;
   const int* trow = table + static_cast<size_t>(b) * MP;
-  split_chunk_kv<T>(q + bh * dh, PagedRows<T>{k_pool + head, trow, stride, page, P, dh},
-                    PagedRows<T>{v_pool + head, trow, stride, page, P, dh}, j0,
-                    min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
+  split_chunk_kv<T>(q + bh * dh,
+                    PagedRows<T>{k_pool + head * dh, ks_pool ? ks_pool + head : nullptr, trow, stride, page, P, dh},
+                    PagedRows<T>{v_pool + head * dh, vs_pool ? vs_pool + head : nullptr, trow, stride, page, P, dh},
+                    j0, min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
 }
 
 // part [B, H, S, dh + 2] -> o [B, H, dh]; grid (H, B); slot b combines only
@@ -177,81 +226,111 @@ __global__ void flash_combine_kernel(const float* __restrict__ part, const int* 
   o[bh * dh + tid] = acc / l;
 }
 
-size_t split_smem(int dh) { return (dh + CHUNK) * sizeof(float); }
+size_t split_smem(int dh) { return (dh + 2 * CHUNK) * sizeof(float); }
 int n_splits(int n_keys) { return (n_keys + CHUNK - 1) / CHUNK; }
+
+template <typename T>
+void split_dense(dim3 grid, int dh, cudaStream_t s, const void* q, const void* k, const void* v,
+                 const void* ks, const void* vs, const int* np, float* part, int H, int n_ctx,
+                 int n_keys, float scale) {
+  flash_split_batched_kernel<T><<<grid, dh, split_smem(dh), s>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), np, part, H, n_ctx, dh, n_keys,
+      scale);
+}
+
+template <typename T>
+void split_paged(dim3 grid, int dh, cudaStream_t s, const void* q, const void* k_pool,
+                 const void* v_pool, const void* ks_pool, const void* vs_pool, const void* table,
+                 const int* np, float* part, int P, int L, int H, int page, int MP, int il,
+                 int n_keys, float scale) {
+  flash_split_paged_kernel<T><<<grid, dh, split_smem(dh), s>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const float*>(ks_pool), static_cast<const float*>(vs_pool),
+      static_cast<const int*>(table), np, part, P, L, H, page, MP, il, dh, n_keys, scale);
+}
+
+// The split pass over a dense plane for cache element `kind` (0 f32,
+// 1 bf16, 2 int8); false for an unknown kind.
+bool split_dense_kind(int kind, dim3 grid, int dh, cudaStream_t s, const void* q, const void* k,
+                      const void* v, const void* ks, const void* vs, const int* np, float* part,
+                      int H, int n_ctx, int n_keys, float scale) {
+  switch (kind) {
+    case 0: split_dense<float>(grid, dh, s, q, k, v, ks, vs, np, part, H, n_ctx, n_keys, scale); return true;
+    case 1: split_dense<__nv_bfloat16>(grid, dh, s, q, k, v, ks, vs, np, part, H, n_ctx, n_keys, scale); return true;
+    case 2: split_dense<int8_t>(grid, dh, s, q, k, v, ks, vs, np, part, H, n_ctx, n_keys, scale); return true;
+    default: return false;
+  }
+}
 
 }  // namespace
 
-// k/v point at layer il of the stacked cache; n_keys = n_past + 1;
-// part is scratch of H * ceil(n_keys/64) * (dh + 2) floats.
-extern "C" int flash_decode(const void* q, const void* k, const void* v, void* part,
-                            void* out, int H, int n_ctx, int dh, int n_keys, float scale,
-                            int is_bf16, void* stream) {
+// k/v point at layer il of the stacked cache, ks/vs at its row scales
+// (int8) or are null; n_keys = n_past + 1; part is scratch of
+// H * ceil(n_keys/64) * (dh + 2) floats.
+extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* ks,
+                            const void* vs, void* part, void* out, int H, int n_ctx, int dh,
+                            int n_keys, float scale, int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int S = n_splits(n_keys);
-  const dim3 grid(H, S, 1);
-  const float* qf = static_cast<const float*>(q);
   float* pf = static_cast<float*>(part);
-  if (is_bf16)
-    flash_split_batched_kernel<__nv_bfloat16><<<grid, dh, split_smem(dh), s>>>(
-        qf, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), nullptr,
-        pf, H, n_ctx, dh, n_keys, scale);
-  else
-    flash_split_batched_kernel<float><<<grid, dh, split_smem(dh), s>>>(
-        qf, static_cast<const float*>(k), static_cast<const float*>(v), nullptr, pf, H, n_ctx,
-        dh, n_keys, scale);
+  if (!split_dense_kind(kind, dim3(H, S, 1), dh, s, q, k, v, ks, vs, nullptr, pf, H, n_ctx, n_keys,
+                        scale))
+    return static_cast<int>(cudaErrorInvalidValue);
   flash_combine_kernel<<<dim3(H, 1), dh, 0, s>>>(pf, nullptr, static_cast<float*>(out), H, dh, S,
                                                   n_keys);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B slots: k/v point at layer il of the batched cache ([B, H, n_ctx, Dh]);
-// n_pasts [B] int32 on the device; n_keys = max_n_past + 1 bounds every
-// slot's keys; part is scratch of B * H * ceil(n_keys/64) * (dh + 2) floats.
-extern "C" int flash_decode_batched(const void* q, const void* k, const void* v,
-                                    const void* n_pasts, void* part, void* out, int B, int H,
-                                    int n_ctx, int dh, int n_keys, float scale, int is_bf16,
-                                    void* stream) {
+// B slots: k/v point at layer il of the batched cache ([B, H, n_ctx, Dh]),
+// ks/vs at its row scales (int8) or are null; n_pasts [B] int32 on the
+// device; n_keys = max_n_past + 1 bounds every slot's keys; part is scratch
+// of B * H * ceil(n_keys/64) * (dh + 2) floats.
+extern "C" int flash_decode_batched(const void* q, const void* k, const void* v, const void* ks,
+                                    const void* vs, const void* n_pasts, void* part, void* out,
+                                    int B, int H, int n_ctx, int dh, int n_keys, float scale,
+                                    int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int S = n_splits(n_keys);
-  const dim3 grid(H, S, B);
-  const float* qf = static_cast<const float*>(q);
   const int* np = static_cast<const int*>(n_pasts);
   float* pf = static_cast<float*>(part);
-  if (is_bf16)
-    flash_split_batched_kernel<__nv_bfloat16><<<grid, dh, split_smem(dh), s>>>(
-        qf, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), np, pf,
-        H, n_ctx, dh, n_keys, scale);
-  else
-    flash_split_batched_kernel<float><<<grid, dh, split_smem(dh), s>>>(
-        qf, static_cast<const float*>(k), static_cast<const float*>(v), np, pf, H, n_ctx, dh,
-        n_keys, scale);
+  if (!split_dense_kind(kind, dim3(H, S, B), dh, s, q, k, v, ks, vs, np, pf, H, n_ctx, n_keys,
+                        scale))
+    return static_cast<int>(cudaErrorInvalidValue);
   flash_combine_kernel<<<dim3(H, B), dh, 0, s>>>(pf, np, static_cast<float*>(out), H, dh, S,
                                                   n_keys);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B slots through a page table: pools [P, L, H, page, Dh] (whole, not a
-// layer view), table [B, MP] and n_pasts [B] int32 on the device.
+// B slots through a page table: pools [P, L, H, page, Dh] and scale pools
+// [P, L, H, page, 1] (int8) or null (whole, not layer views), table [B, MP]
+// and n_pasts [B] int32 on the device.
 extern "C" int flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
-                                  const void* table, const void* n_pasts, void* part, void* out,
-                                  int B, int P, int L, int H, int page, int MP, int il, int dh,
-                                  int n_keys, float scale, int is_bf16, void* stream) {
+                                  const void* ks_pool, const void* vs_pool, const void* table,
+                                  const void* n_pasts, void* part, void* out, int B, int P, int L,
+                                  int H, int page, int MP, int il, int dh, int n_keys, float scale,
+                                  int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int S = n_splits(n_keys);
   const dim3 grid(H, S, B);
-  const float* qf = static_cast<const float*>(q);
-  const int* tb = static_cast<const int*>(table);
   const int* np = static_cast<const int*>(n_pasts);
   float* pf = static_cast<float*>(part);
-  if (is_bf16)
-    flash_split_paged_kernel<__nv_bfloat16><<<grid, dh, split_smem(dh), s>>>(
-        qf, static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
-        tb, np, pf, P, L, H, page, MP, il, dh, n_keys, scale);
-  else
-    flash_split_paged_kernel<float><<<grid, dh, split_smem(dh), s>>>(
-        qf, static_cast<const float*>(k_pool), static_cast<const float*>(v_pool), tb, np, pf, P,
-        L, H, page, MP, il, dh, n_keys, scale);
+  switch (kind) {
+    case 0:
+      split_paged<float>(grid, dh, s, q, k_pool, v_pool, ks_pool, vs_pool, table, np, pf, P, L, H,
+                         page, MP, il, n_keys, scale);
+      break;
+    case 1:
+      split_paged<__nv_bfloat16>(grid, dh, s, q, k_pool, v_pool, ks_pool, vs_pool, table, np, pf, P,
+                                 L, H, page, MP, il, n_keys, scale);
+      break;
+    case 2:
+      split_paged<int8_t>(grid, dh, s, q, k_pool, v_pool, ks_pool, vs_pool, table, np, pf, P, L, H,
+                          page, MP, il, n_keys, scale);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   flash_combine_kernel<<<dim3(H, B), dh, 0, s>>>(pf, np, static_cast<float*>(out), H, dh, S,
                                                   n_keys);
   return static_cast<int>(cudaGetLastError());

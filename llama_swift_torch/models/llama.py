@@ -18,6 +18,14 @@ cache, dense (``init_cache_batched``, ``[L, B, H, n_ctx, Dh]``) or paged
 path ``forward(..., slot=)`` and ``forward_batched``: one decode step for B
 slots, whose matmuls reach the multi-row Q4_0 kernel and whose attention
 reaches the batched or paged flash-decode kernel.
+
+Every cache may be f32, bf16 or int8.  An int8 cache holds symmetric codes
+and one f32 scale per (head, position) row, written by :func:`quantize_kv`
+(the JAX formula, round half to even); prefill and the plain attention read
+it back as ``codes·scale``.  Decode reaches the int8 flash kernel of its
+mode: batch 1 (``init_cache``) → ``flash_decode_attention_stacked_int8``,
+dense batched → ``flash_decode_attention_batched_int8``, paged →
+``flash_decode_attention_paged_int8``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,10 @@ from ..ops import quantized_matmul as qmm
 from ..ops.attention import (
     flash_decode_attention,
     flash_decode_attention_batched,
+    flash_decode_attention_batched_int8,
     flash_decode_attention_paged,
+    flash_decode_attention_paged_int8,
+    flash_decode_attention_stacked_int8,
     gather_pages,
     reference_decode_attention_batched,
 )
@@ -222,36 +233,41 @@ def random_params(
 def _cache_dtype(cfg: ModelConfig, dtype):
     if dtype is not None:
         return dtype
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not served by the port yet")
-    return getattr(torch, cfg.kv_cache_dtype)
+    return torch.int8 if cfg.kv_cache_dtype == "int8" else getattr(torch, cfg.kv_cache_dtype)
+
+
+def _kv_planes(shape, dtype, device, suffix: str = "") -> Cache:
+    """K and V buffers of ``shape``; an int8 cache adds f32 scales of
+    ``shape[:-1] + (1,)``, one per (head, position) row (``k_scale`` or,
+    with ``suffix="_pool"``, ``k_scale_pool``)."""
+    cache = {
+        "k" + suffix: torch.zeros(shape, dtype=dtype, device=device),
+        "v" + suffix: torch.zeros(shape, dtype=dtype, device=device),
+    }
+    if dtype == torch.int8:
+        for name in ("k", "v"):
+            cache[name + "_scale" + suffix] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)
+    return cache
 
 
 def init_cache(cfg: ModelConfig, dtype=None, *, device=None) -> Cache:
     """Dense KV cache ``[L, H, n_ctx, Dh]`` (head-major: each head's history
-    contiguous; keys stored post-rope), f32 or bf16.  ``forward`` writes it
+    contiguous; keys stored post-rope), f32, bf16 or int8 (int8 when
+    ``dtype=torch.int8`` or ``cfg.kv_cache_dtype == "int8"``: then also
+    ``k_scale``/``v_scale`` ``[L, H, n_ctx, 1]`` f32).  ``forward`` writes it
     in place at ``(il, :, n_past, :)``."""
-    dtype = _cache_dtype(cfg, dtype)
     shape = (cfg.n_layer, cfg.n_head, cfg.n_ctx, cfg.head_dim)
-    device = resolve_device(device)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    return _kv_planes(shape, _cache_dtype(cfg, dtype), resolve_device(device))
 
 
 def init_cache_batched(cfg: ModelConfig, batch: int, dtype=None, *, device=None) -> Cache:
     """Layer-major batched KV cache ``[L, B, H, n_ctx, Dh]`` for
     :func:`forward_batched` and the slot path of :func:`forward`: layer
     ``il``'s planes of all slots are one contiguous ``[B, H, n_ctx, Dh]``
-    block, which the batched flash kernel reads in place."""
-    dtype = _cache_dtype(cfg, dtype)
+    block, which the batched flash kernel reads in place.  An int8 cache
+    adds ``k_scale``/``v_scale`` ``[L, B, H, n_ctx, 1]`` f32."""
     shape = (cfg.n_layer, batch, cfg.n_head, cfg.n_ctx, cfg.head_dim)
-    device = resolve_device(device)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    return _kv_planes(shape, _cache_dtype(cfg, dtype), resolve_device(device))
 
 
 def init_cache_paged(
@@ -265,27 +281,68 @@ def init_cache_paged(
 
     The LAST page is scratch: every table entry points at it until the
     engine allocates, so writes from idle slots (a step computes all B
-    lanes) land there instead of on a live page."""
-    dtype = _cache_dtype(cfg, dtype)
+    lanes) land there instead of on a live page.
+
+    An int8 pool adds ``k_scale_pool``/``v_scale_pool`` ``[n_pages, L, H,
+    page, 1]`` f32, addressed by the same page ids."""
     page = min(page, cfg.n_ctx)
     mp = -(-cfg.n_ctx // page)
     shape = (n_pages, cfg.n_layer, cfg.n_head, page, cfg.head_dim)
     device = resolve_device(device)
-    return {
-        "k_pool": torch.zeros(shape, dtype=dtype, device=device),
-        "v_pool": torch.zeros(shape, dtype=dtype, device=device),
-        "page_table": torch.full((max_slots, mp), n_pages - 1, dtype=torch.int32, device=device),
-    }
+    cache = _kv_planes(shape, _cache_dtype(cfg, dtype), device, suffix="_pool")
+    cache["page_table"] = torch.full((max_slots, mp), n_pages - 1, dtype=torch.int32, device=device)
+    return cache
 
 
-def _paged_write(pool, table, il: int, positions, val) -> None:
+def quantize_kv(val: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 cache write of the JAX package (``cache_write*`` in
+    ``llama_swift_tpu/models/llama.py``): symmetric codes per row of the last
+    axis, ``scale = amax/127``, ``q = clip(round(v·inv), -127, 127)`` with
+    ``inv = 1/scale`` (0 for an all-zero row).  ``torch.round`` rounds half
+    to even, as ``jnp.round`` does.  Returns (int8 codes, f32 scales
+    ``[..., 1]``)."""
+    v = val.float()
+    scale = v.abs().amax(dim=-1, keepdim=True) / 127.0
+    live = scale > 0
+    inv = torch.where(live, 1.0 / torch.where(live, scale, torch.ones_like(scale)), torch.zeros_like(scale))
+    return torch.round(v * inv).clamp(-127, 127).to(torch.int8), scale
+
+
+def _store(buf, scale, index, val) -> None:
+    """``buf[index] = val``; for an int8 cache (``scale`` given) the codes go
+    to ``buf[index]`` and the row scales to ``scale[index]``, so both take
+    the same positions (idle lanes included)."""
+    if scale is None:
+        buf[index] = val.to(buf.dtype)
+    else:
+        q, s = quantize_kv(val)
+        buf[index] = q
+        scale[index] = s
+
+
+def _layer_plane(buf, scale, il: int, table=None, n_keys: int = 0):
+    """Layer ``il`` of a cache for the plain attention: the dense plane, or
+    with ``table [MP]`` the slot's first ``n_keys`` positions gathered from
+    the pool.  An int8 cache reads back as ``codes·scale`` f32 (the JAX
+    package's ``cache_read*``); a float cache as it is."""
+    if table is None:
+        codes, s = buf[il], None if scale is None else scale[il]
+    else:
+        codes = gather_pages(buf, table[None], il, n_keys)[0]
+        s = None if scale is None else gather_pages(scale, table[None], il, n_keys)[0]
+    return codes if s is None else codes.float() * s
+
+
+def _paged_write(pool, scale_pool, table, il: int, positions, val) -> None:
     """Store ``val [N, H, Dh]`` at ``positions [N]`` (device int64) of layer
     ``il`` through one table row ``table [MP]``: per-position page ids, so
     a chunk may start at any position and straddle pages (the JAX package's
-    single-write fast path assumes an aligned start)."""
+    single-write fast path assumes an aligned start).  An int8 pool's scales
+    go to ``scale_pool`` at the same page ids."""
     page = pool.shape[3]
     pids = table[positions // page].long().clamp(0, pool.shape[0] - 1)
-    pool.select(1, il)[pids, :, positions % page] = val.to(pool.dtype)
+    _store(pool.select(1, il), None if scale_pool is None else scale_pool.select(1, il),
+           (pids, slice(None), positions % page), val)
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +419,7 @@ def forward(
     slot ``slot``'s positions are written and read: the dense planes at
     ``(il, slot)``, or the slot's pages through its table row (attention
     then runs over the slot's pages gathered into a dense ``[H, n_ctx, Dh]``).
+    An int8 cache's scales are written and read at the same positions.
     """
     compute_dtype = getattr(torch, cfg.compute_dtype)
     N = tokens.shape[0]
@@ -379,10 +437,14 @@ def forward(
     paged = "page_table" in cache
     if paged:
         k_cache, v_cache, table = cache["k_pool"], cache["v_pool"], cache["page_table"][slot]
-    elif slot is not None:
-        k_cache, v_cache = cache["k"][:, slot], cache["v"][:, slot]  # [L, H, n_ctx, Dh] views
+        k_scale, v_scale = cache.get("k_scale_pool"), cache.get("v_scale_pool")
     else:
         k_cache, v_cache = cache["k"], cache["v"]
+        k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
+        if slot is not None:  # [L, H, n_ctx, Dh] (scales [..., 1]) views of the slot
+            k_cache, v_cache = k_cache[:, slot], v_cache[:, slot]
+            if k_scale is not None:
+                k_scale, v_scale = k_scale[:, slot], v_scale[:, slot]
     use_flash = cfg.use_flash_decode and N == 1 and slot is None
     stacked = params["layers_stacked"]
     for il in range(cfg.n_layer):
@@ -395,19 +457,26 @@ def forward(
         # .mm:528, ignoring the file's n_rot field)
         q = rope(q, positions, Dh)
         k = rope(k, positions, Dh)
+        # the write comes first: prefill attends the cache as stored (int8:
+        # dequantized), as the JAX package's cache_read does
         if paged:
-            _paged_write(k_cache, table, il, positions, k)
-            _paged_write(v_cache, table, il, positions, v)
-            keys = gather_pages(k_cache, table[None], il, cfg.n_ctx)[0]
-            values = gather_pages(v_cache, table[None], il, cfg.n_ctx)[0]
+            _paged_write(k_cache, k_scale, table, il, positions, k)
+            _paged_write(v_cache, v_scale, table, il, positions, v)
         else:
-            k_cache[il, :, n_past : n_past + N] = k.transpose(0, 1).to(k_cache.dtype)
-            v_cache[il, :, n_past : n_past + N] = v.transpose(0, 1).to(v_cache.dtype)
-            keys, values = k_cache[il], v_cache[il]
-        if use_flash:
+            rows = (il, slice(None), slice(n_past, n_past + N))
+            _store(k_cache, k_scale, rows, k.transpose(0, 1))
+            _store(v_cache, v_scale, rows, v.transpose(0, 1))
+        if use_flash and k_scale is not None:
+            ctx = flash_decode_attention_stacked_int8(
+                q[0].float().contiguous(), k_cache, v_cache, k_scale, v_scale, il, n_past)
+            ctx = ctx[None].to(compute_dtype)
+        elif use_flash:
             ctx = flash_decode_attention(q[0].float().contiguous(), k_cache, v_cache, il, n_past)
             ctx = ctx[None].to(compute_dtype)
         else:
+            tab = table if paged else None
+            keys = _layer_plane(k_cache, k_scale, il, tab, cfg.n_ctx)
+            values = _layer_plane(v_cache, v_scale, il, tab, cfg.n_ctx)
             ctx = _attention(q, keys, values, n_past, cfg.n_ctx, compute_dtype)
         x = x + lin(ctx.reshape(N, cfg.n_embd), layer["wo"])
         x = _ffn(x, layer, lin, cfg, compute_dtype)
@@ -447,8 +516,10 @@ def forward_batched(
     table row), then attention reads each slot's keys ``j <= n_pasts[b]``:
     the batched flash kernel over the dense cache, the paged one over the
     pool, or the plain masked softmax when ``cfg.use_flash_decode`` is off
-    (dense cache only).  ``n_pasts`` stay host values so that the kernels'
-    grid needs no read back from the card.
+    (dense cache only).  An int8 cache stores codes and row scales
+    (:func:`quantize_kv`) and reaches the int8 variants of those kernels.
+    ``n_pasts`` stay host values so that the kernels' grid needs no read
+    back from the card.
 
     Returns (logits ``[B, n_vocab]`` f32, cache), the cache updated in place.
     """
@@ -468,12 +539,15 @@ def forward_batched(
     paged = "page_table" in cache
     if paged:
         k_cache, v_cache, table = cache["k_pool"], cache["v_pool"], cache["page_table"]
+        k_scale, v_scale = cache.get("k_scale_pool"), cache.get("v_scale_pool")
         page = k_cache.shape[3]
         pids = table[torch.arange(B, device=dev), pos // page].long().clamp(0, k_cache.shape[0] - 1)
         offs = pos % page
     else:
         k_cache, v_cache = cache["k"], cache["v"]
+        k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
         slots = torch.arange(B, device=dev)
+    int8 = k_scale is not None
     x = qmm.embedding_lookup(tokens, params["tok_embeddings"], compute_dtype=compute_dtype)
     stacked = params["layers_stacked"]
     for il in range(cfg.n_layer):
@@ -486,19 +560,28 @@ def forward_batched(
         # its own n_pasts[b]
         q = rope(q, pos, Dh)
         k = rope(k, pos, Dh)
+        qf = q.float().contiguous()
         if paged:
-            k_cache.select(1, il)[pids, :, offs] = k.to(k_cache.dtype)
-            v_cache.select(1, il)[pids, :, offs] = v.to(v_cache.dtype)
-            ctx = flash_decode_attention_paged(
-                q.float().contiguous(), k_cache, v_cache, table, il, pos32, max_n_past)
-        else:
-            k_cache[il, slots, :, pos] = k.to(k_cache.dtype)
-            v_cache[il, slots, :, pos] = v.to(v_cache.dtype)
-            if cfg.use_flash_decode:
-                ctx = flash_decode_attention_batched(
-                    q.float().contiguous(), k_cache, v_cache, il, pos32, max_n_past)
+            rows = (pids, slice(None), offs)
+            _store(k_cache.select(1, il), k_scale.select(1, il) if int8 else None, rows, k)
+            _store(v_cache.select(1, il), v_scale.select(1, il) if int8 else None, rows, v)
+            if int8:
+                ctx = flash_decode_attention_paged_int8(
+                    qf, k_cache, v_cache, k_scale, v_scale, table, il, pos32, max_n_past)
             else:
-                ctx = reference_decode_attention_batched(q, k_cache[il], v_cache[il], pos)
+                ctx = flash_decode_attention_paged(qf, k_cache, v_cache, table, il, pos32, max_n_past)
+        else:
+            rows = (il, slots, slice(None), pos)
+            _store(k_cache, k_scale, rows, k)
+            _store(v_cache, v_scale, rows, v)
+            if cfg.use_flash_decode and int8:
+                ctx = flash_decode_attention_batched_int8(
+                    qf, k_cache, v_cache, k_scale, v_scale, il, pos32, max_n_past)
+            elif cfg.use_flash_decode:
+                ctx = flash_decode_attention_batched(qf, k_cache, v_cache, il, pos32, max_n_past)
+            else:
+                ctx = reference_decode_attention_batched(
+                    q, _layer_plane(k_cache, k_scale, il), _layer_plane(v_cache, v_scale, il), pos)
         x = x + lin(ctx.to(compute_dtype).reshape(B, cfg.n_embd), layer["wo"])
         x = _ffn(x, layer, lin, cfg, compute_dtype)
     x = norm(x, params["norm"], cfg.norm_type, cfg.norm_eps)

@@ -8,7 +8,8 @@ decode step per tick:
 
 * the KV cache carries a slot axis: dense ``[L, B, H, n_ctx, Dh]``, or a
   page pool with a page table (``paged_pages``), where a slot takes pages
-  as its sequence grows and gives them back when it retires;
+  as its sequence grows and gives them back when it retires; either in
+  f32, bf16 or int8 (``cache_dtype``);
 * each step advances every *active* slot by one token through
   :func:`models.llama.forward_batched` (every matmul sees all B rows, so
   the weights stream once per step);
@@ -169,6 +170,9 @@ class Engine:
     ``params`` come from ``models.llama.params_from_*``; the engine runs on
     their device.  ``paged_pages``: page-pool size including one scratch
     page (paged KV mode); None for the dense batched cache.
+    ``cache_dtype``: ``torch.float32``, ``torch.bfloat16`` or ``torch.int8``
+    (codes plus one f32 scale per (head, position) row; the scale pools of
+    a paged int8 cache share the page ids, so page allocation is the same).
     """
 
     def __init__(

@@ -13,7 +13,9 @@ stream ECHOES the prompt; the last-n ring starts as ``repeat_last_n`` zeros;
 no eos-stop; ``reverse_prompt`` stops generation when the emitted ids end
 with it.  The model is loaded once per runner.
 
-The runner runs on the CUDA card unless it is given ``device="cpu"``.
+The runner runs on the CUDA card unless it is given ``device="cpu"``.  Its
+KV cache follows ``runner.config.kv_cache_dtype`` (f32, bf16, or int8 with
+per-row scales), as the JAX runner's does.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 and ragged shapes (row counts that are not a multiple of a block's rows,
 in-dims that are not a multiple of a warp's blocks, several head dims,
 multi-row counts on both sides of the kernel's row templates, per-slot
-n_pasts on both sides of a 64-key split, page sizes 16 and 128).
+n_pasts on both sides of a 64-key split, page sizes 16 and 128, int8 caches
+with stale codes and scales beyond each n_past).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -170,3 +171,141 @@ def test_flash_paged_kernel_matches_plain_and_dense(cuda, dtype, page, n_pasts):
         torch.cuda.synchronize()
         assert _rel(out, ref) <= 1e-5
         assert _rel(out, dense) <= 1e-5
+
+
+def _int8(shape, cuda, seed):
+    """Codes and row scales of a seeded f32 tensor, by the port's own write."""
+    from llama_swift_torch.models.llama import quantize_kv
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return quantize_kv(torch.randn(shape, device=cuda, generator=g))
+
+
+def _stale_int8(codes, scale, n):
+    codes[..., n + 1 :, :] = 127  # stale codes and huge scales beyond n_past
+    scale[..., n + 1 :, :] = 1e3
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("n_past", [0, 63, 64, 200])
+def test_flash_stacked_int8_kernel_matches_plain(cuda, dh, n_past):
+    L, H, n_ctx = 3, 4, 256
+    k8, ks = _int8((L, H, n_ctx, dh), cuda, n_past)
+    v8, vs = _int8((L, H, n_ctx, dh), cuda, n_past + 1)
+    _stale_int8(k8[1], ks[1], n_past)
+    _stale_int8(v8[1], vs[1], n_past)
+    q = torch.randn((H, dh), device=cuda, generator=torch.Generator(device=cuda).manual_seed(9))
+    before = att.flash_decode_attention_stacked_int8.launches
+    out = att.flash_decode_attention_stacked_int8(q, k8, v8, ks, vs, 1, n_past)
+    ref = att.flash_decode_attention_stacked_int8_plain(q, k8, v8, ks, vs, 1, n_past)
+    torch.cuda.synchronize()
+    assert att.flash_decode_attention_stacked_int8.launches == before + 1
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("n_pasts", [[0, 63], [64, 0, 255, 130, 63], [200] * 5 + [1, 2]])
+def test_flash_batched_int8_kernel_matches_plain(cuda, dh, n_pasts):
+    L, B, H, n_ctx = 2, len(n_pasts), 4, 256
+    k8, ks = _int8((L, B, H, n_ctx, dh), cuda, B)
+    v8, vs = _int8((L, B, H, n_ctx, dh), cuda, B + 1)
+    for b, n in enumerate(n_pasts):
+        _stale_int8(k8[:, b], ks[:, b], n)
+        _stale_int8(v8[:, b], vs[:, b], n)
+    q = torch.randn((B, H, dh), device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    out = att.flash_decode_attention_batched_int8(q, k8, v8, ks, vs, 1, np_, max(n_pasts))
+    ref = att.flash_decode_attention_batched_int8_plain(q, k8, v8, ks, vs, 1, np_, max(n_pasts))
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("n_pasts", [[0, 63, 64, 255], [127, 128, 5]])
+def test_flash_paged_int8_kernel_matches_plain_and_dense(cuda, page, n_pasts):
+    """Scale pools under the same shuffled page ids as the code pools;
+    garbage ids beyond each slot's live pages."""
+    L, B, H, n_ctx, dh = 2, len(n_pasts), 4, 256, 128
+    k8, ks = _int8((L, B, H, n_ctx, dh), cuda, page)
+    v8, vs = _int8((L, B, H, n_ctx, dh), cuda, page + 1)
+    live = [n // page + 1 for n in n_pasts]
+    P = sum(live) + 1
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(page)).tolist()
+    table = torch.full((B, n_ctx // page), 10**6, dtype=torch.int32)
+    pools = [torch.zeros((P, L, H, page) + t.shape[-1:], dtype=t.dtype, device=cuda) for t in (k8, v8, ks, vs)]
+    for b in range(B):
+        for c in range(live[b]):
+            pid = ids.pop()
+            table[b, c] = pid
+            for pool, t in zip(pools, (k8, v8, ks, vs)):
+                pool[pid] = t[:, b, :, c * page : (c + 1) * page]
+    table = table.to(cuda)
+    q = torch.randn((B, H, dh), device=cuda, generator=torch.Generator(device=cuda).manual_seed(4))
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    for il in range(L):
+        out = att.flash_decode_attention_paged_int8(q, *pools, table, il, np_, max(n_pasts))
+        ref = att.flash_decode_attention_paged_int8_plain(q, *pools, table, il, np_, max(n_pasts))
+        dense = att.flash_decode_attention_batched_int8(q, k8, v8, ks, vs, il, np_, max(n_pasts))
+        torch.cuda.synchronize()
+        assert _rel(out, ref) <= 1e-5
+        assert _rel(out, dense) <= 1e-5
+
+
+def test_int8_wrappers_raise_on_bad_inputs(cuda):
+    q = torch.zeros((2, 128), device=cuda)
+    k8 = torch.zeros((1, 2, 16, 128), dtype=torch.int8, device=cuda)
+    s = torch.zeros((1, 2, 16, 1), device=cuda)
+    with pytest.raises(ValueError):  # f32 caches given to the int8 kernel
+        att.flash_decode_attention_stacked_int8(q, k8.float(), k8.float(), s, s, 0, 3)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        att.flash_decode_attention_stacked_int8(q, k8, k8, s[..., 0], s[..., 0], 0, 3)
+    with pytest.raises(ValueError):  # int8 caches given to the float kernel
+        att.flash_decode_attention(q, k8, k8, 0, 3)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_forward_batched_int8_card_matches_cpu(cuda, paged):
+    """A 2-layer, 128-dim-head Q4_0 model with f32 activations and f32
+    prefill products: slot prefills and forward_batched over an int8 cache on
+    the card (the int8 batched or paged kernel) against the CPU (their plain
+    versions), logits within the repo's 2e-3 bar.  (bf16 prefill operands
+    move the stored K/V by ~2^-9, and the int8 codes turn that into whole
+    code steps.)"""
+    import numpy as np
+
+    from llama_swift_torch.config import ModelConfig
+    from llama_swift_torch.formats.quant import Q4_0Tensor
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg = ModelConfig(n_vocab=512, n_embd=256, n_mult=256, n_head=2, n_layer=2, n_rot=128, n_ctx=256,
+                      quantize_activations=False, prefill_bf16=False, kv_cache_dtype="int8")
+    tensors = {k: (Q4_0Tensor.quantize(v) if v.ndim == 2 else v)
+               for k, v in model_lib.random_params(cfg, seed=11).items()}
+    prompts = [[1, 17, 300, 42, 99], [1, 260, 7], [1, 5, 6, 7, 8, 9, 10, 11, 12]]
+    steps = [[4, 6, 9, 0], [77, 3, 210, 0], [5, 411, 2, 0]]
+
+    def run(device):
+        params = model_lib.params_from_tensors(tensors, cfg, device=device, param_dtype=torch.float32)
+        if paged:
+            cache = model_lib.init_cache_paged(cfg, 8, 4, page=64, device=device)
+            cache["page_table"][:3, 0] = torch.tensor([4, 2, 0], dtype=torch.int32)
+            cache["page_table"][2, 1] = 5
+        else:
+            cache = model_lib.init_cache_batched(cfg, 4, device=device)
+        out = []
+        for b, ids in enumerate(prompts):
+            lg, cache = model_lib.forward(params, torch.tensor(ids, device=device), 0, cache, cfg, slot=b)
+            out.append(lg.cpu())
+        n_pasts = np.array([len(p) for p in prompts] + [0])
+        for toks in steps:
+            lg, cache = model_lib.forward_batched(params, torch.tensor(toks, device=device), n_pasts, cache, cfg)
+            out.append(lg[:3].cpu())
+            n_pasts[:3] += 1
+        return out
+
+    kernel = att.flash_decode_attention_paged_int8 if paged else att.flash_decode_attention_batched_int8
+    before = kernel.launches
+    card = run(cuda)
+    assert kernel.launches == before + len(steps) * cfg.n_layer
+    for c, r in zip(card, run("cpu")):
+        assert _rel(c, r) <= 2e-3

@@ -213,14 +213,6 @@ def test_forward_batched_rejects_out_of_range_positions(model):
         tllama.forward_batched(params, torch.tensor([1, 2]), [0, tcfg.n_ctx], cache, tcfg)
 
 
-def test_int8_batched_cache_not_served(model):
-    _, tcfg, _, _ = model
-    with pytest.raises(NotImplementedError):
-        tllama.init_cache_batched(dataclasses.replace(tcfg, kv_cache_dtype="int8"), 2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tllama.init_cache_paged(dataclasses.replace(tcfg, kv_cache_dtype="int8"), 4, 2, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # batched device sampler
 # ---------------------------------------------------------------------------
