@@ -3,18 +3,21 @@
 
     python3 chip_smoke.py                 # all phases; exits 0 only if all pass
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --profile       # adds a profiled decode window
+    python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
 
 1. identify the card (name and power limit from nvidia-smi) and build the
    CUDA kernels from ``llama_swift_torch/csrc`` (one nvcc per source, all
    started together);
-2. hold each of the nine kernels against its plain PyTorch version on the
+2. hold each of the ten kernels against its plain PyTorch version on the
    card at the 7B shapes of the serving paths, and time kernel, plain
    version, bound and (where one exists) a single PyTorch call computing
    the same function; the int8 flash kernels read caches written by the
    port's own int8 write, with stale codes and huge scales beyond n_past;
+   the whole-stack kernel runs 2 layers at n_past 0, 127 and 511 on f32
+   and bf16 caches, then all 32 layers of one token (see
+   ``check_fused_kernel`` for how 4-bit activation flips are counted);
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
@@ -22,6 +25,9 @@ Phases:
    int8 cache (``check_parity_int8``): within 2e-3 with f32 activations, and
    with 4-bit activations on a run with no activation-quantization flip,
    the flips and the int8 codes that differ between the devices counted;
+   then on fused wqkv/w13 params (``check_parity_fused``), f32 and bf16
+   caches, each card decode step exactly one whole-stack launch and one
+   matvec;
 3b. batched parity at 7B width and 2 layers: slot prefills of 3 slots, then
    4 ``forward_batched`` steps at B=8, dense and paged caches, f32 and int8,
    card vs CPU within 2e-3 (see ``check_batched_parity`` for how
@@ -32,7 +38,8 @@ Phases:
    with ``runner.config.kv_cache_dtype = "int8"``), with the launch counters
    reset just before and read just after, and checked against 225 matvec
    and 32 flash (f32) or int8 flash launches per decoded token and 225
-   dequant launches per prefill;
+   dequant launches per prefill; the same file is also loaded with fused
+   params before it is removed;
 4b. serve four waves through the continuous-batching ``Engine`` on the same
    params: A, 12 requests through 8 slots of a dense f32 cache; B, 8 through
    8 slots of a paged bf16 cache (half of them seeded, so the host sampler
@@ -42,6 +49,11 @@ Phases:
    32 flash launches of the wave's kernel per engine decode step, 225
    dequant launches per prefill chunk, and no other launch; every stream
    completes and every page comes back;
+4c. on the fused params: two requests through ``LlamaRunner`` (greedy on an
+   f32 cache, sampled on a bf16 cache), each decoded token exactly one
+   whole-stack launch and one matvec, each prefill 129 (4·32 + 1) dequant
+   launches; then wave E, wave A's shape (12 requests, 8 dense f32 slots),
+   129 multi-row launches per step and 129 dequant per chunk;
 5. print the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -167,6 +179,16 @@ def write_model(path: str, cfg, seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+def rand_q4(torch, g, n, out, in_dim):
+    """A stack of ``n`` random Q4_0 weights ``[out, in_dim]`` on the card,
+    scaled so that W·x keeps the activation scale."""
+    from llama_swift_torch.ops.q4_matvec import Q4_0Weight
+
+    qs = torch.randint(0, 256, (n, out, in_dim // 2), dtype=torch.uint8, device="cuda", generator=g)
+    d = torch.rand((n, out, in_dim // 32), device="cuda", generator=g) * (2.0 / (4.6 * math.sqrt(in_dim)))
+    return Q4_0Weight(qs, d)
+
+
 def check_kernels(torch) -> dict:
     """Returns {kernel name: summary at its representative shape}."""
     from llama_swift_torch.ops import attention as att
@@ -178,16 +200,11 @@ def check_kernels(torch) -> dict:
     summary = {}
     failed = []
 
-    def rand_q4(n, out, in_dim):
-        qs = torch.randint(0, 256, (n, out, in_dim // 2), dtype=torch.uint8, device=dev, generator=g)
-        d = torch.rand((n, out, in_dim // 32), device=dev, generator=g) * (2.0 / (4.6 * math.sqrt(in_dim)))
-        return mv.Q4_0Weight(qs, d)
-
     # matvec: enough weight copies that a round robin streams > 200 MB (cold L2)
     for out, in_dim in MATVEC_SHAPES:
         wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
         n = max(2, math.ceil(2e8 / wbytes))
-        w = rand_q4(n, out, in_dim)
+        w = rand_q4(torch, g, n, out, in_dim)
         x = torch.randn(in_dim, device=dev, generator=g)
         y = mv.q4_0_matvec(x, w.layer(0))
         ref = mv.q4_0_matvec_plain(x, w.layer(0))
@@ -245,7 +262,7 @@ def check_kernels(torch) -> dict:
     for rows, (out, in_dim) in [(MULTI_ROWS, sh) for sh in MATVEC_SHAPES] + [(32, (11008, 4096))]:
         wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
         n = max(2, math.ceil(2e8 / wbytes))
-        w = rand_q4(n, out, in_dim)
+        w = rand_q4(torch, g, n, out, in_dim)
         x = torch.randn((rows, in_dim), device=dev, generator=g)
         y = mv.q4_0_matmul_multi(x, w.layer(0))
         ref = mv.q4_0_matmul_multi_plain(x, w.layer(0))
@@ -324,10 +341,11 @@ def check_kernels(torch) -> dict:
         del kc, vc, kp, vp
 
     failed += check_int8_kernels(torch, g, summary)
+    failed += check_fused_kernel(torch, g, summary)
 
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
-    w = rand_q4(4, out, in_dim)
+    w = rand_q4(torch, g, 4, out, in_dim)
     for dtype in (torch.bfloat16, torch.float32):
         dense = dq.q4_0_dequant(w.layer(0), dtype)
         ref = dq.dequantize_q4_0(w.layer(0), dtype)
@@ -361,6 +379,124 @@ def check_kernels(torch) -> dict:
     if failed:
         raise SystemExit(f"chip_smoke: {len(failed)} kernel case(s) disagree with the plain version")
     return summary
+
+
+FUSED_NPAST = [0, 127, 511]
+FUSED_FLIP_LIMIT = 64  # flipped 4-bit codes a kernel-vs-plain case may show (a fault flips thousands)
+
+
+def events_ms(torch, fn) -> float:
+    """CUDA events around one call after a warm-up call, for a plain version
+    too large to queue behind ``time_ms``'s sleep kernel (its temporaries
+    make the caching allocator synchronize); host gaps are included."""
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(1)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def fused_case(torch, x, norms, weights, kc, vc, n_past: int) -> dict:
+    """The megakernel and its plain version on copies of one cache state;
+    returns the errors of x and of the new K/V rows, and the 4-bit codes
+    of the quantizer inputs that differ between the two (both traced).  A
+    bf16 cache rounds the new K/V from f32 values that differ by ulps, so
+    there each element may differ by one bf16 step (2^-7 of its value)."""
+    from llama_swift_torch.ops import fused_layer as fl
+    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
+
+    kp, vp = kc.clone(), vc.clone()
+    tr_k, tr_p = [], []
+    out = fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past, trace=tr_k)
+    ref = fl.fused_layers_block_plain(x, *norms, *weights, kp, vp, n_past, trace=tr_p)
+    flips = int((quantize_activations_q4_0_int(tr_k[0])[0] != quantize_activations_q4_0_int(tr_p[0])[0]).sum())
+    rows = [(a[:, :, n_past].float(), b[:, :, n_past].float()) for a, b in ((kc, kp), (vc, vp))]
+    kv_err = max(rel_err(a, b) for a, b in rows)
+    if kc.dtype == torch.bfloat16:
+        kv_ok = all(bool(((a - b).abs() <= b.abs() * 2.0**-7).all()) for a, b in rows)
+    else:
+        kv_ok = kv_err <= 5e-4
+    err = rel_err(out, ref)
+    ok = bool(torch.isfinite(out).all()) and ((err <= 5e-4 and kv_ok) or 0 < flips <= FUSED_FLIP_LIMIT)
+    return {"max_rel_err": err, "max_abs_err": float((out - ref).abs().max()), "kv_new_rel_err": kv_err,
+            "kv_new_ok": kv_ok, "q4_flips": flips, "ok": ok}
+
+
+def check_fused_kernel(torch, g, summary) -> list:
+    """The whole-stack kernel against its plain version at 7B width (32
+    heads, n_ff 11008): 2 layers at ``FUSED_NPAST`` on f32 and bf16 caches
+    with stale rows at and beyond n_past; then all 32 layers at n_past 127
+    (f32), timed against the bound of one token's bytes.  Where no 4-bit
+    activation code differs between the two, x and the new K/V agree within
+    5e-4 (the JAX package's fused tests' bar); a flipped code moves the
+    result by a quantization step, so then the flips are counted and held
+    below ``FUSED_FLIP_LIMIT``.  No single PyTorch call computes this
+    function, so ``library_ms`` is None."""
+    from llama_swift_torch.ops import fused_layer as fl
+
+    H, n_ctx, F = 32, 512, 11008
+    D = H * fl.HEAD_DIM
+    shapes = [(3 * D, D), (D, D), (2 * F, D), (D, F)]
+    failed = []
+    log({"case": "fused_layers_grid", "blocks": fl.grid_blocks(H, F),
+         "sms": torch.cuda.get_device_properties(0).multi_processor_count})
+
+    def inputs(L):
+        weights = [rand_q4(torch, g, L, out, in_dim) for out, in_dim in shapes]
+        norms = [1.0 + 0.05 * torch.randn((L, D), device="cuda", generator=g) for _ in range(2)]
+        return weights, norms
+
+    def bound_ms(L, n_past, elt):
+        wbytes = L * sum(out * in_dim // 2 + out * (in_dim // 32) * 4 for out, in_dim in shapes)
+        nbytes = wbytes + 2 * L * D * 4 + 2 * L * H * (n_past + 2) * fl.HEAD_DIM * elt + 2 * D * 4
+        ops = 2 * L * sum(out * in_dim for out, in_dim in shapes)
+        return max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3
+
+    L = 2
+    weights, norms = inputs(L)
+    x = torch.randn(D, device="cuda", generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        kc0 = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
+        vc0 = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
+        for n_past in FUSED_NPAST:
+            kc, vc = kc0.clone(), vc0.clone()
+            kc[:, :, n_past:] = 1e4  # stale rows: n_past is written first, beyond it never read
+            vc[:, :, n_past:] = -1e4
+            case = {"case": "fused_layers_block", "layers": L, "cache": str(dtype).split(".")[-1],
+                    "n_past": n_past, **fused_case(torch, x, norms, weights, kc, vc, n_past)}
+            case.update(
+                kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 20),
+                plain_ms=time_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past),
+                                 2),
+                bound_ms=bound_ms(L, n_past, kc.element_size()), library_ms=None)
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
+        del kc0, vc0, kc, vc
+    del weights, norms
+
+    # one token of the 32-layer stack: 4.05 GB of weights, far beyond L2
+    L, n_past = 32, 127
+    weights, norms = inputs(L)
+    kc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
+    vc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
+    case = {"case": "fused_layers_block", "layers": L, "cache": "float32", "n_past": n_past,
+            **fused_case(torch, x, norms, weights, kc, vc, n_past)}
+    case.update(
+        kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 10),
+        plain_ms=events_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past)),
+        bound_ms=bound_ms(L, n_past, kc.element_size()), library_ms=None)
+    log(case)
+    if not case["ok"]:
+        failed.append(case)
+    summary["fused_layers_block"] = dict(case, bound_by="bytes",
+                                         shape=f"L{L} H{H} n_ff{F} n_past{n_past} f32, per token")
+    del weights, norms, kc, vc
+    torch.cuda.empty_cache()
+    return failed
 
 
 def int8_cache(torch, shape, g):
@@ -549,17 +685,28 @@ def check_parity(torch) -> None:
 def recording(record, tag):
     """While active, every Q4_0 matvec and multi-row product appends
     ``(tag[0], activation rows on the CPU)`` to ``record`` (None: no
-    recording), so that two runs can be compared activation by activation."""
+    recording), and every whole-stack call ``(tag[0], its quantizer inputs
+    [L, 3D + F])``, so that two runs can be compared activation by
+    activation."""
+    from llama_swift_torch.models import llama as model_lib
     from llama_swift_torch.ops import quantized_matmul as qmm
 
-    matvec, multi = qmm.q4_0_matvec, qmm.q4_0_matmul_multi
+    matvec, multi, fused = qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block
+
+    def fused_rec(*args, **kwargs):
+        trace = []
+        out = fused(*args, trace=trace, **kwargs)
+        record.append((tag[0], trace[0]))
+        return out
+
     if record is not None:
         qmm.q4_0_matvec = lambda x, w: record.append((tag[0], x[None].cpu())) or matvec(x, w)
         qmm.q4_0_matmul_multi = lambda x, w: record.append((tag[0], x.cpu())) or multi(x, w)
+        model_lib.fused_layers_block = fused_rec
     try:
         yield
     finally:
-        qmm.q4_0_matvec, qmm.q4_0_matmul_multi = matvec, multi
+        qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block = matvec, multi, fused
 
 
 def flip_counts(rec_cpu, rec_card):
@@ -625,6 +772,63 @@ def check_parity_int8(torch) -> None:
     log(rec)
     if not rec["ok"]:
         raise SystemExit("chip_smoke: int8 parity outside its bars")
+
+
+def check_parity_fused(torch) -> None:
+    """Batch-1 parity on fused wqkv/w13 params at 7B width, 2 layers: an
+    8-token prefill (the multi-row kernel over wqkv and w13) and 4 decode
+    steps (each one whole-stack launch and the output matvec on the card,
+    their plain versions on the CPU), f32 and bf16 caches.  Logits within
+    2e-3 when no 4-bit activation code differs between the devices; the
+    flips are counted either way (see ``check_batched_parity``).  Each
+    card decode step must launch exactly one whole-stack kernel and one
+    matvec."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import GGMLType, ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+
+    base = dataclasses.replace(ModelConfig.llama_7b(ftype=GGMLType.Q4_0), n_layer=2, fuse_layer_matmuls=True,
+                               prefill_bf16=False)
+    tensors = dict(synthetic_tensors(base, seed=7))
+    params = {dev: model_lib.params_from_tensors(tensors, base, device=dev) for dev in ("cpu", "cuda")}
+    prompt = [1, 450, 17, 3000, 9, 222, 31000, 5]
+    steps = [77, 12000, 345, 6]
+
+    def run(device, cfg, record):
+        with recording(record, [None]):
+            cache = model_lib.init_cache(cfg, device=device)
+            logits, cache = model_lib.prefill(params[device], torch.tensor(prompt, device=device), 0, cache, cfg)
+            out = [logits[-1].float().cpu()]
+            for i, tok in enumerate(steps):
+                before = ops.launch_counts()
+                lg, cache = model_lib.decode_step(params[device], torch.tensor(tok, device=device), len(prompt) + i,
+                                                  cache, cfg)
+                out.append(lg.float().cpu())
+                after = ops.launch_counts()
+                if device == "cuda":
+                    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                    if delta != {"fused_layers_block": 1, "q4_0_matvec": 1}:
+                        raise SystemExit(f"chip_smoke: fused decode step launched {delta}")
+        return out
+
+    rec = {"case": "parity_fused_7b_width_2_layers"}
+    for kv in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        rec_cpu, rec_card = [], []
+        t0 = time.perf_counter()
+        cpu = run("cpu", cfg, rec_cpu)
+        rec[f"{kv}_cpu_s"] = time.perf_counter() - t0
+        card = run("cuda", cfg, rec_card)
+        rec[f"{kv}_prefill_rel_err"] = rel_err(card[0], cpu[0])
+        rec[f"{kv}_decode_rel_err_max"] = max(rel_err(a, b) for a, b in zip(card[1:], cpu[1:]))
+        rec[f"{kv}_flips"] = sum(int(f.sum()) for f in flip_counts(rec_cpu, rec_card))
+        rec[f"{kv}_finite"] = all(bool(torch.isfinite(t).all()) for t in card)
+        within = rec[f"{kv}_prefill_rel_err"] <= 2e-3 and rec[f"{kv}_decode_rel_err_max"] <= 2e-3
+        rec[f"{kv}_ok"] = rec[f"{kv}_finite"] and (within or rec[f"{kv}_flips"] > 0)
+    rec["ok"] = rec["float32_ok"] and rec["bfloat16_ok"]
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: fused parity outside its bars")
 
 
 # ---------------------------------------------------------------------------
@@ -747,9 +951,11 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
 
 
 def serve(torch, workdir: str, profile: bool) -> dict:
+    """Phase 4: write the synthetic 7B file, load it twice (as it is, and
+    with fused wqkv/w13 params) and serve four requests on the unfused
+    runner; the file is removed once both are loaded."""
     from llama_swift_torch import ops
     from llama_swift_torch.config import GGMLType, ModelConfig, RunnerConfig, SamplingConfig
-    from llama_swift_torch.runtime.events import EventKind
     from llama_swift_torch.runtime.runner import LlamaRunner
 
     cfg = ModelConfig.llama_7b(ftype=GGMLType.Q4_0)
@@ -758,7 +964,12 @@ def serve(torch, workdir: str, profile: bool) -> dict:
     write_model(path, cfg, seed=2024)
     log({"case": "write_model", "seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path)})
 
-    runner = LlamaRunner(path)
+    runner, fused_runner = LlamaRunner(path), LlamaRunner(path, fuse_layer_matmuls=True)
+    for r in (runner, fused_runner):
+        r.ensure_loaded()
+        log({"case": "load", "fused": r.fuse_layer_matmuls, "seconds": r.stats["t_load_s"],
+             "device_gib": torch.cuda.memory_allocated() / 2**30})
+    os.remove(path)
     # (name, config, KV cache dtype of runner.config for the request)
     requests = [
         ("greedy_device", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=1, top_k=1)), "float32"),
@@ -767,14 +978,32 @@ def serve(torch, workdir: str, profile: bool) -> dict:
          "float32"),
         ("greedy_device_int8", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=4, top_k=1)), "int8"),
     ]
-    runner.ensure_loaded()
-    os.remove(path)
-    log({"case": "load", "seconds": runner.stats["t_load_s"],
-         "device_gib": torch.cuda.memory_allocated() / 2**30})
-    model_cfg = runner.config
+    n_layer = runner.config.n_layer
+
+    def expected(kv_dtype, forwards):  # 7 matmuls a layer plus the output projection
+        flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
+        return {"q4_0_matvec": (7 * n_layer + 1) * forwards, flash: n_layer * forwards,
+                "q4_0_dequant": 7 * n_layer + 1}
+
     ops.reset_launch_counts()  # the main path's run starts here
+    per_request = run_requests(torch, runner, requests, PROMPTS + ENGINE_PROMPTS[3:], expected)
+    counts = ops.launch_counts()  # read just after the main path's run
+    if profile:
+        profile_decode(torch, runner)
+    return {"launches": counts, "requests": per_request, "runner": runner, "fused_runner": fused_runner}
+
+
+def run_requests(torch, runner, requests, prompts, expected) -> list:
+    """Serve each request through ``runner.run_events`` with
+    ``runner.config.kv_cache_dtype`` set for it; each must complete its 32
+    tokens with exactly ``expected(kv_dtype, forwards)`` launches (every
+    other kernel 0)."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.runtime.events import EventKind
+
+    model_cfg = runner.config
     per_request = []
-    for (name, rcfg, kv_dtype), prompt in zip(requests, PROMPTS + ENGINE_PROMPTS[3:]):
+    for (name, rcfg, kv_dtype), prompt in zip(requests, prompts):
         runner.config = dataclasses.replace(model_cfg, kv_cache_dtype=kv_dtype)
         before = ops.launch_counts()
         t1 = time.perf_counter()
@@ -788,22 +1017,49 @@ def serve(torch, workdir: str, profile: bool) -> dict:
         st = dict(runner.stats)
         forwards = st["generated_tokens"] - (0 if rcfg.device_sampling else 1)
         delta = {k: after[k] - before[k] for k in after}
-        expect = {k: 0 for k in delta}  # the batched kernels stay at 0 on the batch-1 path
-        flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
-        expect.update({"q4_0_matvec": 225 * forwards, flash: 32 * forwards, "q4_0_dequant": 225})
-        rec = {"case": "serve", "request": name, "kv_cache": kv_dtype, "prompt_tokens": st["prompt_tokens"],
-               "generated_tokens": st["generated_tokens"], "t_prefill_s": st["t_prefill_s"],
-               "t_decode_s": st["t_decode_s"], "decode_tok_per_s": st.get("decode_tok_per_s"),
-               "wall_s": wall, "launches": delta, "expected_launches": expect,
+        expect = {k: 0 for k in delta}
+        expect.update(expected(kv_dtype, forwards))
+        rec = {"case": "serve", "request": name, "fused": runner.fuse_layer_matmuls, "kv_cache": kv_dtype,
+               "prompt_tokens": st["prompt_tokens"], "generated_tokens": st["generated_tokens"],
+               "t_prefill_s": st["t_prefill_s"], "t_decode_s": st["t_decode_s"],
+               "decode_tok_per_s": st.get("decode_tok_per_s"), "wall_s": wall, "launches": delta,
+               "expected_launches": expect,
                "text_tail": "".join(e.token for e in events if e.kind == EventKind.OUTPUT_TOKEN)[-60:]}
         log(rec)
         if delta != expect or st["generated_tokens"] != 32:
             raise SystemExit(f"chip_smoke: request {name}: launches {delta} != expected {expect}")
         per_request.append(rec)
-    counts = ops.launch_counts()  # read just after the main path's run
+    return per_request
+
+
+def serve_fused(torch, runner, profile: bool) -> dict:
+    """Phase 4, fused: two requests on the fused params (greedy on an f32
+    cache, sampled on a bf16 one), each decoded token one whole-stack
+    launch plus the output matvec, each prefill 4·L + 1 dequant launches."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import RunnerConfig, SamplingConfig
+
+    requests = [
+        ("greedy_device_fused", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=5, top_k=1)), "float32"),
+        ("sampled_device_fused_bf16", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=6)), "bfloat16"),
+    ]
+    n_layer = runner.config.n_layer
+    ops.reset_launch_counts()  # the fused path's run starts here
+    per_request = run_requests(
+        torch, runner, requests, PROMPTS[:2],
+        lambda kv, forwards: {"fused_layers_block": forwards, "q4_0_matvec": forwards,
+                              "q4_0_dequant": 4 * n_layer + 1})
+    counts = ops.launch_counts()  # read just after
     if profile:
-        profile_decode(torch, runner)
-    return {"launches": counts, "requests": per_request, "runner": runner}
+        from llama_swift_torch.models import llama as model_lib
+
+        cfg, params = runner.config, runner.params
+        tok = torch.tensor(1, device="cuda")
+        cache = model_lib.init_cache(cfg, device="cuda")
+        profile_window(torch, "profile_fused_decode_8_steps",
+                       lambda i: model_lib.decode_step(params, tok, i, cache, cfg))
+        del cache
+    return {"launches": counts, "requests": per_request}
 
 
 ENGINE_PROMPTS = PROMPTS + [
@@ -827,16 +1083,11 @@ ENGINE_PROMPTS = PROMPTS + [
 ]
 
 
-def serve_engine(torch, runner) -> dict:
-    """Four waves through the continuous-batching Engine on the runner's
-    32-layer 7B params (nothing written or loaded again)."""
-    from llama_swift_torch import ops
-    from llama_swift_torch.config import SamplingConfig
-    from llama_swift_torch.runtime.engine import Engine
-
+def engine_waves(torch) -> list:
+    """Phase 4b's waves on the unfused params: (name, slots, cache,
+    prompts, per-request seeds, the flash kernel of the wave)."""
     half_seeded = [None, 11, None, 12, None, 13, None, 14]
-    # (name, slots, cache, prompts, per-request seeds, the flash kernel of the wave)
-    waves = [
+    return [
         ("A_dense_f32", 8, dict(cache_dtype=torch.float32), ENGINE_PROMPTS[:12],
          [None] * 12, "flash_decode_attention_batched"),
         ("B_paged_bf16", 8, dict(cache_dtype=torch.bfloat16, paged_pages=17, page=128), ENGINE_PROMPTS[:8],
@@ -846,6 +1097,19 @@ def serve_engine(torch, runner) -> dict:
         ("D_paged_int8", 8, dict(cache_dtype=torch.int8, paged_pages=17, page=128), ENGINE_PROMPTS[12:20],
          half_seeded, "flash_decode_attention_paged_int8"),
     ]
+
+
+def serve_engine(torch, runner, waves) -> dict:
+    """Waves through the continuous-batching Engine on the runner's 32-layer
+    7B params (nothing written or loaded again): per decode step 7·L + 1
+    multi-row launches on unfused params, 4·L + 1 on fused ones, and L of
+    the wave's flash kernel; per prefill chunk as many dequant launches as
+    multi-row ones per step."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import SamplingConfig
+    from llama_swift_torch.runtime.engine import Engine
+
+    n_mm = 4 if "wqkv" in runner.params["layers_stacked"] else 7  # matmuls a layer
     counts = {}
     for name, slots, kw, prompts, seeds, flash in waves:
         eng = Engine(runner.params, runner.config, runner.vocab, max_slots=slots, prefill_bucket=64, seed=2024,
@@ -862,18 +1126,19 @@ def serve_engine(torch, runner) -> dict:
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
         st = dict(eng.stats)
-        n_layer = runner.config.n_layer  # 7 matmuls a layer plus the output projection
+        n_layer = runner.config.n_layer  # n_mm matmuls a layer plus the output projection
         expect = {k: 0 for k in got}
-        expect.update({"q4_0_matmul_multi": (7 * n_layer + 1) * st["decode_steps"],
+        expect.update({"q4_0_matmul_multi": (n_mm * n_layer + 1) * st["decode_steps"],
                        flash: n_layer * st["decode_steps"],
-                       "q4_0_dequant": (7 * n_layer + 1) * st["prefill_chunks"]})
+                       "q4_0_dequant": (n_mm * n_layer + 1) * st["prefill_chunks"]})
         streams_ok = all(
             len(h.token_ids) == len(runner.vocab.tokenize(p, bos=True)) + 32
             and "".join(o[: len(runner.vocab.tokenize(p, bos=True))]) == "".join(
                 runner.vocab.piece_str(t) for t in runner.vocab.tokenize(p, bos=True))
             for p, h, o in zip(prompts, handles, outs))
         ttft = sorted(st.get("ttft_s", []))
-        rec = {"case": "engine_serve", "wave": name, "requests": len(prompts), "max_slots": slots,
+        rec = {"case": "engine_serve", "wave": name, "fused": n_mm == 4, "requests": len(prompts),
+               "max_slots": slots,
                "decode_steps": st["decode_steps"], "device_sampled_steps": st["device_sampled_steps"],
                "prefill_chunks": st["prefill_chunks"], "tokens_generated": st["tokens_generated"],
                "wall_s": wall, "aggregate_tok_per_s": st["tokens_generated"] / wall,
@@ -955,6 +1220,8 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
                                             "llama_swift_tpu/ops/attention.py:544"),
     "flash_decode_attention_paged_int8": ("llama_swift_torch/csrc/flash_decode.cu",
                                           "llama_swift_tpu/ops/attention.py:789"),
+    "fused_layers_block": ("llama_swift_torch/csrc/fused_layer.cu",
+                           "llama_swift_tpu/ops/q4_fused_layer.py:709"),
 }
 
 
@@ -993,6 +1260,7 @@ def main(argv=None) -> int:
         return 0
     check_parity(torch)
     check_parity_int8(torch)
+    check_parity_fused(torch)
     check_batched_parity(torch)
     check_batched_parity(torch, torch.int8)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1000,8 +1268,14 @@ def main(argv=None) -> int:
         served = serve(torch, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    engine_launches = serve_engine(torch, served["runner"])
-    launches = {k: served["launches"][k] + engine_launches[k] for k in KERNEL_META}
+    runs = [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
+    del served["runner"]
+    torch.cuda.empty_cache()
+    fused = served["fused_runner"]
+    runs.append(serve_fused(torch, fused, args.profile)["launches"])
+    runs.append(serve_engine(torch, fused, [("E_fused_dense_f32", 8, dict(cache_dtype=torch.float32),
+                                             ENGINE_PROMPTS[:12], [None] * 12, "flash_decode_attention_batched")]))
+    launches = {k: sum(r[k] for r in runs) for k in KERNEL_META}
     if not all(launches.values()):
         raise SystemExit(f"chip_smoke: a kernel of the serving paths never launched: {launches}")
 

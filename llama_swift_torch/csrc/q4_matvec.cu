@@ -61,28 +61,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "q4_common.cuh"
+
 namespace {
 
-constexpr int QK = 32;
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum_i(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum_f(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // x [nb*32] f32 -> xq [nb][32] int8 (de-interleaved), qsum [nb] int32, dx [nb] f32
 __global__ void quantize_x_kernel(const float* __restrict__ x, int nb,
@@ -91,25 +74,7 @@ __global__ void quantize_x_kernel(const float* __restrict__ x, int nb,
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= nb) return;
-  const float v = x[b * QK + lane];
-  const float amax = warp_max(fabsf(v));
-  const float d = __fdiv_rn(amax, 7.0f);
-  const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
-  const float q = truncf(__fadd_rn(__fmul_rn(v, inv), v >= 0.0f ? 0.5f : -0.5f));
-  const int qi = static_cast<int>(q);
-  // element e = 8g + 2t + parity  ->  byte (parity*4 + g)*4 + t
-  const int g = lane >> 3, r = lane & 7;
-  xq[b * QK + ((r & 1) * 4 + g) * 4 + (r >> 1)] = static_cast<int8_t>(qi);
-  const int s = warp_sum_i(qi);
-  if (lane == 0) {
-    qsum[b] = s;
-    dx[b] = d;
-  }
-}
-
-__device__ __forceinline__ int dot_word(uint32_t w, uint32_t qe, uint32_t qo, int acc) {
-  acc = __dp4a(static_cast<int>(w & 0x0F0F0F0Fu), static_cast<int>(qe), acc);
-  return __dp4a(static_cast<int>((w >> 4) & 0x0F0F0F0Fu), static_cast<int>(qo), acc);
+  quantize_block_warp(x[b * QK + lane], lane, xq + b * QK, qsum + b, dx + b);
 }
 
 // qs [out][nb*16] u8, dw [out][nb] f32 -> y [out] f32
@@ -130,11 +95,7 @@ q4_0_matvec_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
     const uint4 w = __ldg(wrow + b);
     const uint4 qe = __ldg(xq4 + 2 * b);
     const uint4 qo = __ldg(xq4 + 2 * b + 1);
-    int s = dot_word(w.x, qe.x, qo.x, 0);
-    s = dot_word(w.y, qe.y, qo.y, s);
-    s = dot_word(w.z, qe.z, qo.z, s);
-    s = dot_word(w.w, qe.w, qo.w, s);
-    const int part = s - 8 * __ldg(qsum + b);
+    const int part = block_dot(w, qe, qo, __ldg(qsum + b));
     const float scale = __fmul_rn(__ldg(drow + b), __ldg(dx + b));
     acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(part), scale));
   }
@@ -168,11 +129,7 @@ q4_0_matmul_multi_kernel(const uint8_t* __restrict__ qs, const float* __restrict
         const size_t xb = static_cast<size_t>(r) * nb + b;  // block b of row r
         const uint4 qe = __ldg(xq4 + 2 * xb);
         const uint4 qo = __ldg(xq4 + 2 * xb + 1);
-        int s = dot_word(w.x, qe.x, qo.x, 0);
-        s = dot_word(w.y, qe.y, qo.y, s);
-        s = dot_word(w.z, qe.z, qo.z, s);
-        s = dot_word(w.w, qe.w, qo.w, s);
-        const int part = s - 8 * __ldg(qsum + xb);
+        const int part = block_dot(w, qe, qo, __ldg(qsum + xb));
         const float scale = __fmul_rn(d, __ldg(dx + xb));
         acc[r] = __fadd_rn(acc[r], __fmul_rn(static_cast<float>(part), scale));
       }

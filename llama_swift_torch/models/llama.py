@@ -19,6 +19,15 @@ path ``forward(..., slot=)`` and ``forward_batched``: one decode step for B
 slots, whose matmuls reach the multi-row Q4_0 kernel and whose attention
 reaches the batched or paged flash-decode kernel.
 
+Fused params (``cfg.fuse_layer_matmuls``) hold ``wqkv`` (the out-dim concat
+of wq, wk, wv) and ``w13`` (w1, w3) in place of their parts: one product
+each, so a token, step or chunk makes 4·L + 1 matmul launches instead of
+7·L + 1.  On them, batch-1 decode (one token, no slot, no int8 scales,
+quantized activations, 128-dim heads: the JAX package's conditions) runs
+every layer in one launch of the whole-stack kernel
+(``ops/fused_layer.fused_layers_block``); the output projection after it
+stays on the matvec.
+
 Every cache may be f32, bf16 or int8.  An int8 cache holds symmetric codes
 and one f32 scale per (head, position) row, written by :func:`quantize_kv`
 (the JAX formula, round half to even); prefill and the plain attention read
@@ -50,6 +59,7 @@ from ..ops.attention import (
     gather_pages,
     reference_decode_attention_batched,
 )
+from ..ops.fused_layer import block_perm, fused_layers_block
 from ..ops.norms import norm
 from ..ops.q4_matvec import Q4_0Weight
 from ..ops.rope import rope
@@ -60,6 +70,12 @@ Cache = dict
 LAYER_WEIGHTS = (
     "attention_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3",
 )
+
+#: the fused out-dim concats of ``cfg.fuse_layer_matmuls``: each fused
+#: weight's parts, in row order (exact: each Q4 block scale belongs to one
+#: source row)
+FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
+FUSED_LAYER_WEIGHTS = ("attention_norm", "wqkv", "wo", "ffn_norm", "w13", "w2")
 
 #: prefill contexts at/above this use the chunked online-softmax attention
 #: (peak score memory [H, N, chunk] instead of [H, N, n_ctx])
@@ -113,16 +129,19 @@ def params_from_tensors(
     become ``param_dtype`` (default f32 on the CPU, bf16 on the card — the
     JAX package's choice off and on the TPU); norms are always f32.  Layer
     weights are stacked ``[L, ...]`` in ``params["layers_stacked"]``,
-    filled layer by layer on the device (no host-side stack).
+    filled layer by layer on the device (no host-side stack).  With
+    ``cfg.fuse_layer_matmuls`` the layers hold ``wqkv`` and ``w13`` (see
+    :data:`FUSED`) instead of their parts.
     """
     device = resolve_device(device)
     if param_dtype is None:
         param_dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     cvt = functools.partial(_to_device, device=device, dense_dtype=param_dtype)
     stacked: dict = {}
+    names = FUSED_LAYER_WEIGHTS if cfg.fuse_layer_matmuls else LAYER_WEIGHTS
     for il in range(cfg.n_layer):
-        for w in LAYER_WEIGHTS:
-            t = _to_device(tensors[_loader_name(il, w)], "cpu", param_dtype)
+        for w in names:
+            t = _layer_tensor(tensors, il, w, param_dtype)
             if w not in stacked:
                 stacked[w] = _empty_stack(t, cfg.n_layer, device)
             dst = _stack_at(stacked[w], il)
@@ -137,6 +156,17 @@ def params_from_tensors(
         "output": cvt(tensors["output.weight"]),
         "layers_stacked": stacked,
     }
+
+
+def _layer_tensor(tensors: dict, il: int, name: str, param_dtype):
+    """Layer ``il``'s weight ``name`` on the CPU; a fused name is the
+    out-dim concat of its parts."""
+    parts = [_to_device(tensors[_loader_name(il, w)], "cpu", param_dtype) for w in FUSED.get(name, (name,))]
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], Q4_0Weight):
+        return Q4_0Weight(torch.cat([p.qs for p in parts]), torch.cat([p.d for p in parts]))
+    return torch.cat(parts)
 
 
 def _empty_stack(t, n_layer: int, device):
@@ -171,42 +201,60 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
 
     Q4_0 containers are recognised by their field names, without importing
     the JAX classes: ``qs4v``/``scales_v`` (V layout: unpacked to logical
-    order, the 4096 in-dim zero padding dropped) or ``qs``/``scales``
-    (logical).  Dense leaves become f32 tensors.
+    order, the 4096 in-dim zero padding dropped), ``qs4w``/``scales_w`` (W
+    layout of the fused-layer kernels: the V geometry with blocks permuted
+    by λ, undone with :func:`~..ops.fused_layer.block_perm`, then the
+    padding dropped) or ``qs``/``scales`` (logical).  Fused ``wqkv``/``w13``
+    stay fused (any shard padding of w13's halves dropped).  Dense leaves
+    become f32 tensors.
     """
     device = resolve_device(device)
     if "layers_stacked" not in tree:
         raise ValueError("params_from_jax_numpy: expected stacked JAX params (layers_stacked)")
     in_dims = {"w2": cfg.n_ff}
+    n_ff = cfg.n_ff
 
-    def cvt(a, in_dim: int, out_dim: Optional[int] = None):
-        if hasattr(a, "qs4v"):
-            qs = _unpack_qs_v(a.qs4v)[..., : in_dim // 2]
-            sc = np.asarray(a.scales_v, dtype=np.float32)
-            sc = sc.reshape(*sc.shape[:-3], -1, sc.shape[-1])[..., : in_dim // QK]
+    def out_rows(name: str, n_out: int):
+        """Rows to keep of a weight with ``n_out`` rows (None: all)."""
+        if name in ("tok_embeddings", "output"):
+            return np.arange(cfg.n_vocab)
+        if name in ("w1", "w3"):
+            return np.arange(n_ff)
+        if name == "w13":  # halves w1; w3, each possibly padded
+            return np.r_[0:n_ff, n_out // 2 : n_out // 2 + n_ff]
+        return None
+
+    def cvt(a, name: str, in_dim: int):
+        if hasattr(a, "qs4v") or hasattr(a, "qs4w"):
+            w_layout = hasattr(a, "qs4w")
+            qs = _unpack_qs_v(a.qs4w if w_layout else a.qs4v)  # [..., out, in_pad/2]
+            sc = np.asarray(a.scales_w if w_layout else a.scales_v, dtype=np.float32)
+            sc = sc.reshape(*sc.shape[:-3], -1, sc.shape[-1])  # [..., out, in_pad/32]
+            if w_layout:  # packed block position λ holds logical block block_perm(nb)[λ]
+                inv = np.argsort(block_perm(sc.shape[-1]))
+                qs = qs.reshape(*qs.shape[:-1], -1, 16)[..., inv, :].reshape(qs.shape)
+                sc = sc[..., inv]
+            qs, sc = qs[..., : in_dim // 2], sc[..., : in_dim // QK]
         elif hasattr(a, "qs") and hasattr(a, "scales"):
             qs, sc = np.asarray(a.qs), np.asarray(a.scales, dtype=np.float32)
-        elif hasattr(a, "qs4w") or hasattr(a, "qs4") or hasattr(a, "sm_v"):
+        elif hasattr(a, "qs4") or hasattr(a, "sm_v"):
             raise NotImplementedError(f"params_from_jax_numpy: layout {type(a).__name__} is not carried across")
         else:
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
-        if out_dim is not None:
-            qs, sc = qs[..., :out_dim, :], sc[..., :out_dim, :]
+        rows = out_rows(name, qs.shape[-2])
+        if rows is not None:
+            qs, sc = qs[..., rows, :], sc[..., rows, :]
         return Q4_0Weight(
             torch.from_numpy(np.ascontiguousarray(qs, dtype=np.uint8)).to(device),
             torch.from_numpy(np.ascontiguousarray(sc)).to(device),
         )
 
-    stacked = tree["layers_stacked"]
-    if "wqkv" in stacked or "w13" in stacked:
-        raise NotImplementedError("params_from_jax_numpy: fused wqkv/w13 params are not carried across")
     return {
-        "tok_embeddings": cvt(tree["tok_embeddings"], cfg.n_embd, cfg.n_vocab),
-        "norm": cvt(tree["norm"], cfg.n_embd),
-        "output": cvt(tree["output"], cfg.n_embd, cfg.n_vocab),
+        "tok_embeddings": cvt(tree["tok_embeddings"], "tok_embeddings", cfg.n_embd),
+        "norm": cvt(tree["norm"], "norm", cfg.n_embd),
+        "output": cvt(tree["output"], "output", cfg.n_embd),
         "layers_stacked": {
-            k: cvt(v, in_dims.get(k, cfg.n_embd), cfg.n_ff if k in ("w1", "w3") else None)
-            for k, v in stacked.items()
+            k: cvt(v, k, in_dims.get(k, cfg.n_embd)) for k, v in tree["layers_stacked"].items()
         },
     }
 
@@ -302,7 +350,8 @@ def quantize_kv(val: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     to even, as ``jnp.round`` does.  Returns (int8 codes, f32 scales
     ``[..., 1]``)."""
     v = val.float()
-    scale = v.abs().amax(dim=-1, keepdim=True) / 127.0
+    amax = v.abs().amax(dim=-1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0)  # true division on CUDA too (see ops/q4_matvec)
     live = scale > 0
     inv = torch.where(live, 1.0 / torch.where(live, scale, torch.ones_like(scale)), torch.zeros_like(scale))
     return torch.round(v * inv).clamp(-127, 127).to(torch.int8), scale
@@ -399,6 +448,24 @@ def _layer_at(stacked: dict, il: int) -> dict:
     return {k: _stack_at(v, il) for k, v in stacked.items()}
 
 
+def _qkv(h, layer: dict, lin, N: int, H: int, Dh: int):
+    """q, k, v ``[N, H, Dh]``: one product over fused ``wqkv`` split by
+    ``n_embd``, or three over wq, wk, wv."""
+    if "wqkv" in layer:
+        qkv = lin(h, layer["wqkv"])
+        D = H * Dh
+        return tuple(qkv[:, i * D : (i + 1) * D].reshape(N, H, Dh) for i in range(3))
+    return tuple(lin(h, layer[w]).reshape(N, H, Dh) for w in ("wq", "wk", "wv"))
+
+
+def _takes_megakernel(stacked: dict, N: int, slot, cache: Cache, cfg: ModelConfig) -> bool:
+    """The JAX package's conditions for the whole-stack kernel
+    (``llama_swift_tpu/models/llama.py:899-906``): fused params, one token,
+    no slot, no int8 scales, quantized activations, 128-dim heads."""
+    return ("wqkv" in stacked and N == 1 and slot is None and "k" in cache and "k_scale" not in cache
+            and cfg.quantize_activations and cfg.head_dim == 128)
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,  # [N] int64 on the params' device (may include right-padding)
@@ -447,12 +514,17 @@ def forward(
                 k_scale, v_scale = k_scale[:, slot], v_scale[:, slot]
     use_flash = cfg.use_flash_decode and N == 1 and slot is None
     stacked = params["layers_stacked"]
+    if _takes_megakernel(stacked, N, slot, cache, cfg):
+        x = fused_layers_block(
+            x.reshape(cfg.n_embd).float().contiguous(), stacked["attention_norm"], stacked["ffn_norm"],
+            stacked["wqkv"], stacked["wo"], stacked["w13"], stacked["w2"], k_cache, v_cache, n_past,
+            norm_type=cfg.norm_type, eps=cfg.norm_eps)
+        x = norm(x[None].to(compute_dtype), params["norm"], cfg.norm_type, cfg.norm_eps)
+        return lin(x, params["output"]).float()[:, : cfg.n_vocab], cache
     for il in range(cfg.n_layer):
         layer = _layer_at(stacked, il)
         h = norm(x, layer["attention_norm"], cfg.norm_type, cfg.norm_eps)
-        q = lin(h, layer["wq"]).reshape(N, H, Dh)
-        k = lin(h, layer["wk"]).reshape(N, H, Dh)
-        v = lin(h, layer["wv"]).reshape(N, H, Dh)
+        q, k, v = _qkv(h, layer, lin, N, H, Dh)
         # rope over the full head dim (eval recomputes n_rot = n_embd/n_head,
         # .mm:528, ignoring the file's n_rot field)
         q = rope(q, positions, Dh)
@@ -487,10 +559,13 @@ def forward(
 
 def _ffn(x, layer, lin, cfg: ModelConfig, compute_dtype):
     """Feed-forward block with its residual: silu(w1·h) * (w3·h) → w2
-    (``.mm:658-684``)."""
+    (``.mm:658-684``); fused ``w13`` is one product split in halves."""
     h = norm(x, layer["ffn_norm"], cfg.norm_type, cfg.norm_eps)
-    g1 = lin(h, layer["w1"])
-    g3 = lin(h, layer["w3"])
+    if "w13" in layer:
+        g1, g3 = lin(h, layer["w13"]).chunk(2, dim=-1)
+    else:
+        g1 = lin(h, layer["w1"])
+        g3 = lin(h, layer["w3"])
     gate = torch.nn.functional.silu(g1.float()).to(compute_dtype)
     return x + lin(gate * g3, layer["w2"])
 
@@ -553,9 +628,7 @@ def forward_batched(
     for il in range(cfg.n_layer):
         layer = _layer_at(stacked, il)
         h = norm(x, layer["attention_norm"], cfg.norm_type, cfg.norm_eps)
-        q = lin(h, layer["wq"]).reshape(B, H, Dh)
-        k = lin(h, layer["wk"]).reshape(B, H, Dh)
-        v = lin(h, layer["wv"]).reshape(B, H, Dh)
+        q, k, v = _qkv(h, layer, lin, B, H, Dh)
         # rope treats the slot axis as the position axis: slot b rotates at
         # its own n_pasts[b]
         q = rope(q, pos, Dh)

@@ -1,8 +1,9 @@
 """Ops of the port: plain PyTorch tensor code, and the hand-written CUDA
 kernels of the serving paths: the batch-1 path (matvec, flash decode,
 dequant), the engine's batched decode (multi-row matmul, batched and
-paged flash decode) and the int8 KV cache (the three flash-decode kernels
-over int8 codes and row scales)."""
+paged flash decode), the int8 KV cache (the three flash-decode kernels
+over int8 codes and row scales) and the whole-stack batch-1 decode kernel
+on fused wqkv/w13 params."""
 
 from .attention import (
     flash_decode_attention,
@@ -12,6 +13,7 @@ from .attention import (
     flash_decode_attention_paged_int8,
     flash_decode_attention_stacked_int8,
 )
+from .fused_layer import fused_layers_block
 from .q4_dequant import q4_0_dequant
 from .q4_matvec import q4_0_matmul_multi, q4_0_matvec
 
@@ -20,6 +22,7 @@ KERNELS = (
     q4_0_matvec, flash_decode_attention, q4_0_dequant,
     q4_0_matmul_multi, flash_decode_attention_batched, flash_decode_attention_paged,
     flash_decode_attention_stacked_int8, flash_decode_attention_batched_int8, flash_decode_attention_paged_int8,
+    fused_layers_block,
 )
 
 

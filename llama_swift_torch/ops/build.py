@@ -4,8 +4,10 @@ Each source is compiled by ``nvcc`` into its own shared library with a plain
 C interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds.  All sources are compiled at once, one ``nvcc`` process each, at the
 first call that needs any of them.  Libraries are named by the hash of their
-source and land in ``llama_swift_torch/_build/`` (listed in ``.gitignore``),
-so an edited source is rebuilt and an unchanged one is reused.
+source, of every header under ``csrc/`` (``*.cuh``, ``*.h``: the device code
+that sources share) and of the compiler flags, and land in
+``llama_swift_torch/_build/`` (listed in ``.gitignore``), so an edited
+source or header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
@@ -25,8 +27,9 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
-#: source stem -> {C function: argument types}; every function returns the
-#: ``cudaGetLastError()`` code after its launches (0 = launched)
+#: source stem -> {C function: argument types}; every function returns an
+#: int: the ``cudaGetLastError()`` code after its launches (0 = launched),
+#: or for the ``fused_layers_*`` queries the value asked for
 SOURCES = {
     "q4_matvec": {
         "q4_0_matvec": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
@@ -43,6 +46,12 @@ SOURCES = {
     "q4_dequant": {
         "q4_0_dequant": [ctypes.c_void_p] * 3
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    },
+    "fused_layer": {
+        "fused_layers": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "fused_layers_blocks": [ctypes.c_int] * 3,
+        "fused_layers_scratch_bytes": [ctypes.c_int] * 3,
     },
 }
 
@@ -65,10 +74,20 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest(stem: str, csrc_dir: str = CSRC_DIR) -> str:
+    """Rebuild key of ``<stem>.cu``: its bytes, every header of ``csrc_dir``
+    and the compiler flags."""
+    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith((".cuh", ".h")))
+    h = hashlib.sha256()
+    for name in [stem + ".cu"] + headers:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _lib_path(stem: str) -> str:
-    with open(os.path.join(CSRC_DIR, stem + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{source_digest(stem)}.so")
 
 
 def build_all() -> dict:

@@ -1,0 +1,184 @@
+"""Whole-stack batch-1 decode: all L transformer layers of one token in one
+kernel launch (``csrc/fused_layer.cu``), its plain version and its wrapper.
+
+Counterpart of ``llama_swift_tpu/ops/q4_fused_layer.py``
+(``fused_layers_block``, ``rope_vectors``, ``block_perm``).  The port keeps
+its own Q4_0 layout (:class:`~.q4_matvec.Q4_0Weight`, stacked ``[L, out,
+in/2]``); the TPU W layout and its block permutation λ exist for Mosaic's
+lane rules, and :func:`block_perm` is here only so that
+``models/llama.params_from_jax_numpy`` can undo λ.
+
+Per layer: norm → 4-bit activation quantization → fused wqkv → rope → the
+new K/V written to the cache at ``n_past`` → attention over keys ``j <=
+n_past`` → wo → residual → norm → fused w13 → SwiGLU → w2 → residual, with
+every product the exact int4×int4 block dot.  The JAX kernel returns the
+new K/V for the caller to write; here they are written in place before
+attention reads them, which gives the new token's own softmax term the
+cache-rounded values the JAX kernel's round trip gives it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import QK
+from . import build
+from .attention import flash_decode_attention_plain
+from .norms import norm
+from .q4_matvec import Q4_0Weight, q4_0_matvec_plain
+
+#: the head dim the kernel takes (one thread per dim, as the TPU kernel
+#: maps one head per 128-lane tile)
+HEAD_DIM = 128
+
+_KIND = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def block_perm(nb: int) -> np.ndarray:
+    """λ of the TPU W layout: packed block position λ holds logical block
+    ``4·(λ % R) + λ // R`` (R = nb // 4); a copy of
+    ``llama_swift_tpu/ops/q4_fused_layer.block_perm``."""
+    R = nb // 4
+    lam = np.arange(nb)
+    return 4 * (lam % R) + lam // R
+
+
+def rope_vectors(n_past: int, head_dim: int = HEAD_DIM, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos_row, sin_signed_row) ``[head_dim]`` f32 for position ``n_past``:
+    ``theta_j = 10000^(-2j/d)``, cos repeated per pair, sin signed −/+ for
+    the even/odd element (a copy of the JAX ``rope_vectors``)."""
+    j = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    theta = torch.pow(10000.0, -2.0 * j / head_dim)  # a scalar base: no host-to-device copy
+    ang = float(n_past) * theta
+    cos = torch.repeat_interleave(torch.cos(ang), 2)
+    sin = torch.sin(ang)
+    return cos, torch.stack([-sin, sin], dim=1).reshape(-1)
+
+
+def _rope_rows(x: torch.Tensor, cos: torch.Tensor, sin_s: torch.Tensor) -> torch.Tensor:
+    """Adjacent-pair rope of ``[H, Dh]`` rows: ``x·cos + swap(x)·sin_s``,
+    swap exchanging each (2i, 2i+1) pair."""
+    swap = x.reshape(*x.shape[:-1], -1, 2).flip(-1).reshape(x.shape)
+    return x * cos + swap * sin_s
+
+
+def fused_layers_block_plain(
+    x, attn_norms, ffn_norms, wqkv: Q4_0Weight, wo: Q4_0Weight, w13: Q4_0Weight, w2: Q4_0Weight,
+    k_cache, v_cache, n_past: int, *, norm_type: str = "layernorm", eps: float = 1e-5,
+    trace: Optional[list] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same arithmetic layer by
+    layer (the exact integer matvec, the JAX SwiGLU formula), attention over
+    the cache after the new row is written (history, then the own term
+    last).  Writes each layer's K/V at ``n_past``; returns x ``[D]`` f32.
+    ``trace``: a list to which the quantizer inputs ``[L, 3D + F]`` (attn
+    norm, ctx, ffn norm, gate per layer) are appended."""
+    L, H = attn_norms.shape[0], k_cache.shape[1]
+    D, F = H * HEAD_DIM, w2.shape[1]
+    cos, sin_s = rope_vectors(n_past, HEAD_DIM, x.device)
+    x = x.float().reshape(D)
+    rows = []
+    for il in range(L):
+        h = norm(x, attn_norms[il], norm_type, eps)
+        qkv = q4_0_matvec_plain(h, wqkv.layer(il))
+        q = _rope_rows(qkv[:D].reshape(H, HEAD_DIM), cos, sin_s)
+        k_cache[il, :, n_past] = _rope_rows(qkv[D : 2 * D].reshape(H, HEAD_DIM), cos, sin_s).to(k_cache.dtype)
+        v_cache[il, :, n_past] = qkv[2 * D :].reshape(H, HEAD_DIM).to(v_cache.dtype)
+        ctx = flash_decode_attention_plain(q, k_cache, v_cache, il, n_past).reshape(D)
+        x = x + q4_0_matvec_plain(ctx, wo.layer(il))
+        h2 = norm(x, ffn_norms[il], norm_type, eps)
+        g13 = q4_0_matvec_plain(h2, w13.layer(il))
+        g1, g3 = g13[:F], g13[F:]
+        gate = g1 / (1.0 + torch.exp(-g1)) * g3
+        x = x + q4_0_matvec_plain(gate, w2.layer(il))
+        if trace is not None:
+            rows.append(torch.cat([h, ctx, h2, gate]))
+    if trace is not None:
+        trace.append(torch.stack(rows).cpu())
+    return x
+
+
+def _check(x, norms, weights, k_cache, v_cache, n_past: int) -> tuple[int, int, int, int]:
+    """Raise on what the kernel does not take; returns (L, H, D, F)."""
+    what = "fused_layers_block"
+    L, H, n_ctx, dh = k_cache.shape
+    D = H * dh
+    wqkv, wo, w13, w2 = weights
+    F = w2.shape[1]
+    if dh != HEAD_DIM:
+        raise ValueError(f"{what}: head dim {dh}, the kernel takes {HEAD_DIM}")
+    if k_cache.dtype not in _KIND or v_cache.dtype != k_cache.dtype or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{what}: caches must be f32 or bf16 [L, H, n_ctx, {HEAD_DIM}], one type")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{what}: caches must be contiguous")
+    if not 0 <= n_past < n_ctx:
+        raise ValueError(f"{what}: n_past {n_past} outside [0, {n_ctx})")
+    if x.dtype != torch.float32 or x.shape != (D,):
+        raise ValueError(f"{what}: x must be float32 [{D}], got {x.dtype} {tuple(x.shape)}")
+    for nw in norms:
+        if nw.dtype != torch.float32 or nw.shape != (L, D) or not nw.is_contiguous():
+            raise ValueError(f"{what}: norms must be contiguous float32 [{L}, {D}]")
+    for w, (out, in_dim) in zip(weights, [(3 * D, D), (D, D), (2 * F, D), (D, F)]):
+        if (w.qs.dtype != torch.uint8 or w.qs.shape != (L, out, in_dim // 2) or not w.qs.is_contiguous()
+                or w.d.dtype != torch.float32 or w.d.shape != (L, out, in_dim // QK) or not w.d.is_contiguous()):
+            raise ValueError(f"{what}: a weight is not a contiguous stacked Q4_0 [{L}, {out}, {in_dim}]")
+    if F % QK:
+        raise ValueError(f"{what}: n_ff {F} is not a multiple of {QK}")
+    tensors = [x, *norms, k_cache, v_cache] + [t for w in weights for t in (w.qs, w.d)]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{what}: every tensor must be on one CUDA device")
+    return L, H, D, F
+
+
+def fused_layers_block(
+    x, attn_norms, ffn_norms, wqkv: Q4_0Weight, wo: Q4_0Weight, w13: Q4_0Weight, w2: Q4_0Weight,
+    k_cache, v_cache, n_past: int, *, norm_type: str = "layernorm", eps: float = 1e-5,
+    trace: Optional[list] = None,
+) -> torch.Tensor:
+    """All L layers of one decode token: x ``[D]`` f32 residual stream in;
+    returns the stream after L layers.  Stacked weights ``[L, out, in/2]``
+    (wqkv: 3D rows q;k;v; w13: 2F rows w1;w3), norms ``[L, D]`` f32, caches
+    ``[L, H, n_ctx, 128]`` f32 or bf16 written in place at row ``n_past``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise).  ``trace``: see :func:`fused_layers_block_plain` (a check's
+    hook: the kernel then writes its quantizer inputs too)."""
+    if x.device.type == "cpu":
+        return fused_layers_block_plain(x, attn_norms, ffn_norms, wqkv, wo, w13, w2, k_cache, v_cache, n_past,
+                                        norm_type=norm_type, eps=eps, trace=trace)
+    if norm_type not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    weights = (wqkv, wo, w13, w2)
+    L, H, D, F = _check(x, (attn_norms, ffn_norms), weights, k_cache, v_cache, n_past)
+    out = x.clone()
+    lib = build.lib("fused_layer")
+    scratch = torch.empty(lib.fused_layers_scratch_bytes(H, F, n_past), dtype=torch.uint8, device=x.device)
+    tr = torch.empty((L, 3 * D + F), dtype=torch.float32, device=x.device) if trace is not None else None
+    code = lib.fused_layers(
+        out.data_ptr(), attn_norms.data_ptr(), ffn_norms.data_ptr(),
+        *[p for w in weights for p in (w.qs.data_ptr(), w.d.data_ptr())],
+        k_cache.data_ptr(), v_cache.data_ptr(), scratch.data_ptr(), tr.data_ptr() if tr is not None else None,
+        L, H, F, k_cache.shape[2], n_past, int(norm_type == "layernorm"), eps,
+        1.0 / math.sqrt(float(HEAD_DIM)), _KIND[k_cache.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    build.check(code, "fused_layers_block")
+    fused_layers_block.launches += 1
+    if trace is not None:
+        trace.append(tr.cpu())
+    return out
+
+
+fused_layers_block.launches = 0
+
+
+def grid_blocks(n_head: int, n_ff: int, dtype=torch.float32) -> int:
+    """Blocks of the kernel's cooperative launch on the current card (the
+    occupancy limit, at most four a multiprocessor); raises if none fits."""
+    n = build.lib("fused_layer").fused_layers_blocks(n_head, n_ff, _KIND[dtype])
+    build.check(max(0, -n), "fused_layers_block grid")
+    return n

@@ -68,7 +68,9 @@ def quantize_activations_q4_0_int(x: torch.Tensor) -> tuple[torch.Tensor, torch.
     ``[..., in/32]``); scalar reference semantics (``ggml.c:568-601``)."""
     xb = x.float().reshape(-1, QK)
     amax = xb.abs().amax(dim=-1)
-    d = amax / 7.0
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar through
+    # its reciprocal, and amax·(1/7) rounds exact ties otherwise than amax/7
+    d = amax / torch.full_like(amax, 7.0)
     inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
     half = torch.where(xb >= 0, 0.5, -0.5)
     q = torch.trunc(xb * inv[:, None] + half)

@@ -54,7 +54,8 @@ def fake_quantize_q4_0(x: torch.Tensor) -> torch.Tensor:
     k % 32 == 0; same shape and dtype out."""
     shape = x.shape
     xf = x.float().reshape(*shape[:-1], shape[-1] // QK, QK)
-    d = xf.abs().amax(dim=-1, keepdim=True) / 7.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    d = amax / torch.full_like(amax, 7.0)  # true division on CUDA too (see q4_matvec)
     inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
     return (round_half_away(xf * inv) * d).reshape(shape).to(x.dtype)
 

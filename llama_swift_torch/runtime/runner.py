@@ -21,6 +21,7 @@ per-row scales), as the JAX runner's does.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import queue as queue_mod
 import threading
 import time
@@ -57,6 +58,9 @@ class LlamaRunner:
     ``model_path`` plays the role of ``modelURL`` (``LlamaRunner.swift:42-47``);
     the model is lazily loaded on first run and cached.  ``device``: None
     means the CUDA card, and raises if there is none.
+    ``fuse_layer_matmuls``: load fused wqkv/w13 params, on which batch-1
+    decode runs every layer in one launch of the whole-stack kernel (see
+    ``models/llama.py``).
     """
 
     def __init__(
@@ -67,8 +71,10 @@ class LlamaRunner:
         param_dtype=None,
         prefill_bucket: int = 64,
         device=None,
+        fuse_layer_matmuls: bool = False,
     ):
         self.device = model_lib.resolve_device(device)
+        self.fuse_layer_matmuls = fuse_layer_matmuls
         self.model_path = model_path
         self.n_ctx = n_ctx
         self.param_dtype = param_dtype
@@ -95,10 +101,10 @@ class LlamaRunner:
             raise FailedToLoadModelError(f"failed to open '{self.model_path}'") from e
         except ggml.GGMLFormatError as e:
             raise FailedToLoadModelError(str(e)) from e
-        self.config = mf.config
+        self.config = dataclasses.replace(mf.config, fuse_layer_matmuls=self.fuse_layer_matmuls)
         self.vocab = Vocab(mf.vocab)
         self.params = model_lib.params_from_tensors(
-            mf.tensors, mf.config, device=self.device, param_dtype=self.param_dtype
+            mf.tensors, self.config, device=self.device, param_dtype=self.param_dtype
         )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # load time includes the copies

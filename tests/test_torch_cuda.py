@@ -309,3 +309,66 @@ def test_forward_batched_int8_card_matches_cpu(cuda, paged):
     assert kernel.launches == before + len(steps) * cfg.n_layer
     for c, r in zip(card, run("cpu")):
         assert _rel(c, r) <= 2e-3
+
+
+def _fused_inputs(device, L, H, F, n_ctx, dtype, seed):
+    from llama_swift_torch.ops import fused_layer as fl
+
+    D = H * fl.HEAD_DIM
+    ws = [_q4(L * out, in_dim, device, seed + i)[0] for i, (out, in_dim) in
+          enumerate([(3 * D, D), (D, D), (2 * F, D), (D, F)])]
+    ws = [mv.Q4_0Weight(w.qs.reshape(L, -1, w.qs.shape[-1]), w.d.reshape(L, -1, w.d.shape[-1])) for w in ws]
+    g = torch.Generator(device=device).manual_seed(seed)
+    norms = [1.0 + 0.05 * torch.randn((L, D), device=device, generator=g) for _ in range(2)]
+    x = torch.randn(D, device=device, generator=g)
+    kc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device=device, generator=g).to(dtype)
+    vc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device=device, generator=g).to(dtype)
+    return x, norms, ws, kc, vc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_past", [0, 63, 64, 200])
+def test_fused_layers_kernel_matches_plain(cuda, dtype, n_past):
+    """The whole-stack kernel against its plain version at 2 heads, n_ff 768
+    (24 blocks: fewer than a warp's lanes), stale rows beyond n_past.  Where
+    no 4-bit activation code differs between the two (their quantizer
+    inputs are traced), x and the new K/V agree within 5e-4, the bar of the
+    JAX package's fused tests (bf16 K/V: within one bf16 step); a flipped
+    code moves the result by one quantization step, so then only the flip
+    count is held small."""
+    from llama_swift_torch.ops import fused_layer as fl
+
+    x, (an, fn), ws, kc, vc = _fused_inputs(cuda, 2, 2, 768, 256, dtype, seed=n_past)
+    kc[:, :, n_past:] = 1e4
+    vc[:, :, n_past:] = -1e4
+    kp, vp = kc.clone(), vc.clone()
+    tr_k, tr_p = [], []
+    before = fl.fused_layers_block.launches
+    out = fl.fused_layers_block(x, an, fn, *ws, kc, vc, n_past, trace=tr_k)
+    torch.cuda.synchronize()
+    assert fl.fused_layers_block.launches == before + 1
+    ref = fl.fused_layers_block_plain(x, an, fn, *ws, kp, vp, n_past, trace=tr_p)
+    flips = int((mv.quantize_activations_q4_0_int(tr_k[0])[0] != mv.quantize_activations_q4_0_int(tr_p[0])[0]).sum())
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(kc[:, :, n_past + 1 :], kp[:, :, n_past + 1 :])  # rows beyond n_past untouched
+    err = _rel(out, ref)
+    rows = [(a[:, :, n_past].float(), b[:, :, n_past].float()) for a, b in ((kc, kp), (vc, vp))]
+    if dtype == torch.bfloat16:  # rounded from f32 values that differ by ulps: one bf16 step apart at most
+        kv_ok = all(bool(((a - b).abs() <= b.abs() * 2.0**-7).all()) for a, b in rows)
+    else:
+        kv_ok = max(_rel(a, b) for a, b in rows) <= 5e-4
+    assert (err <= 5e-4 and kv_ok) or 0 < flips <= 8, (err, kv_ok, flips)
+
+
+def test_fused_layers_grid_and_bad_inputs(cuda):
+    from llama_swift_torch.ops import fused_layer as fl
+
+    assert fl.grid_blocks(32, 11008) >= torch.cuda.get_device_properties(0).multi_processor_count
+    x, (an, fn), ws, kc, vc = _fused_inputs(cuda, 1, 2, 768, 64, torch.float32, seed=1)
+    with pytest.raises(ValueError):  # n_past beyond the cache
+        fl.fused_layers_block(x, an, fn, *ws, kc, vc, 64)
+    with pytest.raises(ValueError):  # an int8 cache takes the composed path
+        fl.fused_layers_block(x, an, fn, *ws, kc.to(torch.int8), vc.to(torch.int8), 3)
+    with pytest.raises(ValueError):  # a non-contiguous stack
+        fl.fused_layers_block(x, an, fn, ws[0], ws[1], mv.Q4_0Weight(ws[2].qs.transpose(1, 2), ws[2].d), ws[3],
+                              kc, vc, 3)
