@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases; exits 0 only if all pass
     python3 chip_smoke.py --only kernels  # build + kernel checks only
+    python3 chip_smoke.py --only q4_1     # build + kernel checks + the Q4_1 phases (3c, 5)
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -10,14 +11,16 @@ Phases:
 1. identify the card (name and power limit from nvidia-smi) and build the
    CUDA kernels from ``llama_swift_torch/csrc`` (one nvcc per source, all
    started together);
-2. hold each of the ten kernels against its plain PyTorch version on the
-   card at the 7B shapes of the serving paths, and time kernel, plain
+2. hold each of the twelve kernels against its plain PyTorch version on
+   the card at the 7B shapes of the serving paths, and time kernel, plain
    version, bound and (where one exists) a single PyTorch call computing
    the same function; the int8 flash kernels read caches written by the
    port's own int8 write, with stale codes and huge scales beyond n_past;
    the whole-stack kernel runs 2 layers at n_past 0, 127 and 511 on f32
    and bf16 caches, then all 32 layers of one token (see
-   ``check_fused_kernel`` for how 4-bit activation flips are counted);
+   ``check_fused_kernel`` for how 4-bit activation flips are counted); the
+   Q4_1 matvec at the four matvec shapes and the Q4_1 dequant (bf16, f32,
+   bit-exact) at 11008x4096, on weights whose mins centre them near zero;
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
@@ -33,6 +36,13 @@ Phases:
    card vs CPU within 2e-3 (see ``check_batched_parity`` for how
    activation-quantization flips are told apart); the card's batched rows
    are also held against batch-1 ``decode_step`` of the same slot state;
+3c. Q4_1 parity at 7B width and 2 layers (``check_parity_q4_1``): an
+   8-token prefill, slot prefills of 3 slots, 4 decode steps and 2
+   ``forward_batched`` steps at B=8, card vs CPU: within 2e-3 with f32
+   activations, and with Q4_1 activations wherever no 4-bit activation
+   flip occurred (flips counted per output; the steps continue from the
+   CPU's caches); each decode step exactly 15 Q4_1 matvec launches and
+   each batched step 15 Q4_1 dequant launches;
 4. serve four requests through ``LlamaRunner`` on a synthetic 32-layer 7B
    Q4_0 GGML file written from a seed (three on the f32 cache, the fourth
    with ``runner.config.kv_cache_dtype = "int8"``), with the launch counters
@@ -54,7 +64,17 @@ Phases:
    whole-stack launch and one matvec, each prefill 129 (4·32 + 1) dequant
    launches; then wave E, wave A's shape (12 requests, 8 dense f32 slots),
    129 multi-row launches per step and 129 dequant per chunk;
-5. print the kernel table as one JSON line, the card line, and the final
+5. a synthetic 32-layer 7B Q4_1 file (5.05 GB, written from a seed once
+   the Q4_0 runners are gone, see ``serve_q4_1``): the port's perplexity
+   tool scores 2 windows of 512 tokens of README.md (225 Q4_1 dequant
+   launches a window); two requests through ``LlamaRunner`` (f32 and int8
+   caches; 225 Q4_1 matvec and 32 flash launches a token, 225 Q4_1 dequant
+   a prefill, no Q4_0 kernel), one on fused Q4_1 params (129 matvec a
+   token, no whole-stack launch, 129 dequant a prefill) and engine wave F
+   (8 requests through 4 dense f32 slots, 16 tokens each: 225 Q4_1 dequant
+   launches a step and a chunk, no multi-row launch); with ``--profile``
+   8-step windows of Q4_1 batch-1 decode and of a Q4_1 engine step (B = 4);
+6. print the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 There is no CPU mode: without a CUDA device the script exits nonzero.
@@ -139,11 +159,14 @@ def rel_err(a, b) -> float:
 
 
 def synthetic_tensors(cfg, seed: int):
-    """(name, tensor) in loader naming: Q4_0 2-D weights with uniform random
-    nibbles and scales sized so that W·x keeps the activation scale
-    (``std(n-8) ≈ 4.6``); f32 norms near 1."""
+    """(name, tensor) in loader naming: Q4_0 (or, for ``cfg.ftype`` Q4_1,
+    Q4_1) 2-D weights with uniform random nibbles and scales sized so that
+    W·x keeps the activation scale (``std(n-8) ≈ 4.6``; Q4_1 mins ``−8·d·U(0.8,
+    1.2)`` centre the values near zero, as real Q4_1 weights are); f32
+    norms near 1."""
+    from llama_swift_torch.config import GGMLType
     from llama_swift_torch.formats.ggml import expected_tensor_shapes
-    from llama_swift_torch.formats.quant import Q4_0Tensor
+    from llama_swift_torch.formats.quant import Q4_0Tensor, Q4_1Tensor
 
     rng = np.random.default_rng(seed)
     for name, shape in expected_tensor_shapes(cfg).items():
@@ -154,14 +177,22 @@ def synthetic_tensors(cfg, seed: int):
         qs = rng.integers(0, 256, size=(rows, cols // 2), dtype=np.uint8)
         base = 1.0 if "tok_embeddings" in name else 1.0 / (4.6 * math.sqrt(cols))
         d = (base * rng.uniform(0.5, 1.5, size=(rows, cols // 32))).astype(np.float32)
-        yield name, Q4_0Tensor(scales=d, qs=qs)
+        if cfg.ftype == GGMLType.Q4_1:
+            m = (-8.0 * d * rng.uniform(0.8, 1.2, size=d.shape)).astype(np.float32)
+            yield name, Q4_1Tensor(mins=m, scales=d, qs=qs)
+        else:
+            yield name, Q4_0Tensor(scales=d, qs=qs)
 
 
 def vocab_pieces(n_vocab: int) -> list:
+    """Specials, printable ASCII, a few merges, fillers; the last 161 ids are
+    the other single bytes, so that any text tokenizes to its end (the
+    reference's tokenizer stops at the first byte it cannot match)."""
     pieces = [b"<unk>", b"<s>", b"</s>"] + [bytes([b]) for b in range(32, 127)]
     pieces += [b" the", b"the", b"in", b"ing", b" a", b"on", b"er", b" s"]
-    pieces += [f"<x{i}>".encode() for i in range(n_vocab - len(pieces))]
-    return pieces
+    rest = [bytes([b]) for b in range(256) if not 32 <= b < 127]
+    pieces += [f"<x{i}>".encode() for i in range(n_vocab - len(pieces) - len(rest))]
+    return pieces + rest
 
 
 def write_model(path: str, cfg, seed: int) -> None:
@@ -187,6 +218,70 @@ def rand_q4(torch, g, n, out, in_dim):
     qs = torch.randint(0, 256, (n, out, in_dim // 2), dtype=torch.uint8, device="cuda", generator=g)
     d = torch.rand((n, out, in_dim // 32), device="cuda", generator=g) * (2.0 / (4.6 * math.sqrt(in_dim)))
     return Q4_0Weight(qs, d)
+
+
+def rand_q4_1(torch, g, n, out, in_dim):
+    """A stack of ``n`` random Q4_1 weights: nibbles and d as ``rand_q4``,
+    ``m ≈ −8·d·U(0.8, 1.2)``."""
+    from llama_swift_torch.ops.q4_matvec import Q4_1Weight
+
+    w = rand_q4(torch, g, n, out, in_dim)
+    m = -8.0 * w.d * (0.8 + 0.4 * torch.rand(w.d.shape, device="cuda", generator=g))
+    return Q4_1Weight(w.qs, torch.stack([w.d, m], dim=-1).contiguous())
+
+
+def check_q4_1_kernels(torch, g, summary) -> list:
+    """The Q4_1 matvec against its plain version at the four matvec shapes
+    (≤ 1e-5 of max |y|: the kernel sums integer block dots, the plain version
+    f32 products of rounded x̂), and the Q4_1 dequant bit-exact at 11008x4096
+    in bf16 and f32.  Returns the cases that disagree.  No single PyTorch
+    call computes either function, so ``library_ms`` is None."""
+    from llama_swift_torch.ops import q4_dequant as dq
+    from llama_swift_torch.ops import q4_matvec as mv
+
+    failed = []
+    for out, in_dim in MATVEC_SHAPES:
+        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 8
+        n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
+        w = rand_q4_1(torch, g, n, out, in_dim)
+        x = torch.randn(in_dim, device="cuda", generator=g)
+        y = mv.q4_1_matvec(x, w.layer(0))
+        ref = mv.q4_1_matvec_plain(x, w.layer(0))
+        err = rel_err(y, ref)
+        nbytes = wbytes + in_dim * 4 + out * 4
+        case = {"case": "q4_1_matvec", "out": out, "in": in_dim, "max_rel_err": err,
+                "max_abs_err": float((y - ref).abs().max()),
+                "kernel_ms": time_ms(torch, lambda i: mv.q4_1_matvec(x, w.layer(i % n)), 200),
+                "plain_ms": time_ms(torch, lambda i: mv.q4_1_matvec_plain(x, w.layer(i % n)), 5),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, 4 * out * in_dim / INT8_OPS) * 1e3,
+                "library_ms": None, "ok": err <= 1e-5}
+        log(case)
+        if not case["ok"]:
+            failed.append(case)
+        if (out, in_dim) == (11008, 4096):
+            summary["q4_1_matvec"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
+        del w
+    out, in_dim = 11008, 4096
+    w = rand_q4_1(torch, g, 4, out, in_dim)
+    for dtype in (torch.bfloat16, torch.float32):
+        dense = dq.q4_1_dequant(w.layer(0), dtype)
+        ref = dq.dequantize_q4_1(w.layer(0), dtype)
+        exact = bool(torch.equal(dense, ref))
+        nbytes = out * in_dim // 2 + out * (in_dim // 32) * 8 + out * in_dim * dense.element_size()
+        case = {"case": "q4_1_dequant", "dtype": str(dtype).split(".")[-1], "out": out, "in": in_dim,
+                "exact": exact, "max_abs_err": float((dense.float() - ref.float()).abs().max()),
+                "kernel_ms": time_ms(torch, lambda i: dq.q4_1_dequant(w.layer(i % 4), dtype), 50),
+                "plain_ms": time_ms(torch, lambda i: dq.dequantize_q4_1(w.layer(i % 4), dtype), 5),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, 2 * out * in_dim / F32_FLOPS) * 1e3,
+                "library_ms": None, "ok": exact}
+        log(case)
+        if not exact:
+            failed.append(case)
+        if dtype == torch.bfloat16:
+            summary["q4_1_dequant"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim} bf16")
+    del w
+    torch.cuda.empty_cache()
+    return failed
 
 
 def check_kernels(torch) -> dict:
@@ -342,6 +437,7 @@ def check_kernels(torch) -> dict:
 
     failed += check_int8_kernels(torch, g, summary)
     failed += check_fused_kernel(torch, g, summary)
+    failed += check_q4_1_kernels(torch, g, summary)
 
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
@@ -683,15 +779,17 @@ def check_parity(torch) -> None:
 
 @contextlib.contextmanager
 def recording(record, tag):
-    """While active, every Q4_0 matvec and multi-row product appends
-    ``(tag[0], activation rows on the CPU)`` to ``record`` (None: no
-    recording), and every whole-stack call ``(tag[0], its quantizer inputs
-    [L, 3D + F])``, so that two runs can be compared activation by
-    activation."""
+    """While active, every Q4_0 matvec and multi-row product, every Q4_1
+    matvec and every Q4_1 activation fake-quantization (the Q4_1 products
+    of more than one row) appends ``(tag[0], activation rows on the CPU)``
+    to ``record`` (None: no recording), and every whole-stack call
+    ``(tag[0], its quantizer inputs [L, 3D + F])``, so that two runs can be
+    compared activation by activation."""
     from llama_swift_torch.models import llama as model_lib
     from llama_swift_torch.ops import quantized_matmul as qmm
 
     matvec, multi, fused = qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block
+    matvec41, fq41 = qmm.q4_1_matvec, qmm.fake_quantize_q4_1
 
     def fused_rec(*args, **kwargs):
         trace = []
@@ -702,20 +800,23 @@ def recording(record, tag):
     if record is not None:
         qmm.q4_0_matvec = lambda x, w: record.append((tag[0], x[None].cpu())) or matvec(x, w)
         qmm.q4_0_matmul_multi = lambda x, w: record.append((tag[0], x.cpu())) or multi(x, w)
+        qmm.q4_1_matvec = lambda x, w: record.append((tag[0], x[None].cpu())) or matvec41(x, w)
+        qmm.fake_quantize_q4_1 = lambda x: record.append((tag[0], x.reshape(-1, x.shape[-1]).cpu())) or fq41(x)
         model_lib.fused_layers_block = fused_rec
     try:
         yield
     finally:
         qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block = matvec, multi, fused
+        qmm.q4_1_matvec, qmm.fake_quantize_q4_1 = matvec41, fq41
 
 
-def flip_counts(rec_cpu, rec_card):
-    """Per recorded product: [rows] counts of 4-bit activation codes that
-    differ between the two runs."""
-    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
+def flip_counts(rec_cpu, rec_card, q4_1: bool = False):
+    """Per recorded product: [rows] counts of 4-bit activation codes (Q4_0,
+    or with ``q4_1`` Q4_1) that differ between the two runs."""
+    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int, quantize_activations_q4_1
 
-    return [(quantize_activations_q4_0_int(xc)[0] != quantize_activations_q4_0_int(xg)[0]).sum(-1)
-            for (_, xc), (_, xg) in zip(rec_cpu, rec_card)]
+    codes = quantize_activations_q4_1 if q4_1 else quantize_activations_q4_0_int
+    return [(codes(xc)[0] != codes(xg)[0]).reshape(xc.shape).sum(-1) for (_, xc), (_, xg) in zip(rec_cpu, rec_card)]
 
 
 def check_parity_int8(torch) -> None:
@@ -829,6 +930,130 @@ def check_parity_fused(torch) -> None:
     log(rec)
     if not rec["ok"]:
         raise SystemExit("chip_smoke: fused parity outside its bars")
+
+
+def check_parity_q4_1(torch) -> None:
+    """Q4_1 parity at 7B width, 2 layers, card vs CPU, f32 prefill products:
+    an 8-token prefill and slot prefills of 3 slots (the Q4_1 dequant), 4
+    batch-1 decode steps (the Q4_1 matvec, 15 launches a step) and 2
+    ``forward_batched`` steps at B = 8 (the dequant again, 15 launches a
+    step: there is no Q4_1 multi-row kernel).
+
+    With f32 activations nothing is quantized, so every logit is within
+    2e-3.  With the reference's Q4_1 activations, an ulp-level difference
+    between the devices (a dense f32 product summed in another order) can
+    move one activation across a rounding step, and that flip moves the
+    logits by percents (see ``check_batched_parity``).  So the card's decode
+    and batched steps continue from copies of the CPU's caches (a flip in a
+    prefill does not reach them), the flips are counted per output and
+    along each chain (the decode steps; each slot's batched rows), every
+    flip-free output must be within 2e-3, and a flip-free decode step and
+    batched row must exist unless every output is within the bar.  The
+    card's quantizer must give the CPU's codes on the card's own inputs
+    (so a flip comes from its input, not from the rounding)."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import GGMLType, ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_1
+
+    base = dataclasses.replace(ModelConfig.llama_7b(ftype=GGMLType.Q4_1), n_layer=2, prefill_bf16=False)
+    tensors = dict(synthetic_tensors(base, seed=7))
+    params = {dev: model_lib.params_from_tensors(tensors, base, device=dev) for dev in ("cpu", "cuda")}
+    prompts = [[1, 450, 17, 3000, 9, 222, 31000, 5], [1, 12, 99, 4000, 7], [1, 8, 2000, 77, 31, 6, 900, 14, 3, 70, 5]]
+    decode_toks, step_toks = [77, 12000, 345, 6], [[77, 12000, 345, 0, 0, 0, 0, 0], [6, 31999, 2, 0, 0, 0, 0, 0]]
+    B, S = 8, len(prompts)
+    per_step = 7 * base.n_layer + 1
+
+    def prefills(dev, cfg, tag):
+        """Outputs [(name, logits)] of the prompt's prefill and the slot
+        prefills, the batch-1 cache and the batched cache."""
+        tag[0] = "prefill"
+        cache = model_lib.init_cache(cfg, device=dev)
+        lg, cache = model_lib.prefill(params[dev], torch.tensor(prompts[0], device=dev), 0, cache, cfg)
+        outs = [("prefill", lg[-1].float().cpu())]
+        bcache = model_lib.init_cache_batched(cfg, B, device=dev)
+        for b, ids in enumerate(prompts):
+            tag[0] = f"slot{b}"
+            lg, bcache = model_lib.forward(params[dev], torch.tensor(ids, device=dev), 0, bcache, cfg, slot=b)
+            outs.append((tag[0], lg[-1].float().cpu()))
+        return outs, cache, bcache
+
+    def steps(dev, cfg, cache, bcache, tag, deltas):
+        """Outputs of the decode steps and the batched steps (active rows)."""
+        outs = []
+        for i, tok in enumerate(decode_toks):
+            tag[0] = f"decode{i}"
+            before = ops.launch_counts()
+            lg, cache = model_lib.decode_step(params[dev], torch.tensor(tok, device=dev), len(prompts[0]) + i,
+                                              cache, cfg)
+            deltas.append({k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]})
+            outs.append((tag[0], lg.float().cpu()))
+        n_pasts = np.array([len(p) for p in prompts] + [0] * (B - S))
+        for j, toks in enumerate(step_toks):
+            tag[0] = f"batched{j}"
+            before = ops.launch_counts()
+            lg, bcache = model_lib.forward_batched(params[dev], torch.tensor(toks, device=dev), n_pasts, bcache, cfg)
+            deltas.append({k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]})
+            outs.append((tag[0], lg[:S].float().cpu()))
+            n_pasts[:S] += 1
+        return outs
+
+    def on_card(cache):
+        return {k: v.to("cuda") for k, v in cache.items()}
+
+    rec = {"case": "parity_q4_1_7b_width_2_layers"}
+    f32 = dataclasses.replace(base, quantize_activations=False)
+    tag = [None]
+    t0 = time.perf_counter()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        outs, cache, bcache = prefills(dev, f32, tag)
+        runs[dev] = outs + steps(dev, f32, cache, bcache, tag, [])
+    rec["f32_act_cpu_and_card_s"] = time.perf_counter() - t0
+    rec["f32_act_rel_err_max"] = max(rel_err(c, r) for (_, c), (_, r) in zip(runs["cuda"], runs["cpu"]))
+
+    rec_cpu, rec_card, deltas = [], [], []
+    with recording(rec_cpu, tag):
+        cpu, cache, bcache = prefills("cpu", base, tag)
+        start = (on_card(cache), on_card(bcache))  # before the CPU's steps write them
+        cpu += steps("cpu", base, cache, bcache, tag, [])
+    with recording(rec_card, tag):
+        card, _, _ = prefills("cuda", base, tag)
+        card += steps("cuda", base, *start, tag, deltas)
+    flips, first = {}, None  # output name -> flip count (batched steps: per active slot)
+    for i, ((name, _), diff) in enumerate(zip(rec_cpu, flip_counts(rec_cpu, rec_card, q4_1=True))):
+        f = diff[:S].tolist() if name.startswith("batched") else [int(diff.sum())]
+        flips[name] = [a + b for a, b in zip(flips.get(name, [0] * len(f)), f)]
+        if first is None and sum(f):
+            first = [name, i, sum(f)]
+    outputs, decode_flips, slot_flips = [], 0, [0] * S  # flips so far along each chain
+    for (name, c), (_, r) in zip(card, cpu):
+        if name.startswith("batched"):
+            slot_flips = [a + b for a, b in zip(slot_flips, flips.get(name, [0] * S))]
+            outputs += [[f"{name}/slot{b}", rel_err(c[b], r[b]), slot_flips[b]] for b in range(S)]
+        else:
+            n = flips.get(name, [0])[0]
+            if name.startswith("decode"):
+                decode_flips += n
+                n = decode_flips
+            outputs.append([name, rel_err(c, r), n])
+    rec["q4_act_outputs"] = outputs  # [name, rel err, flips so far on its chain]
+    rec["q4_act_first_flip"] = first  # [output, product index, flips]
+    # the flips come from the inputs: on the card's own inputs, its quantizer gives the CPU's codes
+    rec["card_quantizer_matches_cpu"] = all(
+        torch.equal(quantize_activations_q4_1(x.cuda())[0].cpu(), quantize_activations_q4_1(x)[0]) for _, x in rec_card)
+    rec["finite"] = all(bool(torch.isfinite(t).all()) for _, t in card + runs["cuda"])
+    rec["launches_per_step"] = deltas
+    expect = [{"q4_1_matvec": per_step, "flash_decode_attention": base.n_layer}] * len(decode_toks) + [
+        {"q4_1_dequant": per_step, "flash_decode_attention_batched": base.n_layer}] * len(step_toks)
+    clean = [o for o in outputs if o[2] == 0]
+    all_within = all(o[1] <= 2e-3 for o in outputs)
+    rec["ok"] = (rec["finite"] and deltas == expect and rec["f32_act_rel_err_max"] <= 2e-3
+                 and rec["card_quantizer_matches_cpu"] and all(o[1] <= 2e-3 for o in clean)
+                 and (all_within or all(any(o[0].startswith(k) for o in clean) for k in ("decode", "batched"))))
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: Q4_1 parity outside its bars")
 
 
 # ---------------------------------------------------------------------------
@@ -1026,7 +1251,7 @@ def run_requests(torch, runner, requests, prompts, expected) -> list:
                "expected_launches": expect,
                "text_tail": "".join(e.token for e in events if e.kind == EventKind.OUTPUT_TOKEN)[-60:]}
         log(rec)
-        if delta != expect or st["generated_tokens"] != 32:
+        if delta != expect or st["generated_tokens"] != rcfg.num_tokens:
             raise SystemExit(f"chip_smoke: request {name}: launches {delta} != expected {expect}")
         per_request.append(rec)
     return per_request
@@ -1060,6 +1285,93 @@ def serve_fused(torch, runner, profile: bool) -> dict:
                        lambda i: model_lib.decode_step(params, tok, i, cache, cfg))
         del cache
     return {"launches": counts, "requests": per_request}
+
+
+def serve_q4_1(torch, workdir: str, profile: bool) -> list:
+    """Phase 5: a synthetic 32-layer 7B Q4_1 file (5.05 GB, written from a
+    seed), scored by the port's perplexity tool (2 windows of 512 tokens of
+    README.md: 225 Q4_1 dequant launches a window), then loaded plain and
+    fused and removed; two requests through ``LlamaRunner`` (f32 and int8
+    caches: 225 Q4_1 matvec launches a token, 225 dequant a prefill), one on
+    the fused params (129 and 129; no whole-stack launch: that kernel reads
+    Q4_0), and one engine wave (8 requests through 4 dense f32 slots, 16
+    tokens each: 225 dequant launches a step and a chunk, no multi-row
+    launch).  Returns the launch counts of each run."""
+    import io
+
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import GGMLType, ModelConfig, RunnerConfig, SamplingConfig
+    from llama_swift_torch.runtime.runner import LlamaRunner
+    from llama_swift_torch.tools import perplexity as ppl_tool
+
+    cfg = ModelConfig.llama_7b(ftype=GGMLType.Q4_1)
+    path = os.path.join(workdir, "synthetic-7b-q4_1.bin")
+    t0 = time.perf_counter()
+    write_model(path, cfg, seed=2025)
+    log({"case": "write_model", "ftype": "q4_1", "seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path)})
+    runs = []
+
+    readme = os.path.join(os.path.dirname(os.path.abspath(__file__)), "README.md")
+    out = io.StringIO()
+    ops.reset_launch_counts()  # the perplexity tool's run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = ppl_tool.main(["--model", path, "--text", readme, "--n-ctx", "512", "--max-windows", "2"])
+    wall = time.perf_counter() - t0
+    runs.append(ops.launch_counts())  # read just after
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    expect = {k: 0 for k in runs[-1]}
+    expect["q4_1_dequant"] = (7 * cfg.n_layer + 1) * len(summary["window_s"])
+    rec = {"case": "perplexity_q4_1", "wall_s": wall, **summary, "launches": runs[-1], "expected_launches": expect}
+    log(rec)
+    if code != 0 or runs[-1] != expect or summary["n_scored"] != 512 or not math.isfinite(summary["ppl"]):
+        raise SystemExit("chip_smoke: the Q4_1 perplexity run failed its checks")
+    torch.cuda.empty_cache()
+
+    runner, fused_runner = LlamaRunner(path), LlamaRunner(path, fuse_layer_matmuls=True)
+    for r in (runner, fused_runner):
+        r.ensure_loaded()
+        log({"case": "load", "ftype": "q4_1", "fused": r.fuse_layer_matmuls, "seconds": r.stats["t_load_s"],
+             "device_gib": torch.cuda.memory_allocated() / 2**30})
+    os.remove(path)
+    n_layer = cfg.n_layer
+
+    def expected(n_mm):
+        def counts(kv_dtype, forwards):
+            flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
+            return {"q4_1_matvec": (n_mm * n_layer + 1) * forwards, flash: n_layer * forwards,
+                    "q4_1_dequant": n_mm * n_layer + 1}
+        return counts
+
+    ops.reset_launch_counts()  # the runner's Q4_1 run starts here
+    run_requests(torch, runner, [
+        ("greedy_device_q4_1", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=7, top_k=1)), "float32"),
+        ("sampled_device_q4_1_int8", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=8)), "int8"),
+    ], PROMPTS[:2], expected(7))
+    runs.append(ops.launch_counts())  # read just after
+    ops.reset_launch_counts()  # the fused Q4_1 run starts here
+    run_requests(torch, fused_runner, [
+        ("greedy_device_q4_1_fused", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=9, top_k=1)),
+         "float32")], PROMPTS[2:], expected(4))
+    runs.append(ops.launch_counts())  # read just after
+    del fused_runner
+    torch.cuda.empty_cache()
+    runs.append(serve_engine(torch, runner, [("F_q4_1_dense_f32", 4, dict(cache_dtype=torch.float32),
+                                              ENGINE_PROMPTS[:8], [None] * 8, "flash_decode_attention_batched")],
+                             n_predict=16))
+    if profile:
+        from llama_swift_torch.models import llama as model_lib
+
+        tok = torch.tensor(1, device="cuda")
+        cache = model_lib.init_cache(runner.config, device="cuda")
+        profile_window(torch, "profile_q4_1_decode_8_steps",
+                       lambda i: model_lib.decode_step(runner.params, tok, i, cache, runner.config))
+        cache = model_lib.init_cache_batched(runner.config, 4, device="cuda")
+        toks = torch.ones(4, dtype=torch.int64, device="cuda")
+        profile_window(torch, "profile_q4_1_engine_step_8_steps_B4", lambda i: model_lib.forward_batched(
+            runner.params, toks, np.arange(4) * 8 + i, cache, runner.config))
+        del cache
+    return runs
 
 
 ENGINE_PROMPTS = PROMPTS + [
@@ -1099,17 +1411,20 @@ def engine_waves(torch) -> list:
     ]
 
 
-def serve_engine(torch, runner, waves) -> dict:
+def serve_engine(torch, runner, waves, n_predict: int = 32) -> dict:
     """Waves through the continuous-batching Engine on the runner's 32-layer
-    7B params (nothing written or loaded again): per decode step 7·L + 1
-    multi-row launches on unfused params, 4·L + 1 on fused ones, and L of
-    the wave's flash kernel; per prefill chunk as many dequant launches as
-    multi-row ones per step."""
+    7B params (nothing written or loaded again), ``n_predict`` tokens a
+    request: per decode step 7·L + 1 multi-row launches on unfused params,
+    4·L + 1 on fused ones, and L of the wave's flash kernel; per prefill
+    chunk as many dequant launches as multi-row ones per step.  On Q4_1
+    params every step dequantizes instead (no Q4_1 multi-row kernel)."""
     from llama_swift_torch import ops
     from llama_swift_torch.config import SamplingConfig
+    from llama_swift_torch.ops.q4_matvec import Q4_1Weight
     from llama_swift_torch.runtime.engine import Engine
 
     n_mm = 4 if "wqkv" in runner.params["layers_stacked"] else 7  # matmuls a layer
+    q4_1 = isinstance(runner.params["layers_stacked"]["wo"], Q4_1Weight)
     counts = {}
     for name, slots, kw, prompts, seeds, flash in waves:
         eng = Engine(runner.params, runner.config, runner.vocab, max_slots=slots, prefill_bucket=64, seed=2024,
@@ -1118,7 +1433,7 @@ def serve_engine(torch, runner, waves) -> dict:
         ops.reset_launch_counts()  # this wave's run starts here
         t0 = time.perf_counter()
         with eng:
-            handles = [eng.submit(p, SamplingConfig(n_predict=32, seed=sd)) for p, sd in zip(prompts, seeds)]
+            handles = [eng.submit(p, SamplingConfig(n_predict=n_predict, seed=sd)) for p, sd in zip(prompts, seeds)]
             outs = [list(h.tokens(timeout=300)) for h in handles]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1128,16 +1443,20 @@ def serve_engine(torch, runner, waves) -> dict:
         st = dict(eng.stats)
         n_layer = runner.config.n_layer  # n_mm matmuls a layer plus the output projection
         expect = {k: 0 for k in got}
-        expect.update({"q4_0_matmul_multi": (n_mm * n_layer + 1) * st["decode_steps"],
-                       flash: n_layer * st["decode_steps"],
-                       "q4_0_dequant": (n_mm * n_layer + 1) * st["prefill_chunks"]})
+        per = n_mm * n_layer + 1
+        if q4_1:
+            expect.update({"q4_1_dequant": per * (st["decode_steps"] + st["prefill_chunks"]),
+                           flash: n_layer * st["decode_steps"]})
+        else:
+            expect.update({"q4_0_matmul_multi": per * st["decode_steps"], flash: n_layer * st["decode_steps"],
+                           "q4_0_dequant": per * st["prefill_chunks"]})
         streams_ok = all(
-            len(h.token_ids) == len(runner.vocab.tokenize(p, bos=True)) + 32
+            len(h.token_ids) == len(runner.vocab.tokenize(p, bos=True)) + n_predict
             and "".join(o[: len(runner.vocab.tokenize(p, bos=True))]) == "".join(
                 runner.vocab.piece_str(t) for t in runner.vocab.tokenize(p, bos=True))
             for p, h, o in zip(prompts, handles, outs))
         ttft = sorted(st.get("ttft_s", []))
-        rec = {"case": "engine_serve", "wave": name, "fused": n_mm == 4, "requests": len(prompts),
+        rec = {"case": "engine_serve", "wave": name, "fused": n_mm == 4, "q4_1": q4_1, "requests": len(prompts),
                "max_slots": slots,
                "decode_steps": st["decode_steps"], "device_sampled_steps": st["device_sampled_steps"],
                "prefill_chunks": st["prefill_chunks"], "tokens_generated": st["tokens_generated"],
@@ -1148,7 +1467,7 @@ def serve_engine(torch, runner, waves) -> dict:
             rec["pages_free"] = len(eng._free_pages)
             rec["pages_ok"] = sorted(eng._free_pages) == list(range(16))
         log(rec)
-        if not streams_ok or got != expect or st["tokens_generated"] != 32 * len(prompts) \
+        if not streams_ok or got != expect or st["tokens_generated"] != n_predict * len(prompts) \
                 or not rec.get("pages_ok", True) or eng.dead is not None:
             raise SystemExit(f"chip_smoke: engine wave {name} failed its checks")
         del eng
@@ -1222,12 +1541,15 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
                                           "llama_swift_tpu/ops/attention.py:789"),
     "fused_layers_block": ("llama_swift_torch/csrc/fused_layer.cu",
                            "llama_swift_tpu/ops/q4_fused_layer.py:709"),
+    "q4_1_matvec": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
+    "q4_1_dequant": ("llama_swift_torch/csrc/q4_dequant.cu", "llama_swift_tpu/ops/q4_dequant_pallas.py:73"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None)
+    ap.add_argument("--only", choices=["kernels", "q4_1"], default=None,
+                    help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -1258,30 +1580,39 @@ def main(argv=None) -> int:
     summary = check_kernels(torch)
     if args.only == "kernels":
         return 0
-    check_parity(torch)
-    check_parity_int8(torch)
-    check_parity_fused(torch)
-    check_batched_parity(torch)
-    check_batched_parity(torch, torch.int8)
+    runs = []
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        served = serve(torch, workdir, args.profile)
+        if args.only != "q4_1":
+            check_parity(torch)
+            check_parity_int8(torch)
+            check_parity_fused(torch)
+            check_batched_parity(torch)
+            check_batched_parity(torch, torch.int8)
+            served = serve(torch, workdir, args.profile)
+            runs += [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
+            fused = served["fused_runner"]
+            del served
+            torch.cuda.empty_cache()
+            runs.append(serve_fused(torch, fused, args.profile)["launches"])
+            runs.append(serve_engine(torch, fused, [("E_fused_dense_f32", 8, dict(cache_dtype=torch.float32),
+                                                     ENGINE_PROMPTS[:12], [None] * 12,
+                                                     "flash_decode_attention_batched")]))
+            del fused
+            torch.cuda.empty_cache()
+        check_parity_q4_1(torch)
+        runs += serve_q4_1(torch, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    runs = [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
-    del served["runner"]
-    torch.cuda.empty_cache()
-    fused = served["fused_runner"]
-    runs.append(serve_fused(torch, fused, args.profile)["launches"])
-    runs.append(serve_engine(torch, fused, [("E_fused_dense_f32", 8, dict(cache_dtype=torch.float32),
-                                             ENGINE_PROMPTS[:12], [None] * 12, "flash_decode_attention_batched")]))
     launches = {k: sum(r[k] for r in runs) for k in KERNEL_META}
+    if args.only == "q4_1":
+        launches = {k: v for k, v in launches.items() if k.startswith("q4_1")}
     if not all(launches.values()):
         raise SystemExit(f"chip_smoke: a kernel of the serving paths never launched: {launches}")
 
     kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
-        s = summary[name]
+    for name in launches:
+        (source, replaces), s = KERNEL_META[name], summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": s["max_abs_err"],

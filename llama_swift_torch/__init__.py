@@ -8,7 +8,10 @@ three more: the multi-row Q4_0 matmul and the batched and paged
 flash-decode attention.  An int8 KV cache (``kv_cache_dtype="int8"`` or
 ``cache_dtype=torch.int8``) reaches an int8 flash-decode kernel in each
 cache mode: batch 1 (the runner), dense batched and paged (the engine).
-They are built with ``nvcc`` at first use.
+Fused wqkv/w13 params decode batch 1 through a whole-stack kernel.  Q4_1
+files take a Q4_1 matvec (one row) and a Q4_1 dequant (more rows).  They
+are built with ``nvcc`` at first use.  ``tools/quantize.py`` writes Q4_0
+and Q4_1 files; ``tools/perplexity.py`` scores a model on a text.
 
     from llama_swift_torch import LlamaRunner, RunnerConfig
 

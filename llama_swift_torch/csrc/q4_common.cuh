@@ -1,5 +1,5 @@
-// Device helpers of the Q4_0 products, shared by q4_matvec.cu and
-// fused_layer.cu: warp reductions, the activation quantizer and the
+// Device helpers of the Q4 products, shared by q4_matvec.cu and
+// fused_layer.cu: warp reductions, the Q4_0 activation quantizer and the
 // int4 x int4 block dot.
 //
 // Activation quantization (quantize_activations_q4_0_int, ggml.c:568-601):
@@ -21,6 +21,12 @@ constexpr int QK = 32;
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -63,7 +69,7 @@ __device__ __forceinline__ int dot_word(uint32_t w, uint32_t qe, uint32_t qo, in
 
 // Exact integer dot of one weight block (16 nibble bytes) with its 32
 // de-interleaved activation codes (qe: even elements, qo: odd ones), the
-// -8 offset removed as 8 * sum(q).
+// -8 offset removed as 8 * sum(q) (qsum = 0 leaves sum(n * q)).
 __device__ __forceinline__ int block_dot(uint4 w, uint4 qe, uint4 qo, int qsum) {
   int s = dot_word(w.x, qe.x, qo.x, 0);
   s = dot_word(w.y, qe.y, qo.y, s);

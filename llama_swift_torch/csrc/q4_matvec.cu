@@ -58,6 +58,33 @@
 // so no row count overflows it.  The lane keeps one f32 accumulator per
 // row (a compile-time row count R in {2, 4, 8, 16, 32}; rows >= B are
 // skipped), and a warp reduction per row finishes each output.
+//
+// Q4_1 matvec (q4_1_matvec, batch 1 against Q4_1 weights).
+//
+// Replaces the TPU kernels `_q4_1_vpu_kernel` / `_q4_1_vpu_kernel_stacked`
+// and their manually pipelined forms (llama_swift_tpu/ops/q4_vpu_pallas.py,
+// entry points q4_1_vpu_matvec and q4_1_vpu_matvec_stacked):
+//
+//   y[o] = sum_b  d_w[o,b] * sum_i n[o,32b+i] * xh[32b+i]  +  m_w[o,b] * sum_i xh[32b+i]
+//
+// with n the stored nibbles (0..15), (d_w, m_w) the block's delta and min,
+// and xh = q * d_x + m_x the activation quantized per 32-block through Q4_1
+// (min/max, d_x = (max - min)/15, q = round((x - min)/d_x) in 0..15).
+//
+// What bounds it on the H100: device-memory bandwidth, 0.75 bytes a weight
+// (16 bytes of nibbles plus 8 of delta and min per 32), 20 % more than Q4_0.
+//
+// Design: the Q4_0 matvec's shape.  The pre-pass (quantize_x_q4_1_kernel)
+// reproduces quantize_activations_q4_1's codes (explicit _rn intrinsics,
+// __fdiv_rn for /15 and 1/d, min and max by shuffles) and stores them
+// de-interleaved like the Q4_0 codes, plus per block {d_x, m_x, sum(xh)}
+// (one 16-byte load).  The main kernel is one warp per output row, lane l
+// on blocks l, l+32, ...: 16 bytes of nibbles and one 8-byte (d, m) load a
+// block.  ggml_vec_dot_q4_1's algebra (ggml.c:1584-1626) makes the block
+// integer work: sum(n * xh) = d_x * sum(n * q) + m_x * sum(n), and dp4a
+// takes both sum(n * q) (8 dp4a, as for Q4_0) and sum(n) (8 more, against
+// 0x01 bytes).  This rounds otherwise than the plain version, which rounds
+// each xh and sums n * xh in f32; both stay within 1e-5 of max |y|.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +102,52 @@ __global__ void quantize_x_kernel(const float* __restrict__ x, int nb,
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= nb) return;
   quantize_block_warp(x[b * QK + lane], lane, xq + b * QK, qsum + b, dx + b);
+}
+
+// x [nb*32] f32 -> xq [nb][32] u8 codes 0..15 (de-interleaved like the Q4_0
+// codes), xs [nb] {d_x, m_x, sum of xh, 0}; the arithmetic of
+// quantize_activations_q4_1 and dequantize_activations_q4_1
+__global__ void quantize_x_q4_1_kernel(const float* __restrict__ x, int nb, uint8_t* __restrict__ xq,
+                                       float4* __restrict__ xs) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= nb) return;
+  const float v = x[b * QK + lane];
+  const float mn = warp_min(v);
+  const float d = __fdiv_rn(__fsub_rn(warp_max(v), mn), 15.0f);
+  const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
+  const float q = truncf(__fadd_rn(__fmul_rn(__fsub_rn(v, mn), inv), 0.5f));  // v - mn >= 0
+  const int g = lane >> 3, r = lane & 7;
+  xq[b * QK + ((r & 1) * 4 + g) * 4 + (r >> 1)] = static_cast<uint8_t>(q);
+  const float xsum = warp_sum_f(__fadd_rn(__fmul_rn(q, d), mn));
+  if (lane == 0) xs[b] = make_float4(d, mn, xsum, 0.0f);
+}
+
+// qs [out][nb*16] u8, dm [out][nb] {d, m} f32 -> y [out] f32
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+q4_1_matvec_kernel(const uint8_t* __restrict__ qs, const float2* __restrict__ dm,
+                   const uint8_t* __restrict__ xq, const float4* __restrict__ xs,
+                   float* __restrict__ y, int out, int nb) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  if (row >= out) return;
+  const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
+  const float2* dmrow = dm + static_cast<size_t>(row) * nb;
+  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
+  const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int b = lane; b < nb; b += 32) {
+    const uint4 w = __ldg(wrow + b);
+    const float2 wdm = __ldg(dmrow + b);
+    const float4 s = __ldg(xs + b);
+    const int nq = block_dot(w, __ldg(xq4 + 2 * b), __ldg(xq4 + 2 * b + 1), 0);  // sum(n * q)
+    const int n = block_dot(w, ones, ones, 0);                                   // sum(n)
+    const float nx = s.x * static_cast<float>(nq) + s.y * static_cast<float>(n);  // sum(n * xh)
+    acc += wdm.x * nx + wdm.y * s.z;
+  }
+  acc = warp_sum_f(acc);
+  if (lane == 0) y[row] = acc;
 }
 
 // qs [out][nb*16] u8, dw [out][nb] f32 -> y [out] f32
@@ -191,5 +264,19 @@ extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, 
     q4_0_matmul_multi_kernel<16><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
   else
     q4_0_matmul_multi_kernel<32><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Q4_1 weights: qs [out, in/2] u8, dm [out, in/32, 2] f32; scratch xq [in]
+// u8 and xs [in/32, 4] f32 come from the caller.
+extern "C" int q4_1_matvec(const void* qs, const void* dm, const void* x, void* xq, void* xs,
+                           void* y, int out, int in_dim, void* stream) {
+  const int nb = in_dim / QK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_x_q4_1_kernel<<<(nb + 7) / 8, 256, 0, s>>>(
+      static_cast<const float*>(x), nb, static_cast<uint8_t*>(xq), static_cast<float4*>(xs));
+  q4_1_matvec_kernel<<<(out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, ROWS_PER_BLOCK * 32, 0, s>>>(
+      static_cast<const uint8_t*>(qs), static_cast<const float2*>(dm),
+      static_cast<const uint8_t*>(xq), static_cast<const float4*>(xs), static_cast<float*>(y), out, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,10 @@ The port runs eagerly: layers are a Python loop over views of stacked
 written in place.  Single-token steps reach two CUDA kernels — the Q4_0
 matvec for every matmul and flash-decode attention — and multi-token
 (prefill) steps reach the Q4_0 dequant kernel before each matmul (the
-multi-row kernel for 2–32 rows).
+multi-row kernel for 2–32 rows).  Q4_1 weights (``ggml-model-q4_1.bin``)
+take the Q4_1 matvec for one row and the Q4_1 dequant for any other row
+count, prefill and the engine's batched step alike: the JAX package has no
+Q4_1 multi-row kernel.
 
 The continuous-batching engine (``runtime/engine.py``) adds a batched
 cache, dense (``init_cache_batched``, ``[L, B, H, n_ctx, Dh]``) or paged
@@ -22,11 +25,12 @@ reaches the batched or paged flash-decode kernel.
 Fused params (``cfg.fuse_layer_matmuls``) hold ``wqkv`` (the out-dim concat
 of wq, wk, wv) and ``w13`` (w1, w3) in place of their parts: one product
 each, so a token, step or chunk makes 4·L + 1 matmul launches instead of
-7·L + 1.  On them, batch-1 decode (one token, no slot, no int8 scales,
-quantized activations, 128-dim heads: the JAX package's conditions) runs
-every layer in one launch of the whole-stack kernel
+7·L + 1.  On fused Q4_0 params, batch-1 decode (one token, no slot, no
+int8 scales, quantized activations, 128-dim heads: the JAX package's
+conditions) runs every layer in one launch of the whole-stack kernel
 (``ops/fused_layer.fused_layers_block``); the output projection after it
-stays on the matvec.
+stays on the matvec.  Fused Q4_1 params decode on the composed path, as in
+the JAX package.
 
 Every cache may be f32, bf16 or int8.  An int8 cache holds symmetric codes
 and one f32 scale per (head, position) row, written by :func:`quantize_kv`
@@ -39,6 +43,7 @@ dense batched → ``flash_decode_attention_batched_int8``, paged →
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -61,7 +66,7 @@ from ..ops.attention import (
 )
 from ..ops.fused_layer import block_perm, fused_layers_block
 from ..ops.norms import norm
-from ..ops.q4_matvec import Q4_0Weight
+from ..ops.q4_matvec import Q4_0Weight, Q4_1Weight
 from ..ops.rope import rope
 
 Params = dict
@@ -76,6 +81,9 @@ LAYER_WEIGHTS = (
 #: source row)
 FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
 FUSED_LAYER_WEIGHTS = ("attention_norm", "wqkv", "wo", "ffn_norm", "w13", "w2")
+
+#: the packed weight types: dataclasses of tensors with ``.layer(il)``
+Q4_WEIGHTS = (Q4_0Weight, Q4_1Weight)
 
 #: prefill contexts at/above this use the chunked online-softmax attention
 #: (peak score memory [H, N, chunk] instead of [H, N, n_ctx])
@@ -106,11 +114,11 @@ def _loader_name(il: int, w: str) -> str:
 
 
 def _to_device(a, device, dense_dtype):
-    """One loader tensor → the port's device form (Q4_0 stays packed)."""
+    """One loader tensor → the port's device form (Q4_0 and Q4_1 stay packed)."""
     if isinstance(a, Q4_0Tensor):
         return Q4_0Weight.from_q4_0(a, device)
     if isinstance(a, Q4_1Tensor):
-        raise NotImplementedError("Q4_1 weights are not served by the port yet")
+        return Q4_1Weight.from_q4_1(a, device)
     a = np.asarray(a)
     dtype = torch.float32 if a.ndim == 1 else dense_dtype
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device, dtype)
@@ -125,7 +133,8 @@ def params_from_tensors(
 ) -> Params:
     """Arrange loader output (``formats/ggml.py``) into the model's params.
 
-    Q4_0 tensors stay packed (:class:`Q4_0Weight`); dense f16/f32 weights
+    Q4_0 and Q4_1 tensors stay packed (:class:`Q4_0Weight`,
+    :class:`Q4_1Weight`); dense f16/f32 weights
     become ``param_dtype`` (default f32 on the CPU, bf16 on the card — the
     JAX package's choice off and on the TPU); norms are always f32.  Layer
     weights are stacked ``[L, ...]`` in ``params["layers_stacked"]``,
@@ -144,12 +153,8 @@ def params_from_tensors(
             t = _layer_tensor(tensors, il, w, param_dtype)
             if w not in stacked:
                 stacked[w] = _empty_stack(t, cfg.n_layer, device)
-            dst = _stack_at(stacked[w], il)
-            if isinstance(t, Q4_0Weight):
-                dst.qs.copy_(t.qs)
-                dst.d.copy_(t.d)
-            else:
-                dst.copy_(t)
+            for a, b in zip(_fields(_stack_at(stacked[w], il)), _fields(t)):
+                a.copy_(b)
     return {
         "tok_embeddings": cvt(tensors["tok_embeddings.weight"]),
         "norm": cvt(tensors["norm.weight"]),
@@ -164,19 +169,24 @@ def _layer_tensor(tensors: dict, il: int, name: str, param_dtype):
     parts = [_to_device(tensors[_loader_name(il, w)], "cpu", param_dtype) for w in FUSED.get(name, (name,))]
     if len(parts) == 1:
         return parts[0]
-    if isinstance(parts[0], Q4_0Weight):
-        return Q4_0Weight(torch.cat([p.qs for p in parts]), torch.cat([p.d for p in parts]))
+    if isinstance(parts[0], Q4_WEIGHTS):
+        return type(parts[0])(*(torch.cat(f) for f in zip(*map(_fields, parts))))
     return torch.cat(parts)
 
 
+def _fields(t) -> tuple:
+    """The tensors of a packed weight (a dense tensor is its own one)."""
+    return tuple(getattr(t, f.name) for f in dataclasses.fields(t)) if isinstance(t, Q4_WEIGHTS) else (t,)
+
+
 def _empty_stack(t, n_layer: int, device):
-    if isinstance(t, Q4_0Weight):
-        return Q4_0Weight(_empty_stack(t.qs, n_layer, device), _empty_stack(t.d, n_layer, device))
+    if isinstance(t, Q4_WEIGHTS):
+        return type(t)(*(_empty_stack(f, n_layer, device) for f in _fields(t)))
     return torch.empty((n_layer,) + tuple(t.shape), dtype=t.dtype, device=device)
 
 
 def _stack_at(stack, il: int):
-    return stack.layer(il) if isinstance(stack, Q4_0Weight) else stack[il]
+    return stack.layer(il) if isinstance(stack, Q4_WEIGHTS) else stack[il]
 
 
 def params_from_file(model: GGMLModelFile, *, device=None, param_dtype=None) -> Params:
@@ -199,14 +209,16 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
     """Carry JAX params across: ``tree`` is the JAX package's stacked params
     pytree after ``jax.tree_util.tree_map(np.asarray, ...)``.
 
-    Q4_0 containers are recognised by their field names, without importing
-    the JAX classes: ``qs4v``/``scales_v`` (V layout: unpacked to logical
-    order, the 4096 in-dim zero padding dropped), ``qs4w``/``scales_w`` (W
-    layout of the fused-layer kernels: the V geometry with blocks permuted
-    by λ, undone with :func:`~..ops.fused_layer.block_perm`, then the
-    padding dropped) or ``qs``/``scales`` (logical).  Fused ``wqkv``/``w13``
-    stay fused (any shard padding of w13's halves dropped).  Dense leaves
-    become f32 tensors.
+    Q4 containers are recognised by their field names, without importing
+    the JAX classes.  Q4_0: ``qs4v``/``scales_v`` (V layout: unpacked to
+    logical order, the 4096 in-dim zero padding dropped), ``qs4w``/
+    ``scales_w`` (W layout of the fused-layer kernels: the V geometry with
+    blocks permuted by λ, undone with :func:`~..ops.fused_layer.block_perm`,
+    then the padding dropped) or ``qs``/``scales`` (logical).  Q4_1:
+    ``qs4v``/``sm_v`` (V layout; delta lanes ``[0, nb)``, min lanes
+    ``[nb, 2nb)``; the padding dropped) or ``qs``/``scales``/``mins``
+    (logical).  Fused ``wqkv``/``w13`` stay fused (any shard padding of
+    w13's halves dropped).  Dense leaves become f32 tensors.
     """
     device = resolve_device(device)
     if "layers_stacked" not in tree:
@@ -225,7 +237,14 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
         return None
 
     def cvt(a, name: str, in_dim: int):
-        if hasattr(a, "qs4v") or hasattr(a, "qs4w"):
+        cls = Q4_0Weight
+        if hasattr(a, "sm_v"):  # Q4_1 V layout; sc becomes [..., out, in/32, (d, m)]
+            qs, sm = _unpack_qs_v(a.qs4v), np.asarray(a.sm_v, dtype=np.float32)
+            sm = sm.reshape(*sm.shape[:-3], -1, sm.shape[-1])  # [..., out, 2·in_pad/32]
+            nb = sm.shape[-1] // 2
+            sc = np.stack([sm[..., :nb], sm[..., nb:]], axis=-1)
+            qs, sc, cls = qs[..., : in_dim // 2], sc[..., : in_dim // QK, :], Q4_1Weight
+        elif hasattr(a, "qs4v") or hasattr(a, "qs4w"):
             w_layout = hasattr(a, "qs4w")
             qs = _unpack_qs_v(a.qs4w if w_layout else a.qs4v)  # [..., out, in_pad/2]
             sc = np.asarray(a.scales_w if w_layout else a.scales_v, dtype=np.float32)
@@ -235,18 +254,21 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
                 qs = qs.reshape(*qs.shape[:-1], -1, 16)[..., inv, :].reshape(qs.shape)
                 sc = sc[..., inv]
             qs, sc = qs[..., : in_dim // 2], sc[..., : in_dim // QK]
+        elif hasattr(a, "mins"):  # logical Q4_1
+            qs, cls = np.asarray(a.qs), Q4_1Weight
+            sc = np.stack([np.asarray(a.scales, dtype=np.float32), np.asarray(a.mins, dtype=np.float32)], axis=-1)
         elif hasattr(a, "qs") and hasattr(a, "scales"):
             qs, sc = np.asarray(a.qs), np.asarray(a.scales, dtype=np.float32)
-        elif hasattr(a, "qs4") or hasattr(a, "sm_v"):
+        elif hasattr(a, "qs4"):
             raise NotImplementedError(f"params_from_jax_numpy: layout {type(a).__name__} is not carried across")
         else:
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
         rows = out_rows(name, qs.shape[-2])
-        if rows is not None:
-            qs, sc = qs[..., rows, :], sc[..., rows, :]
-        return Q4_0Weight(
+        if rows is not None:  # the out axis: qs's second to last, in sc too
+            qs, sc = np.take(qs, rows, axis=qs.ndim - 2), np.take(sc, rows, axis=qs.ndim - 2)
+        return cls(
             torch.from_numpy(np.ascontiguousarray(qs, dtype=np.uint8)).to(device),
-            torch.from_numpy(np.ascontiguousarray(sc)).to(device),
+            torch.from_numpy(np.ascontiguousarray(sc, dtype=np.float32)).to(device),
         )
 
     return {
@@ -460,10 +482,11 @@ def _qkv(h, layer: dict, lin, N: int, H: int, Dh: int):
 
 def _takes_megakernel(stacked: dict, N: int, slot, cache: Cache, cfg: ModelConfig) -> bool:
     """The JAX package's conditions for the whole-stack kernel
-    (``llama_swift_tpu/models/llama.py:899-906``): fused params, one token,
-    no slot, no int8 scales, quantized activations, 128-dim heads."""
-    return ("wqkv" in stacked and N == 1 and slot is None and "k" in cache and "k_scale" not in cache
-            and cfg.quantize_activations and cfg.head_dim == 128)
+    (``llama_swift_tpu/models/llama.py:899-906``): fused Q4_0 params (its
+    ``Q4_0TensorW``: fused Q4_1 stays composed), one token, no slot, no int8
+    scales, quantized activations, 128-dim heads."""
+    return (isinstance(stacked.get("wqkv"), Q4_0Weight) and N == 1 and slot is None and "k" in cache
+            and "k_scale" not in cache and cfg.quantize_activations and cfg.head_dim == 128)
 
 
 def forward(
@@ -585,8 +608,9 @@ def forward_batched(
     """One decode step for B slots sharing the weights.
 
     Every matmul sees all B rows at once (the multi-row Q4_0 kernel for
-    B ≤ 32), so the packed weights cross device memory once per step
-    whatever the occupancy.  Slot b's new K/V land at position
+    B ≤ 32; Q4_1 weights are dequantized, as in the JAX package), so the
+    packed weights cross device memory once per step whatever the
+    occupancy.  Slot b's new K/V land at position
     ``n_pasts[b]`` (dense: ``k[il, b, :, n_pasts[b]]``; paged: through its
     table row), then attention reads each slot's keys ``j <= n_pasts[b]``:
     the batched flash kernel over the dense cache, the paged one over the

@@ -34,6 +34,7 @@ SOURCES = {
     "q4_matvec": {
         "q4_0_matvec": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "q4_0_matmul_multi": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "q4_1_matvec": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     },
     "flash_decode": {
         "flash_decode": [ctypes.c_void_p] * 7
@@ -45,6 +46,8 @@ SOURCES = {
     },
     "q4_dequant": {
         "q4_0_dequant": [ctypes.c_void_p] * 3
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+        "q4_1_dequant": [ctypes.c_void_p] * 3
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     },
     "fused_layer": {

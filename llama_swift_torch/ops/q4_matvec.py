@@ -1,11 +1,11 @@
-"""Q4_0 matvec (batch 1) and multi-row matmul (2–32 rows): the port's device
-layout, the plain versions and the wrappers of the CUDA kernels in
-``csrc/q4_matvec.cu``.
+"""Q4_0 matvec (batch 1), Q4_0 multi-row matmul (2–32 rows) and Q4_1 matvec
+(batch 1): the port's device layouts, the plain versions and the wrappers of
+the CUDA kernels in ``csrc/q4_matvec.cu``.
 
 Counterpart of ``llama_swift_tpu/ops/q4_vpu_pallas.py`` (``q4_0_vpu_matvec``,
-``q4_0_vpu_matvec_stacked`` and ``q4_0_vpu_matmul_multi``).  The kernel notes
-at the top of the CUDA source say what bounds each kernel on the H100 and
-how the design answers.
+``q4_0_vpu_matvec_stacked``, ``q4_0_vpu_matmul_multi``, ``q4_1_vpu_matvec``
+and ``q4_1_vpu_matvec_stacked``).  The kernel notes at the top of the CUDA
+source say what bounds each kernel on the H100 and how the design answers.
 
 **Layout.**  :class:`Q4_0Weight` keeps the ggml logical order: ``qs`` uint8
 ``[..., out, in/2]`` (byte j of a block holds elements 2j and 2j+1, low
@@ -19,6 +19,16 @@ is a view, never a copy.
 ``inv = 1/d``, ``trunc(x·inv ± 0.5)`` — half away from zero, never
 ``torch.round``'s half to even); block partials are exact integers and the
 per-block term ``partial · (d_w·d_x)`` rounds as on the TPU.
+
+**Q4_1.**  :class:`Q4_1Weight` keeps the same nibble bytes plus, per block,
+the delta ``d`` and the min ``m`` side by side in ``dm [..., out, in/32, 2]``
+(one 8-byte load a block, as ggml's ``block_q4_1``); ``d`` and ``m`` are
+views of it.  A weight is ``n·d + m``.  The activation is quantized per
+32-block as the runtime ``quantize_row_q4_1`` does (true min and max,
+``d_x = (max − min)/15``, codes ``round((x − min)/d_x)`` in [0, 15]) into
+``x̂ = q·d_x + m_x``, and ``y = Σ_b d_b·Σ_i n_i·x̂_i + m_b·Σ_i x̂_i``, the
+TPU kernel's sum (``_vpu_core_q41``).  There is no Q4_1 multi-row kernel,
+as in the JAX package: more than one row dequantizes.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import numpy as np
 import torch
 
 from ..config import QK
-from ..formats.quant import Q4_0Tensor
+from ..formats.quant import Q4_0Tensor, Q4_1Tensor
 from . import build
 
 
@@ -57,6 +67,38 @@ class Q4_0Weight:
         )
 
 
+@dataclasses.dataclass
+class Q4_1Weight:
+    """A Q4_1 weight ``[out, in]`` (or a stack ``[L, out, in]``) on a device."""
+
+    qs: torch.Tensor  # uint8 [..., out, in/2], the Q4_0 byte order
+    dm: torch.Tensor  # float32 [..., out, in/32, 2]: each block's (d, m)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.qs.shape[-2], self.qs.shape[-1] * 2)
+
+    @property
+    def d(self) -> torch.Tensor:
+        return self.dm[..., 0]
+
+    @property
+    def m(self) -> torch.Tensor:
+        return self.dm[..., 1]
+
+    def layer(self, il: int) -> "Q4_1Weight":
+        """Layer ``il`` of a stacked weight, as views into the stack."""
+        return Q4_1Weight(self.qs[il], self.dm[il])
+
+    @classmethod
+    def from_q4_1(cls, w: Q4_1Tensor, device="cpu") -> "Q4_1Weight":
+        dm = np.stack([np.asarray(w.scales, np.float32), np.asarray(w.mins, np.float32)], axis=-1)
+        return cls(
+            qs=torch.from_numpy(np.ascontiguousarray(w.qs, dtype=np.uint8)).to(device),
+            dm=torch.from_numpy(np.ascontiguousarray(dm)).to(device),
+        )
+
+
 def unpack_nibbles(qs: torch.Tensor) -> torch.Tensor:
     """uint8 ``[..., n]`` → uint8 ``[..., 2n]``, even elements from low
     nibbles (``ggml.c:664-666``)."""
@@ -75,6 +117,30 @@ def quantize_activations_q4_0_int(x: torch.Tensor) -> tuple[torch.Tensor, torch.
     half = torch.where(xb >= 0, 0.5, -0.5)
     q = torch.trunc(xb * inv[:, None] + half)
     return q.reshape(x.shape), d.reshape(*x.shape[:-1], x.shape[-1] // QK)
+
+
+def quantize_activations_q4_1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x ``[..., in]`` → (q f32 integer-valued ``[..., in]`` in [0, 15], d_x
+    and m_x ``[..., in/32]``); runtime ``quantize_row_q4_1`` semantics
+    (``ggml.c:606-648``): true min and max, ``d = (max − min)/15`` by true
+    division, ``inv = 1/d`` (0 when d = 0), ``q = trunc((x − min)·inv + ½)``
+    (round half away from zero of a value ≥ 0)."""
+    xb = x.float().reshape(-1, QK)
+    mn = xb.amin(dim=-1)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar through
+    # its reciprocal (see quantize_activations_q4_0_int)
+    d = (xb.amax(dim=-1) - mn) / torch.full_like(mn, 15.0)
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
+    q = torch.trunc((xb - mn[:, None]) * inv[:, None] + 0.5)
+    lead = (*x.shape[:-1], x.shape[-1] // QK)
+    return q.reshape(x.shape), d.reshape(lead), mn.reshape(lead)
+
+
+def dequantize_activations_q4_1(q: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``x̂ = q·d_x + m_x`` per 32-block (a product, then a sum: two f32
+    roundings, as the JAX fake-quantization does)."""
+    qb = q.reshape(*d.shape, QK)
+    return (qb * d[..., None] + m[..., None]).reshape(q.shape)
 
 
 def q4_0_block_partials(q: torch.Tensor, w: Q4_0Weight, rows: int = 4096) -> torch.Tensor:
@@ -109,16 +175,40 @@ def q4_0_matvec_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     return q4_0_matmul_multi_plain(x[None], w)[0]
 
 
-def _check_weight(w: Q4_0Weight, x: torch.Tensor, what: str) -> None:
+def q4_1_matvec_plain(x: torch.Tensor, w: Q4_1Weight, quantize_acts: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the Q4_1 matvec: ``y [out]`` f32 from ``x
+    [in]``, ``Σ_b d_b·A_b + m_b·S_b`` with ``A_b = Σ_i n_i·x̂_i`` (a batched
+    f32 product) and ``S_b = Σ_i x̂_i``; x̂ is the Q4_1 fake-quantized
+    activation, or x itself without ``quantize_acts``.  Chunks of 4096 rows
+    bound the temporaries."""
     out, in_dim = w.shape
-    if not (x.is_cuda and w.qs.device == x.device and w.d.device == x.device):
+    rows = 4096
+    nb = in_dim // QK
+    xh = dequantize_activations_q4_1(*quantize_activations_q4_1(x)) if quantize_acts else x.float()
+    xb = xh.reshape(nb, QK, 1)
+    s = xb.sum(dim=1)[:, 0]  # [nb]
+    parts = []
+    for r0 in range(0, out, rows):
+        n = unpack_nibbles(w.qs[r0 : r0 + rows]).float().reshape(-1, nb, QK).transpose(0, 1)  # [nb, rows, 32]
+        parts.append(torch.bmm(n, xb)[:, :, 0].t())  # [rows, nb]
+    acc = torch.cat(parts)
+    return (acc * w.d + s * w.m).sum(dim=-1)
+
+
+def _check_weight(w, x: torch.Tensor, what: str) -> None:
+    out, in_dim = w.shape
+    scales, name, shape, align = ((w.dm, "dm", (out, in_dim // QK, 2), 8) if isinstance(w, Q4_1Weight)
+                                  else (w.d, "d", (out, in_dim // QK), 4))
+    if not (x.is_cuda and w.qs.device == x.device and scales.device == x.device):
         raise ValueError(f"{what}: x and the weight must be on the same CUDA device")
     if w.qs.dtype != torch.uint8 or w.qs.dim() != 2 or not w.qs.is_contiguous():
         raise ValueError(f"{what}: qs must be contiguous uint8 [out, in/2]")
-    if w.d.dtype != torch.float32 or w.d.shape != (out, in_dim // QK) or not w.d.is_contiguous():
-        raise ValueError(f"{what}: d must be contiguous float32 [out, in/32]")
+    if scales.dtype != torch.float32 or scales.shape != shape or not scales.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous float32 {list(shape)}")
     if in_dim % QK:
         raise ValueError(f"{what}: in dim {in_dim} is not a multiple of {QK}")
+    if w.qs.data_ptr() % 16 or scales.data_ptr() % align:
+        raise ValueError(f"{what}: qs must be 16-byte and {name} {align}-byte aligned (vector loads)")
 
 
 def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
@@ -184,3 +274,29 @@ def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
 
 
 q4_0_matmul_multi.launches = 0
+
+
+def q4_1_matvec(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:
+    """``y [out] = W · x`` for one activation row ``x [in]`` f32 against a
+    Q4_1 weight, the activation quantized through Q4_1 (the reference's
+    Q4_1 matmul quantizes both operands).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return q4_1_matvec_plain(x, w)
+    out, in_dim = w.shape
+    _check_weight(w, x, "q4_1_matvec")
+    if x.dtype != torch.float32 or x.shape != (in_dim,) or not x.is_contiguous():
+        raise ValueError(f"q4_1_matvec: x must be contiguous float32 [{in_dim}], got {x.dtype} {tuple(x.shape)}")
+    xq = torch.empty(in_dim, dtype=torch.uint8, device=x.device)
+    xs = torch.empty((in_dim // QK, 4), dtype=torch.float32, device=x.device)  # d_x, m_x, Σx̂, pad
+    y = torch.empty(out, dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_1_matvec(
+        w.qs.data_ptr(), w.dm.data_ptr(), x.data_ptr(), xq.data_ptr(), xs.data_ptr(), y.data_ptr(),
+        out, in_dim, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    build.check(code, "q4_1_matvec")
+    q4_1_matvec.launches += 1
+    return y
+
+
+q4_1_matvec.launches = 0

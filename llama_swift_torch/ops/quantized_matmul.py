@@ -1,4 +1,4 @@
-"""Quantized linear ops: ``y = x @ W.T`` for dense and Q4_0 weights
+"""Quantized linear ops: ``y = x @ W.T`` for dense, Q4_0 and Q4_1 weights
 (counterpart of ``llama_swift_tpu/ops/quantized_matmul.py``).
 
 Parity-relevant semantics of the reference's quantized matmul
@@ -16,10 +16,15 @@ the product of block scales; rounding is half away from zero.
 * Q4_0, more rows → fake-quantize the activations, dequantize the weight
   with the dequant kernel (``ops/q4_dequant.py``), then one ``torch.matmul``
   (the JAX package leaves this product to XLA);
+* Q4_1, one row → the Q4_1 matvec kernel (``ops/q4_matvec.py``), the
+  activation quantized through Q4_1 (``ggml.c:6287+``);
+* Q4_1, any other row count → fake-quantize through Q4_1, the Q4_1 dequant
+  kernel, then one ``torch.matmul``: the JAX package has no Q4_1 multi-row
+  kernel (``quantized_matmul.py:192-195`` there), so the engine's batched
+  step dequantizes every weight too;
 * dense → ``torch.matmul`` in f32.
 
-A CPU tensor takes each kernel's plain version.  Q4_1 weights are not served
-by the port yet.
+A CPU tensor takes each kernel's plain version.
 """
 
 from __future__ import annotations
@@ -27,8 +32,17 @@ from __future__ import annotations
 import torch
 
 from ..config import QK
-from .q4_dequant import dequantize_q4_0, q4_0_dequant
-from .q4_matvec import MAX_MULTI_ROWS, Q4_0Weight, q4_0_matmul_multi, q4_0_matvec
+from .q4_dequant import dequantize_q4_0, dequantize_q4_1, q4_0_dequant, q4_1_dequant
+from .q4_matvec import (
+    MAX_MULTI_ROWS,
+    Q4_0Weight,
+    Q4_1Weight,
+    dequantize_activations_q4_1,
+    q4_0_matmul_multi,
+    q4_0_matvec,
+    q4_1_matvec,
+    quantize_activations_q4_1,
+)
 
 # f32 products on the card run in full f32: TF32 would keep ~3 decimal
 # digits.  Both flags default to these values; set explicitly.  bf16
@@ -37,7 +51,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __all__ = [
-    "dequantize_q4_0", "embedding_lookup", "fake_quantize_q4_0",
+    "dequantize_q4_0", "dequantize_q4_1", "embedding_lookup", "fake_quantize_q4_0",
     "fake_quantize_q4_1", "linear", "round_half_away",
 ]
 
@@ -62,13 +76,11 @@ def fake_quantize_q4_0(x: torch.Tensor) -> torch.Tensor:
 
 def fake_quantize_q4_1(x: torch.Tensor) -> torch.Tensor:
     """Quantize-dequantize through Q4_1 (runtime ``quantize_row_q4_1``
-    semantics, true min/max — ``ggml.c:606-648``)."""
-    shape = x.shape
-    xf = x.float().reshape(*shape[:-1], shape[-1] // QK, QK)
-    mn = xf.amin(dim=-1, keepdim=True)
-    d = (xf.amax(dim=-1, keepdim=True) - mn) / 15.0
-    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
-    return (round_half_away((xf - mn) * inv) * d + mn).reshape(shape).to(x.dtype)
+    semantics, true min/max — ``ggml.c:606-648``): the codes and block
+    constants of ``quantize_activations_q4_1`` (true division on the card
+    too), then ``q·d + m``.  x ``[..., k]``, k % 32 == 0; same shape and
+    dtype out."""
+    return dequantize_activations_q4_1(*quantize_activations_q4_1(x)).to(x.dtype)
 
 
 def _matmul_f32_out(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
@@ -95,19 +107,21 @@ def linear(
     tensors always compute in f32, as the JAX package does off the TPU.
     """
     lead = x.shape[:-1]
-    if isinstance(w, Q4_0Weight):
+    if isinstance(w, (Q4_0Weight, Q4_1Weight)):
+        q41 = isinstance(w, Q4_1Weight)
         out_dim, in_dim = w.shape
         n_rows = x.numel() // x.shape[-1]
         if n_rows == 1 and quantize_activations:
-            y = q4_0_matvec(x.reshape(in_dim).float().contiguous(), w)
+            y = (q4_1_matvec if q41 else q4_0_matvec)(x.reshape(in_dim).float().contiguous(), w)
             return y.reshape(*lead, out_dim).to(compute_dtype)
-        if 1 < n_rows <= MAX_MULTI_ROWS and quantize_activations:
+        if not q41 and 1 < n_rows <= MAX_MULTI_ROWS and quantize_activations:
             y = q4_0_matmul_multi(x.reshape(n_rows, in_dim).float().contiguous(), w)
             return y.reshape(*lead, out_dim).to(compute_dtype)
         if quantize_activations:
-            x = fake_quantize_q4_0(x)
+            x = (fake_quantize_q4_1 if q41 else fake_quantize_q4_0)(x)
         mm_dtype = dense_matmul_dtype if (dense_matmul_dtype is not None and x.is_cuda) else torch.float32
-        y = _matmul_f32_out(x.reshape(n_rows, in_dim), q4_0_dequant(w, mm_dtype))
+        wd = (q4_1_dequant if q41 else q4_0_dequant)(w, mm_dtype)
+        y = _matmul_f32_out(x.reshape(n_rows, in_dim), wd)
         return y.reshape(*lead, out_dim).to(compute_dtype)
     if not isinstance(w, torch.Tensor):
         raise NotImplementedError(f"linear: weights of type {type(w).__name__} are not served by the port")
@@ -120,4 +134,7 @@ def embedding_lookup(tokens: torch.Tensor, w, *, compute_dtype=torch.float32) ->
     if isinstance(w, Q4_0Weight):
         rows = Q4_0Weight(w.qs.index_select(0, tokens), w.d.index_select(0, tokens))
         return dequantize_q4_0(rows, compute_dtype)
+    if isinstance(w, Q4_1Weight):  # a gather and n·d + m, as XLA does in JAX
+        rows = Q4_1Weight(w.qs.index_select(0, tokens), w.dm.index_select(0, tokens))
+        return dequantize_q4_1(rows, compute_dtype)
     return w.index_select(0, tokens).to(compute_dtype)

@@ -3,7 +3,7 @@ and ragged shapes (row counts that are not a multiple of a block's rows,
 in-dims that are not a multiple of a warp's blocks, several head dims,
 multi-row counts on both sides of the kernel's row templates, per-slot
 n_pasts on both sides of a 64-key split, page sizes 16 and 128, int8 caches
-with stale codes and scales beyond each n_past).
+with stale codes and scales beyond each n_past; Q4_1 weights).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -372,3 +372,58 @@ def test_fused_layers_grid_and_bad_inputs(cuda):
     with pytest.raises(ValueError):  # a non-contiguous stack
         fl.fused_layers_block(x, an, fn, ws[0], ws[1], mv.Q4_0Weight(ws[2].qs.transpose(1, 2), ws[2].d), ws[3],
                               kc, vc, 3)
+
+
+def _q41(out, in_dim, device, seed=0):
+    """Random nibbles, d as in _q4, m ≈ −8·d·U(0.8, 1.2) (values centred near
+    zero, as real Q4_1 weights are)."""
+    w, g = _q4(out, in_dim, device, seed)
+    m = -8.0 * w.d * (0.8 + 0.4 * torch.rand(w.d.shape, device=device, generator=g))
+    return mv.Q4_1Weight(w.qs, torch.stack([w.d, m], dim=-1).contiguous()), g
+
+
+@pytest.mark.parametrize("out,in_dim", [(8, 32), (1000, 352), (256, 4096), (77, 11008)])
+def test_q4_1_matvec_kernel_matches_plain(cuda, out, in_dim):
+    """The kernel's integer form (d_x·Σn·q + m_x·Σn per block) against the
+    plain version's f32 sum of n·x̂, within 1e-5 of max |y|."""
+    w, g = _q41(out, in_dim, cuda)
+    x = torch.randn(in_dim, device=cuda, generator=g)
+    before = mv.q4_1_matvec.launches
+    y = mv.q4_1_matvec(x, w)
+    torch.cuda.synchronize()
+    assert mv.q4_1_matvec.launches == before + 1
+    assert _rel(y, mv.q4_1_matvec_plain(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q4_1_dequant_kernel_bit_exact(cuda, dtype):
+    w, _ = _q41(300, 4096, cuda)
+    before = dq.q4_1_dequant.launches
+    dense = dq.q4_1_dequant(w, dtype)
+    assert dq.q4_1_dequant.launches == before + 1
+    assert torch.equal(dense, dq.dequantize_q4_1(w, dtype))
+    assert torch.equal(dense.cpu(), dq.dequantize_q4_1(mv.Q4_1Weight(w.qs.cpu(), w.dm.cpu()), dtype))
+
+
+def test_q4_1_quantizer_divides_on_card(cuda):
+    """Block ranges r where r·(1/15) and r/15 round apart: the card's plain
+    quantizer divides, as the CPU and the kernel's pre-pass do."""
+    import numpy as np
+
+    r = np.random.default_rng(0).uniform(0.5, 8.0, 4096).astype(np.float32)
+    r = r[r * np.float32(1.0 / 15.0) != r / np.float32(15.0)][:32]
+    assert len(r) == 32
+    x = torch.from_numpy(r)[:, None] * torch.linspace(0.0, 1.0, 32)  # block b spans [0, r_b]
+    q_cpu, d_cpu, m_cpu = mv.quantize_activations_q4_1(x.reshape(-1))
+    q, d, m = mv.quantize_activations_q4_1(x.to(cuda).reshape(-1))
+    assert torch.equal(d.cpu(), d_cpu) and torch.equal(q.cpu(), q_cpu) and torch.equal(m.cpu(), m_cpu)
+
+
+def test_q4_1_wrappers_raise_on_bad_inputs(cuda):
+    w, _ = _q41(64, 256, cuda)
+    with pytest.raises(ValueError):
+        mv.q4_1_matvec(torch.randn(128, device=cuda), w)  # wrong in dim
+    with pytest.raises(ValueError):  # d and m as two planes instead of (d, m) pairs
+        mv.q4_1_matvec(torch.randn(256, device=cuda), mv.Q4_1Weight(w.qs, w.dm.transpose(-1, -2)))
+    with pytest.raises(ValueError):
+        dq.q4_1_dequant(w, torch.float16)
