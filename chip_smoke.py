@@ -8,10 +8,10 @@
 
 Phases:
 
-1. identify the card (name and power limit from nvidia-smi) and build the
+1. identify the card (name and power limit from nvidia-smi), build the
    CUDA kernels from ``llama_swift_torch/csrc`` (one nvcc per source, all
-   started together);
-2. hold each of the twelve kernels against its plain PyTorch version on
+   started together) and the native host library (g++, ``native/``);
+2. hold each of the fifteen kernels against its plain PyTorch version on
    the card at the 7B shapes of the serving paths, and time kernel, plain
    version, bound and (where one exists) a single PyTorch call computing
    the same function; the int8 flash kernels read caches written by the
@@ -21,11 +21,15 @@ Phases:
    ``check_fused_kernel`` for how 4-bit activation flips are counted); the
    Q4_1 matvec at the four matvec shapes and the Q4_1 dequant (bf16, f32,
    bit-exact) at 11008x4096, on weights whose mins centre them near zero;
+   the three f32-activation kernels (Q4_0 and Q4_1 matvec, Q4_0 multi-row
+   at B = 2, 8, 32) at the four matvec shapes and the fused 12288x4096 and
+   22016x4096, beside the dequant + matmul pair they replace;
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
    prefill logits within 0.25 (see ``check_parity``); then the same over an
-   int8 cache (``check_parity_int8``): within 2e-3 with f32 activations, and
+   int8 cache (``check_parity_int8``): within 2e-3 with f32 activations
+   (exactly the f32-activation kernels' launches, no dequant), and
    with 4-bit activations on a run with no activation-quantization flip,
    the flips and the int8 codes that differ between the devices counted;
    then on fused wqkv/w13 params (``check_parity_fused``), f32 and bf16
@@ -33,7 +37,8 @@ Phases:
    matvec;
 3b. batched parity at 7B width and 2 layers: slot prefills of 3 slots, then
    4 ``forward_batched`` steps at B=8, dense and paged caches, f32 and int8,
-   card vs CPU within 2e-3 (see ``check_batched_parity`` for how
+   card vs CPU within 2e-3 (with f32 activations every product on the
+   f32-activation multi-row kernel; see ``check_batched_parity`` for how
    activation-quantization flips are told apart); the card's batched rows
    are also held against batch-1 ``decode_step`` of the same slot state;
 3c. Q4_1 parity at 7B width and 2 layers (``check_parity_q4_1``): an
@@ -41,10 +46,13 @@ Phases:
    ``forward_batched`` steps at B=8, card vs CPU: within 2e-3 with f32
    activations, and with Q4_1 activations wherever no 4-bit activation
    flip occurred (flips counted per output; the steps continue from the
-   CPU's caches); each decode step exactly 15 Q4_1 matvec launches and
-   each batched step 15 Q4_1 dequant launches;
+   CPU's caches); each decode step exactly 15 Q4_1 matvec launches (of the
+   f32-activation matvec with f32 activations) and each batched step 15
+   Q4_1 dequant launches;
 4. serve four requests through ``LlamaRunner`` on a synthetic 32-layer 7B
-   Q4_0 GGML file written from a seed (three on the f32 cache, the fourth
+   Q4_0 GGML file written from a seed, after timing its load through the
+   Python reader and through the native mapping (``load_paths``); the
+   runners load through the mapping (three on the f32 cache, the fourth
    with ``runner.config.kv_cache_dtype = "int8"``), with the launch counters
    reset just before and read just after, and checked against 225 matvec
    and 32 flash (f32) or int8 flash launches per decoded token and 225
@@ -59,7 +67,13 @@ Phases:
    32 flash launches of the wave's kernel per engine decode step, 225
    dequant launches per prefill chunk, and no other launch; every stream
    completes and every page comes back;
-4c. on the fused params: two requests through ``LlamaRunner`` (greedy on an
+4c. f32 activations on the same params (``serve_f32_acts``): one runner
+   request with ``quantize_activations = False`` (225 f32-activation matvec
+   launches a token, 225 dequant a prefill) and wave G, wave A's shape
+   (225 f32-activation multi-row launches a step), each with a profiled
+   window for its idle share; then a seeded ``rng_impl="mt19937"``
+   host-sampled request twice: the same tokens, through the native sampler;
+4d. on the fused params: two requests through ``LlamaRunner`` (greedy on an
    f32 cache, sampled on a bf16 cache), each decoded token exactly one
    whole-stack launch and one matvec, each prefill 129 (4·32 + 1) dequant
    launches; then wave E, wave A's shape (12 requests, 8 dense f32 slots),
@@ -72,7 +86,9 @@ Phases:
    a prefill, no Q4_0 kernel), one on fused Q4_1 params (129 matvec a
    token, no whole-stack launch, 129 dequant a prefill) and engine wave F
    (8 requests through 4 dense f32 slots, 16 tokens each: 225 Q4_1 dequant
-   launches a step and a chunk, no multi-row launch); with ``--profile``
+   launches a step and a chunk, no multi-row launch) and one request with
+   f32 activations (225 f32-activation Q4_1 matvec launches a token) with
+   its profiled window; with ``--profile``
    8-step windows of Q4_1 batch-1 decode and of a Q4_1 engine step (B = 4);
 6. print the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
@@ -102,6 +118,8 @@ INT8_OPS = 1979e12  # H100 SXM int8 tensor rate, published
 
 BF16_PREFILL_BAR = 0.25
 MATVEC_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
+F32_SHAPES = MATVEC_SHAPES + [(12288, 4096), (22016, 4096)]  # and fused wqkv, w13
+F32_MULTI_ROWS = [2, 8, 32]
 FLASH_NPAST = [0, 127, 128, 511]
 MULTI_ROWS = 8  # the engine's slots
 BATCHED_NPASTS = [0, 63, 64, 127, 200, 311, 511, 5]  # per slot, at n_ctx 512
@@ -284,6 +302,62 @@ def check_q4_1_kernels(torch, g, summary) -> list:
     return failed
 
 
+def check_f32_kernels(torch, g, summary) -> list:
+    """The three f32-activation kernels (the Q4_0 and Q4_1 matvecs and the
+    Q4_0 multi-row matmul on unquantized rows) against their plain versions
+    at ``F32_SHAPES`` (the multi-row kernel at B in ``F32_MULTI_ROWS``),
+    within 1e-5 of max |y|.  Beside kernel, plain and bound times, the
+    dequant + ``torch.matmul`` pair that these kernels replace on this path
+    is timed as ``replaced_ms`` (no single PyTorch call computes the
+    function, so ``library_ms`` is None).  The bound is the larger of the
+    bytes and the f32 work (2·B operations a weight); ``bound_by`` says
+    which.  Returns the cases that disagree."""
+    from llama_swift_torch.ops import q4_dequant as dq
+    from llama_swift_torch.ops import q4_matvec as mv
+
+    failed = []
+    for q41 in (False, True):
+        for out, in_dim in F32_SHAPES:
+            wbytes = out * in_dim // 2 + out * (in_dim // 32) * (8 if q41 else 4)
+            n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
+            w = (rand_q4_1 if q41 else rand_q4)(torch, g, n, out, in_dim)
+            deq = dq.q4_1_dequant if q41 else dq.q4_0_dequant
+            for rows in [1] if q41 else [1] + F32_MULTI_ROWS:
+                x = torch.randn((rows, in_dim), device="cuda", generator=g)
+                xr = x[0] if rows == 1 else x
+                if q41:
+                    name = "q4_1_matvec_f32"
+                    fn = lambda i: mv.q4_1_matvec_f32(xr, w.layer(i % n))  # noqa: E731
+                    plain = lambda i: mv.q4_1_matvec_plain(xr, w.layer(i % n), quantize_acts=False)  # noqa: E731
+                elif rows == 1:
+                    name = "q4_0_matvec_f32"
+                    fn = lambda i: mv.q4_0_matvec_f32(xr, w.layer(i % n))  # noqa: E731
+                    plain = lambda i: mv.q4_0_matvec_f32_plain(xr, w.layer(i % n))  # noqa: E731
+                else:
+                    name = "q4_0_matmul_multi_f32"
+                    fn = lambda i: mv.q4_0_matmul_multi_f32(xr, w.layer(i % n))  # noqa: E731
+                    plain = lambda i: mv.q4_0_matmul_multi_f32_plain(xr, w.layer(i % n))  # noqa: E731
+                y, ref = fn(0), plain(0)
+                err = rel_err(y, ref)
+                t_bytes = (wbytes + rows * in_dim * 4 + rows * out * 4) / HBM_BYTES_PER_S
+                t_ops = 2 * rows * out * in_dim / F32_FLOPS
+                case = {"case": name, "rows": rows, "out": out, "in": in_dim, "max_rel_err": err,
+                        "max_abs_err": float((y - ref).abs().max()),
+                        "kernel_ms": time_ms(torch, fn, 200), "plain_ms": time_ms(torch, plain, 3),
+                        "bound_ms": max(t_bytes, t_ops) * 1e3,
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "replaced_ms": time_ms(torch, lambda i: xr @ deq(w.layer(i % n), torch.float32).t(), 20),
+                        "library_ms": None, "ok": err <= 1e-5}
+                log(case)
+                if not case["ok"]:
+                    failed.append(case)
+                if (out, in_dim) == (11008, 4096) and rows in (1, MULTI_ROWS):
+                    summary[name] = dict(case, shape=(f"B{rows} " if rows > 1 else "") + f"{out}x{in_dim}")
+            del w
+            torch.cuda.empty_cache()
+    return failed
+
+
 def check_kernels(torch) -> dict:
     """Returns {kernel name: summary at its representative shape}."""
     from llama_swift_torch.ops import attention as att
@@ -438,6 +512,7 @@ def check_kernels(torch) -> dict:
     failed += check_int8_kernels(torch, g, summary)
     failed += check_fused_kernel(torch, g, summary)
     failed += check_q4_1_kernels(torch, g, summary)
+    failed += check_f32_kernels(torch, g, summary)
 
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
@@ -798,9 +873,9 @@ def recording(record, tag):
         return out
 
     if record is not None:
-        qmm.q4_0_matvec = lambda x, w: record.append((tag[0], x[None].cpu())) or matvec(x, w)
-        qmm.q4_0_matmul_multi = lambda x, w: record.append((tag[0], x.cpu())) or multi(x, w)
-        qmm.q4_1_matvec = lambda x, w: record.append((tag[0], x[None].cpu())) or matvec41(x, w)
+        qmm.q4_0_matvec = lambda x, w, **k: record.append((tag[0], x[None].cpu())) or matvec(x, w, **k)
+        qmm.q4_0_matmul_multi = lambda x, w, **k: record.append((tag[0], x.cpu())) or multi(x, w, **k)
+        qmm.q4_1_matvec = lambda x, w, **k: record.append((tag[0], x[None].cpu())) or matvec41(x, w, **k)
         qmm.fake_quantize_q4_1 = lambda x: record.append((tag[0], x.reshape(-1, x.shape[-1]).cpu())) or fq41(x)
         model_lib.fused_layers_block = fused_rec
     try:
@@ -827,9 +902,13 @@ def check_parity_int8(torch) -> None:
     the reference's 4-bit activations the same bar holds when no activation
     quantized differently on the two devices; the flips are counted either
     way (see ``check_batched_parity``).  Also counts the int8 codes that
-    differ between the card's and the CPU's caches."""
+    differ between the card's and the CPU's caches.  The f32-activation card
+    run launches exactly the f32-activation kernels (the prefill's 8 rows on
+    the multi-row one, each decode step on the matvec) and the int8 flash
+    kernel, and no dequant."""
     import dataclasses
 
+    from llama_swift_torch import ops
     from llama_swift_torch.config import GGMLType, ModelConfig
     from llama_swift_torch.models import llama as model_lib
 
@@ -858,7 +937,14 @@ def check_parity_int8(torch) -> None:
         t0 = time.perf_counter()
         cpu, cpu_cache = run("cpu", cfg, rec_cpu)
         rec[f"{act}_act_cpu_s"] = time.perf_counter() - t0
+        before = ops.launch_counts()
         card, card_cache = run("cuda", cfg, rec_card)
+        if act == "f32":  # the f32-activation kernels, no dequant: the 8-row prefill takes the multi-row one
+            per = 7 * cfg.n_layer + 1
+            rec["f32_act_launches"] = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+            rec["f32_act_launches_ok"] = rec["f32_act_launches"] == {
+                "q4_0_matmul_multi_f32": per, "q4_0_matvec_f32": per * len(steps),
+                "flash_decode_attention_stacked_int8": cfg.n_layer * len(steps)}
         rec[f"{act}_act_prefill_rel_err"] = rel_err(card[0], cpu[0])
         rec[f"{act}_act_decode_rel_err_max"] = max(rel_err(a, b) for a, b in zip(card[1:], cpu[1:]))
         rec[f"{act}_act_codes_differing"] = sum(
@@ -868,7 +954,7 @@ def check_parity_int8(torch) -> None:
             rec["q4_act_flips"] = sum(int(f.sum()) for f in flip_counts(rec_cpu, rec_card))
     bar_ok = {act: rec[f"{act}_act_prefill_rel_err"] <= 2e-3 and rec[f"{act}_act_decode_rel_err_max"] <= 2e-3
               for act in ("f32", "q4")}
-    rec["ok"] = (rec["f32_act_finite"] and rec["q4_act_finite"] and bar_ok["f32"]
+    rec["ok"] = (rec["f32_act_finite"] and rec["q4_act_finite"] and bar_ok["f32"] and rec["f32_act_launches_ok"]
                  and (bar_ok["q4"] or rec["q4_act_flips"] > 0))
     log(rec)
     if not rec["ok"]:
@@ -940,7 +1026,9 @@ def check_parity_q4_1(torch) -> None:
     step: there is no Q4_1 multi-row kernel).
 
     With f32 activations nothing is quantized, so every logit is within
-    2e-3.  With the reference's Q4_1 activations, an ulp-level difference
+    2e-3; each decode step is exactly 15 launches of the f32-activation Q4_1
+    matvec and each batched step 15 dequant launches (more than one Q4_1
+    row dequantizes, as in the JAX package).  With the reference's Q4_1 activations, an ulp-level difference
     between the devices (a dense f32 product summed in another order) can
     move one activation across a rounding step, and that flip moves the
     logits by percents (see ``check_batched_parity``).  So the card's decode
@@ -1006,10 +1094,14 @@ def check_parity_q4_1(torch) -> None:
     tag = [None]
     t0 = time.perf_counter()
     runs = {}
+    f32_deltas = {"cpu": [], "cuda": []}
     for dev in ("cpu", "cuda"):
         outs, cache, bcache = prefills(dev, f32, tag)
-        runs[dev] = outs + steps(dev, f32, cache, bcache, tag, [])
+        runs[dev] = outs + steps(dev, f32, cache, bcache, tag, f32_deltas[dev])
     rec["f32_act_cpu_and_card_s"] = time.perf_counter() - t0
+    rec["f32_act_launches_per_step"] = f32_deltas["cuda"]
+    f32_expect = [{"q4_1_matvec_f32": per_step, "flash_decode_attention": base.n_layer}] * len(decode_toks) + [
+        {"q4_1_dequant": per_step, "flash_decode_attention_batched": base.n_layer}] * len(step_toks)
     rec["f32_act_rel_err_max"] = max(rel_err(c, r) for (_, c), (_, r) in zip(runs["cuda"], runs["cpu"]))
 
     rec_cpu, rec_card, deltas = [], [], []
@@ -1048,7 +1140,8 @@ def check_parity_q4_1(torch) -> None:
         {"q4_1_dequant": per_step, "flash_decode_attention_batched": base.n_layer}] * len(step_toks)
     clean = [o for o in outputs if o[2] == 0]
     all_within = all(o[1] <= 2e-3 for o in outputs)
-    rec["ok"] = (rec["finite"] and deltas == expect and rec["f32_act_rel_err_max"] <= 2e-3
+    rec["ok"] = (rec["finite"] and deltas == expect and f32_deltas["cuda"] == f32_expect
+                 and rec["f32_act_rel_err_max"] <= 2e-3
                  and rec["card_quantizer_matches_cpu"] and all(o[1] <= 2e-3 for o in clean)
                  and (all_within or all(any(o[0].startswith(k) for o in clean) for k in ("decode", "batched"))))
     log(rec)
@@ -1077,9 +1170,12 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
     a flip in a row that never reaches the compared logits, such as the
     last layer's products at an earlier position, changes nothing); and the
     card's batched rows against batch-1 ``decode_step`` of the same slot
-    state within 2e-3 (same device, so no flip)."""
+    state within 2e-3 (same device, so no flip).  The f32-activation card
+    runs launch exactly the f32-activation multi-row kernel for every
+    product and the mode's flash kernel for every step, and no dequant."""
     import dataclasses
 
+    from llama_swift_torch import ops
     from llama_swift_torch.config import GGMLType, ModelConfig
     from llama_swift_torch.models import llama as model_lib
 
@@ -1127,11 +1223,19 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
     dtype_name = str(cache_dtype or torch.float32).split(".")[-1]
     rec = {"case": f"batched_parity_{dtype_name}_7b_width_2_layers", "B": B, "slots": S, "steps": len(steps)}
     f32 = dataclasses.replace(base, quantize_activations=False)
+    int8 = "_int8" if cache_dtype == torch.int8 else ""
     for mode in ("dense", "paged"):
         t0 = time.perf_counter()
         cpu = run("cpu", f32, mode == "paged")
         rec[f"{mode}_cpu_s"] = time.perf_counter() - t0
+        before = ops.launch_counts()
         card = run("cuda", f32, mode == "paged")
+        # f32 activations: every product (3-11-row slot prefills, 8-row steps) on the f32 multi-row kernel
+        rec[f"{mode}_f32_act_launches"] = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+        rec[f"{mode}_f32_act_launches_ok"] = rec[f"{mode}_f32_act_launches"] == {
+            "q4_0_matmul_multi_f32": (S + len(steps)) * (7 * base.n_layer + 1),
+            ("flash_decode_attention_paged" if mode == "paged" else "flash_decode_attention_batched") + int8:
+                base.n_layer * len(steps)}
         rec[f"{mode}_f32_act_rel_err_max"] = max(slot_errs(card, cpu))
         rec[f"{mode}_finite"] = all(bool(torch.isfinite(t).all()) for t in card)
         rec_cpu, rec_card = [], []
@@ -1164,7 +1268,7 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
     rec["card_batched_vs_batch1_decode_rel_err_max"] = max(errs)
     rec["ok"] = rec["card_batched_vs_batch1_decode_rel_err_max"] <= 2e-3 and all(
         rec[f"{m}_finite"] and rec[f"{m}_f32_act_rel_err_max"] <= 2e-3 and rec[f"{m}_q4_act_ok"]
-        for m in ("dense", "paged"))
+        and rec[f"{m}_f32_act_launches_ok"] for m in ("dense", "paged"))
     log(rec)
     if not rec["ok"]:
         raise SystemExit("chip_smoke: batched parity outside its bars")
@@ -1189,6 +1293,7 @@ def serve(torch, workdir: str, profile: bool) -> dict:
     write_model(path, cfg, seed=2024)
     log({"case": "write_model", "seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path)})
 
+    load_paths(torch, path)
     runner, fused_runner = LlamaRunner(path), LlamaRunner(path, fuse_layer_matmuls=True)
     for r in (runner, fused_runner):
         r.ensure_loaded()
@@ -1203,33 +1308,64 @@ def serve(torch, workdir: str, profile: bool) -> dict:
          "float32"),
         ("greedy_device_int8", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=4, top_k=1)), "int8"),
     ]
-    n_layer = runner.config.n_layer
-
-    def expected(kv_dtype, forwards):  # 7 matmuls a layer plus the output projection
-        flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
-        return {"q4_0_matvec": (7 * n_layer + 1) * forwards, flash: n_layer * forwards,
-                "q4_0_dequant": 7 * n_layer + 1}
-
     ops.reset_launch_counts()  # the main path's run starts here
-    per_request = run_requests(torch, runner, requests, PROMPTS + ENGINE_PROMPTS[3:], expected)
+    per_request = run_requests(torch, runner, requests, PROMPTS + ENGINE_PROMPTS[3:], composed(runner.config.n_layer))
     counts = ops.launch_counts()  # read just after the main path's run
     if profile:
         profile_decode(torch, runner)
     return {"launches": counts, "requests": per_request, "runner": runner, "fused_runner": fused_runner}
 
 
-def run_requests(torch, runner, requests, prompts, expected) -> list:
+def composed(n_layer: int, n_mm: int = 7, matvec: str = "q4_0_matvec", dequant: str = "q4_0_dequant"):
+    """``expected(kv_dtype, forwards)`` of a composed runner request: n_mm·L + 1
+    products a forward on ``matvec`` and L of the cache's flash kernel, and
+    n_mm·L + 1 ``dequant`` launches for the prefill."""
+    def expected(kv_dtype, forwards):
+        flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
+        return {matvec: (n_mm * n_layer + 1) * forwards, flash: n_layer * forwards, dequant: n_mm * n_layer + 1}
+    return expected
+
+
+def load_paths(torch, path: str) -> None:
+    """The 7B file's load through the Python reader and through the native
+    mapping (the runners' default), once each, from the page cache (the file
+    was just written): the loader alone, and the loader plus the params on
+    the card (what ``LlamaRunner.stats["t_load_s"]`` measures)."""
+    from llama_swift_torch.formats import ggml
+    from llama_swift_torch.models import llama as model_lib
+
+    rec = {"case": "load_paths"}
+    for name, native in (("reader", False), ("mapping", True)):
+        t0 = time.perf_counter()
+        mf = ggml.load_model_file(path, use_native=native)
+        rec[f"{name}_file_s"] = time.perf_counter() - t0
+        params = model_lib.params_from_tensors(mf.tensors, mf.config, device="cuda")
+        torch.cuda.synchronize()
+        rec[f"{name}_t_load_s"] = time.perf_counter() - t0
+        rec[f"{name}_native_handle"] = mf.native_handle is not None
+        if mf.native_handle is not None:
+            mf.native_handle.close()
+        del mf, params
+        torch.cuda.empty_cache()
+    log(rec)
+    if not rec["mapping_native_handle"] or rec["reader_native_handle"]:
+        raise SystemExit("chip_smoke: the 7B load did not take the path asked for")
+
+
+def run_requests(torch, runner, requests, prompts, expected, **overrides) -> list:
     """Serve each request through ``runner.run_events`` with
-    ``runner.config.kv_cache_dtype`` set for it; each must complete its 32
-    tokens with exactly ``expected(kv_dtype, forwards)`` launches (every
-    other kernel 0)."""
+    ``runner.config.kv_cache_dtype`` set for it (and ``overrides`` of the
+    model config, such as ``quantize_activations=False``); each must
+    complete its 32 tokens with exactly ``expected(kv_dtype, forwards)``
+    launches (every other kernel 0).  Each record's ``_text`` (not logged)
+    is the request's whole output."""
     from llama_swift_torch import ops
     from llama_swift_torch.runtime.events import EventKind
 
     model_cfg = runner.config
     per_request = []
     for (name, rcfg, kv_dtype), prompt in zip(requests, prompts):
-        runner.config = dataclasses.replace(model_cfg, kv_cache_dtype=kv_dtype)
+        runner.config = dataclasses.replace(model_cfg, kv_cache_dtype=kv_dtype, **overrides)
         before = ops.launch_counts()
         t1 = time.perf_counter()
         events = list(runner.run_events(prompt, rcfg))
@@ -1245,12 +1381,13 @@ def run_requests(torch, runner, requests, prompts, expected) -> list:
         expect = {k: 0 for k in delta}
         expect.update(expected(kv_dtype, forwards))
         rec = {"case": "serve", "request": name, "fused": runner.fuse_layer_matmuls, "kv_cache": kv_dtype,
-               "prompt_tokens": st["prompt_tokens"], "generated_tokens": st["generated_tokens"],
+               **overrides, "prompt_tokens": st["prompt_tokens"], "generated_tokens": st["generated_tokens"],
                "t_prefill_s": st["t_prefill_s"], "t_decode_s": st["t_decode_s"],
                "decode_tok_per_s": st.get("decode_tok_per_s"), "wall_s": wall, "launches": delta,
                "expected_launches": expect,
                "text_tail": "".join(e.token for e in events if e.kind == EventKind.OUTPUT_TOKEN)[-60:]}
         log(rec)
+        rec["_text"] = "".join(e.token for e in events if e.kind == EventKind.OUTPUT_TOKEN)
         if delta != expect or st["generated_tokens"] != rcfg.num_tokens:
             raise SystemExit(f"chip_smoke: request {name}: launches {delta} != expected {expect}")
         per_request.append(rec)
@@ -1336,24 +1473,23 @@ def serve_q4_1(torch, workdir: str, profile: bool) -> list:
     os.remove(path)
     n_layer = cfg.n_layer
 
-    def expected(n_mm):
-        def counts(kv_dtype, forwards):
-            flash = "flash_decode_attention_stacked_int8" if kv_dtype == "int8" else "flash_decode_attention"
-            return {"q4_1_matvec": (n_mm * n_layer + 1) * forwards, flash: n_layer * forwards,
-                    "q4_1_dequant": n_mm * n_layer + 1}
-        return counts
-
     ops.reset_launch_counts()  # the runner's Q4_1 run starts here
     run_requests(torch, runner, [
         ("greedy_device_q4_1", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=7, top_k=1)), "float32"),
         ("sampled_device_q4_1_int8", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=8)), "int8"),
-    ], PROMPTS[:2], expected(7))
+    ], PROMPTS[:2], composed(n_layer, 7, "q4_1_matvec", "q4_1_dequant"))
     runs.append(ops.launch_counts())  # read just after
     ops.reset_launch_counts()  # the fused Q4_1 run starts here
     run_requests(torch, fused_runner, [
         ("greedy_device_q4_1_fused", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=9, top_k=1)),
-         "float32")], PROMPTS[2:], expected(4))
+         "float32")], PROMPTS[2:], composed(n_layer, 4, "q4_1_matvec", "q4_1_dequant"))
     runs.append(ops.launch_counts())  # read just after
+    ops.reset_launch_counts()  # the Q4_1 f32-activation run starts here
+    run_requests(torch, runner, [
+        ("greedy_device_q4_1_f32_acts", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=10, top_k=1)),
+         "float32")], PROMPTS[2:], composed(n_layer, 7, "q4_1_matvec_f32", "q4_1_dequant"), quantize_activations=False)
+    runs.append(ops.launch_counts())  # read just after
+    profile_f32_decode(torch, runner, "profile_q4_1_f32_decode_8_steps")
     del fused_runner
     torch.cuda.empty_cache()
     runs.append(serve_engine(torch, runner, [("F_q4_1_dense_f32", 4, dict(cache_dtype=torch.float32),
@@ -1411,13 +1547,15 @@ def engine_waves(torch) -> list:
     ]
 
 
-def serve_engine(torch, runner, waves, n_predict: int = 32) -> dict:
+def serve_engine(torch, runner, waves, n_predict: int = 32, **overrides) -> dict:
     """Waves through the continuous-batching Engine on the runner's 32-layer
     7B params (nothing written or loaded again), ``n_predict`` tokens a
-    request: per decode step 7·L + 1 multi-row launches on unfused params,
-    4·L + 1 on fused ones, and L of the wave's flash kernel; per prefill
-    chunk as many dequant launches as multi-row ones per step.  On Q4_1
-    params every step dequantizes instead (no Q4_1 multi-row kernel)."""
+    request, the runner's model config with ``overrides``: per decode step
+    7·L + 1 multi-row launches on unfused params (the f32-activation kernel
+    with ``quantize_activations=False``), 4·L + 1 on fused ones, and L of
+    the wave's flash kernel; per prefill chunk as many dequant launches as
+    multi-row ones per step.  On Q4_1 params every step dequantizes instead
+    (no Q4_1 multi-row kernel)."""
     from llama_swift_torch import ops
     from llama_swift_torch.config import SamplingConfig
     from llama_swift_torch.ops.q4_matvec import Q4_1Weight
@@ -1425,10 +1563,11 @@ def serve_engine(torch, runner, waves, n_predict: int = 32) -> dict:
 
     n_mm = 4 if "wqkv" in runner.params["layers_stacked"] else 7  # matmuls a layer
     q4_1 = isinstance(runner.params["layers_stacked"]["wo"], Q4_1Weight)
+    cfg = dataclasses.replace(runner.config, **overrides)
+    multi = "q4_0_matmul_multi" if cfg.quantize_activations else "q4_0_matmul_multi_f32"
     counts = {}
     for name, slots, kw, prompts, seeds, flash in waves:
-        eng = Engine(runner.params, runner.config, runner.vocab, max_slots=slots, prefill_bucket=64, seed=2024,
-                     **kw)
+        eng = Engine(runner.params, cfg, runner.vocab, max_slots=slots, prefill_bucket=64, seed=2024, **kw)
         torch.cuda.synchronize()
         ops.reset_launch_counts()  # this wave's run starts here
         t0 = time.perf_counter()
@@ -1448,7 +1587,7 @@ def serve_engine(torch, runner, waves, n_predict: int = 32) -> dict:
             expect.update({"q4_1_dequant": per * (st["decode_steps"] + st["prefill_chunks"]),
                            flash: n_layer * st["decode_steps"]})
         else:
-            expect.update({"q4_0_matmul_multi": per * st["decode_steps"], flash: n_layer * st["decode_steps"],
+            expect.update({multi: per * st["decode_steps"], flash: n_layer * st["decode_steps"],
                            "q4_0_dequant": per * st["prefill_chunks"]})
         streams_ok = all(
             len(h.token_ids) == len(runner.vocab.tokenize(p, bos=True)) + n_predict
@@ -1456,7 +1595,8 @@ def serve_engine(torch, runner, waves, n_predict: int = 32) -> dict:
                 runner.vocab.piece_str(t) for t in runner.vocab.tokenize(p, bos=True))
             for p, h, o in zip(prompts, handles, outs))
         ttft = sorted(st.get("ttft_s", []))
-        rec = {"case": "engine_serve", "wave": name, "fused": n_mm == 4, "q4_1": q4_1, "requests": len(prompts),
+        rec = {"case": "engine_serve", "wave": name, "fused": n_mm == 4, "q4_1": q4_1, **overrides,
+               "requests": len(prompts),
                "max_slots": slots,
                "decode_steps": st["decode_steps"], "device_sampled_steps": st["device_sampled_steps"],
                "prefill_chunks": st["prefill_chunks"], "tokens_generated": st["tokens_generated"],
@@ -1473,6 +1613,65 @@ def serve_engine(torch, runner, waves, n_predict: int = 32) -> dict:
         del eng
         torch.cuda.empty_cache()
     return counts
+
+
+def profile_f32_decode(torch, runner, name: str) -> None:
+    """A profiled 8-step window of batch-1 decode with f32 activations on
+    the runner's params (the device idle share of that path)."""
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg = dataclasses.replace(runner.config, quantize_activations=False)
+    tok = torch.tensor(1, device="cuda")
+    cache = model_lib.init_cache(cfg, device="cuda")
+    profile_window(torch, name, lambda i: model_lib.decode_step(runner.params, tok, i, cache, cfg))
+    del cache
+
+
+def serve_f32_acts(torch, runner) -> list:
+    """On the 32-layer 7B Q4_0 params: one runner request with
+    ``runner.config.quantize_activations = False`` (225 f32-activation
+    matvec and 32 flash launches a token, 225 dequant for the 64-row
+    prefill), engine wave G of wave A's shape with f32 activations (225
+    f32-activation multi-row launches a step), profiled windows of both;
+    then a seeded ``rng_impl="mt19937"`` host-sampled request served twice,
+    which must stream the same tokens through the native sampler.  Each run
+    is counted from 0; returns the counts of each."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import RunnerConfig, SamplingConfig
+    from llama_swift_torch.models import llama as model_lib
+    from llama_swift_torch.runtime.sampler import SamplerState
+
+    n_layer, runs = runner.config.n_layer, []
+    ops.reset_launch_counts()  # the f32-activation runner run starts here
+    run_requests(torch, runner, [
+        ("greedy_device_f32_acts", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=21, top_k=1)),
+         "float32")], PROMPTS[:1], composed(n_layer, 7, "q4_0_matvec_f32"), quantize_activations=False)
+    runs.append(ops.launch_counts())  # read just after
+    profile_f32_decode(torch, runner, "profile_f32_decode_8_steps")
+    runs.append(serve_engine(torch, runner, [("G_dense_f32_f32_acts", 8, dict(cache_dtype=torch.float32),
+                                              ENGINE_PROMPTS[:12], [None] * 12, "flash_decode_attention_batched")],
+                             quantize_activations=False))
+    cfg = dataclasses.replace(runner.config, quantize_activations=False)
+    cache = model_lib.init_cache_batched(cfg, 8, device="cuda")
+    toks = torch.ones(8, dtype=torch.int64, device="cuda")
+    profile_window(torch, "profile_f32_engine_step_8_steps_B8", lambda i: model_lib.forward_batched(
+        runner.params, toks, np.arange(8) * 8 + i, cache, cfg))
+    del cache
+
+    sampling = SamplingConfig(seed=23, rng_impl="mt19937")
+    native = SamplerState(sampling)._native is not None
+    rcfg = RunnerConfig(num_tokens=32, device_sampling=False, sampling=sampling)
+    ops.reset_launch_counts()  # the mt19937 host-sampled run starts here
+    recs = run_requests(torch, runner, [("sampled_host_mt19937_a", rcfg, "float32"),
+                                        ("sampled_host_mt19937_b", rcfg, "float32")], PROMPTS[1:2] * 2,
+                        composed(n_layer))
+    runs.append(ops.launch_counts())  # read just after
+    rec = {"case": "mt19937_host_sampling", "native_sampler": native, "same_tokens": recs[0]["_text"] == recs[1]["_text"],
+           "text_tail": recs[0]["text_tail"]}
+    log(rec)
+    if not (rec["native_sampler"] and rec["same_tokens"]):
+        raise SystemExit("chip_smoke: the seeded mt19937 host-sampled requests differ or skipped the native sampler")
+    return runs
 
 
 def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
@@ -1543,6 +1742,10 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
                            "llama_swift_tpu/ops/q4_fused_layer.py:709"),
     "q4_1_matvec": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
     "q4_1_dequant": ("llama_swift_torch/csrc/q4_dequant.cu", "llama_swift_tpu/ops/q4_dequant_pallas.py:73"),
+    # f32 activations: the same TPU kernels fed unquantized rows (_prep_inputs*, quantize_acts=False)
+    "q4_0_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:276"),
+    "q4_1_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
+    "q4_0_matmul_multi_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
 }
 
 
@@ -1571,6 +1774,11 @@ def main(argv=None) -> int:
     reg_lines = [ln.strip() for stem in build.SOURCES for ln in build.build_info.get(stem, "").splitlines()
                  if "registers" in ln or "spill" in ln]
     log({"case": "build", "seconds": time.perf_counter() - t0, "ptxas": reg_lines})
+    from llama_swift_torch.native import bindings as native
+
+    if not native.available():  # g++ is on every machine that builds CUDA
+        raise SystemExit("chip_smoke: the native host library did not build")
+    log({"case": "native", "library": os.path.relpath(native.loaded_path())})
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
         with open(os.path.join(args.log_dir, "ptxas.txt"), "w") as f:
@@ -1591,6 +1799,7 @@ def main(argv=None) -> int:
             check_batched_parity(torch, torch.int8)
             served = serve(torch, workdir, args.profile)
             runs += [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
+            runs += serve_f32_acts(torch, served["runner"])
             fused = served["fused_runner"]
             del served
             torch.cuda.empty_cache()
@@ -1618,6 +1827,7 @@ def main(argv=None) -> int:
             "launches": launches[name], "max_abs_err": s["max_abs_err"],
             "ms": s["kernel_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "shape": s["shape"],
+            **({"replaced_ms": s["replaced_ms"]} if "replaced_ms" in s else {}),
         })
     log({"kernels": kernels})
     log(card_line())

@@ -173,9 +173,10 @@ class SamplingConfig:
     repeat_penalty: float = 1.30
     n_batch: int = 8  # prompt-prefill chunk size
     #: "numpy" (counted Generator) or "mt19937" (native std::mt19937 via the
-    #: C++ sampler — bit-compatible RNG stream with the reference,
-    #: LlamaPredictOperation.mm:773; falls back to numpy if the native lib
-    #: can't build)
+    #: port's C++ sampler, native/ggml_io.cpp built with g++ into _build/ —
+    #: bit-compatible RNG stream with the reference,
+    #: LlamaPredictOperation.mm:773, and with the JAX package's sampler;
+    #: falls back to numpy only if the native lib can't build)
     rng_impl: str = "numpy"
 
 
@@ -202,7 +203,7 @@ class RunnerConfig:
     #: sample on DEVICE (runtime/device_sampler.py): the exact reference
     #: pipeline as torch ops, ``device_chunk`` tokens per host read instead
     #: of one device-to-host copy per token.  Default ON.  Set False for the
-    #: host sampler's numpy RNG stream.
+    #: host sampler's numpy / native-mt19937 RNG stream.
     device_sampling: bool = True
     #: tokens generated per host read when ``device_sampling`` (the
     #: streaming granularity)

@@ -24,8 +24,9 @@ Megatron-style shards of each 2-D tensor.  The merge rule
 * 1-D tensors are replicated: part 0 is read, other parts skipped (``:452-458``)
 
 This module is pure host code (numpy), a copy of
-``llama_swift_tpu/formats/ggml.py`` without the native C++ mmap loader (the
-port reads every file through the Python reader below).
+``llama_swift_tpu/formats/ggml.py``.  Single-part files load through the
+port's native mmap parser (``native/ggml_io.cpp``) when its library builds;
+multi-part files, and machines with no C++ compiler, take the Python reader.
 """
 
 from __future__ import annotations
@@ -173,6 +174,69 @@ class GGMLModelFile:
     config: ModelConfig
     vocab: list[bytes]
     tensors: dict[str, Union[np.ndarray, Q4_0Tensor, Q4_1Tensor]]
+    #: when loaded through the native mmap path, the mapping's owner
+    #: (``native.bindings.NativeModelFile``); ``tensors`` own their memory,
+    #: so closing it leaves them valid
+    native_handle: object = None
+
+
+def _owned(arr, raw: np.ndarray):
+    """``arr`` (an array, or a Q4 wrapper's arrays) with every part that
+    still views ``raw`` copied.  The mapping is read-only although numpy
+    marks its views writable, and it goes away with ``close()``; a tensor
+    that aliased it would fault on an in-place op or after the close."""
+    if isinstance(arr, np.ndarray):
+        return arr.copy() if np.may_share_memory(arr, raw) else arr
+    return dataclasses.replace(arr, **{f.name: _owned(getattr(arr, f.name), raw) for f in dataclasses.fields(arr)})
+
+
+def _load_model_file_native(path: str, n_ctx: int, *, dequantize: bool) -> GGMLModelFile:
+    """Single-part load via the C++ mmap parser (``native/ggml_io.cpp``)."""
+    from ..native import bindings as nb
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    try:
+        nm = nb.NativeModelFile(path)
+    except ValueError as e:
+        raise GGMLFormatError(str(e)) from e
+    n_vocab, n_embd, n_mult, n_head, n_layer, n_rot, f16 = nm.hparams
+    try:
+        ftype = GGMLType(f16)
+    except ValueError:
+        nm.close()
+        raise GGMLFormatError(f"invalid model file (bad f16 value {f16})")
+    cfg = ModelConfig(
+        n_vocab=n_vocab, n_embd=n_embd, n_mult=n_mult, n_head=n_head,
+        n_layer=n_layer, n_rot=n_rot, ftype=ftype, n_ctx=n_ctx,
+    )
+    shapes = expected_tensor_shapes(cfg)
+    tensors: dict[str, Union[np.ndarray, Q4_0Tensor, Q4_1Tensor]] = {}
+    for name, info in nm.tensors.items():
+        if name not in shapes:
+            nm.close()
+            raise GGMLFormatError(f"unknown tensor '{name}' in model file")
+        full = shapes[name]
+        shape = tuple(reversed(info["ne"]))
+        if shape != full:
+            nm.close()
+            raise GGMLFormatError(f"tensor '{name}' has wrong shape in model file")
+        rec = TensorRecord(
+            name=name, ne=info["ne"], ftype=GGMLType(info["ftype"]),
+            data=info["raw"].reshape(shape[0] if len(shape) == 2 else 1, -1),
+        )
+        arr = rec.to_array()
+        if len(shape) == 1 and isinstance(arr, np.ndarray):
+            arr = arr.reshape(-1)
+        if dequantize and isinstance(arr, (Q4_0Tensor, Q4_1Tensor)):
+            arr = arr.dequantize()
+        tensors[name] = _owned(arr, info["raw"])
+    missing = set(shapes) - set(tensors)
+    if missing:
+        nm.close()
+        raise GGMLFormatError(f"missing tensors in model file: {sorted(missing)[:5]}")
+    return GGMLModelFile(config=cfg, vocab=nm.vocab(), tensors=tensors,
+                         native_handle=nm)
 
 
 def part_paths(path: str, n_parts: int) -> list[str]:
@@ -253,13 +317,27 @@ def load_model_file(
     *,
     n_parts: Optional[int] = None,
     dequantize: bool = False,
+    use_native: Optional[bool] = None,
 ) -> GGMLModelFile:
     """Load (and if multi-part, merge) a GGML model file.
 
     With ``dequantize=True`` Q4 tensors are decoded to f32 numpy arrays;
     otherwise they stay as packed :class:`Q4_0Tensor`/:class:`Q4_1Tensor`.
     f16 tensors stay f16.
+
+    ``use_native`` (default: auto) routes single-part loads through the
+    mmap'd C++ parser (``native/ggml_io.cpp``) — zero read() copies; the
+    Python reader is the fallback and the multi-part path.
     """
+    if use_native is not False and (n_parts is None or n_parts == 1):
+        try:
+            from ..native import bindings as nb
+
+            if (use_native or nb.available()) and not os.path.exists(f"{path}.1"):
+                return _load_model_file_native(path, n_ctx, dequantize=dequantize)
+        except (ImportError, RuntimeError):
+            if use_native:
+                raise
     with open(path, "rb") as f:
         cfg = read_header(f, n_ctx)
         vocab = read_vocab(f, cfg.n_vocab)

@@ -3,8 +3,9 @@ kernels of the serving paths: the batch-1 path (matvec, flash decode,
 dequant), the engine's batched decode (multi-row matmul, batched and
 paged flash decode), the int8 KV cache (the three flash-decode kernels
 over int8 codes and row scales), the whole-stack batch-1 decode kernel
-on fused wqkv/w13 params, and Q4_1 weights (the Q4_1 matvec and the Q4_1
-dequant)."""
+on fused wqkv/w13 params, Q4_1 weights (the Q4_1 matvec and the Q4_1
+dequant), and f32 activations (the Q4_0 and Q4_1 matvecs and the Q4_0
+multi-row matmul on unquantized rows)."""
 
 from .attention import (
     flash_decode_attention,
@@ -16,7 +17,14 @@ from .attention import (
 )
 from .fused_layer import fused_layers_block
 from .q4_dequant import q4_0_dequant, q4_1_dequant
-from .q4_matvec import q4_0_matmul_multi, q4_0_matvec, q4_1_matvec
+from .q4_matvec import (
+    q4_0_matmul_multi,
+    q4_0_matmul_multi_f32,
+    q4_0_matvec,
+    q4_0_matvec_f32,
+    q4_1_matvec,
+    q4_1_matvec_f32,
+)
 
 #: every kernel wrapper; each carries a ``launches`` counter
 KERNELS = (
@@ -24,6 +32,7 @@ KERNELS = (
     q4_0_matmul_multi, flash_decode_attention_batched, flash_decode_attention_paged,
     flash_decode_attention_stacked_int8, flash_decode_attention_batched_int8, flash_decode_attention_paged_int8,
     fused_layers_block, q4_1_matvec, q4_1_dequant,
+    q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32,
 )
 
 

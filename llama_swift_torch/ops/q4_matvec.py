@@ -29,6 +29,15 @@ views of it.  A weight is ``n·d + m``.  The activation is quantized per
 ``x̂ = q·d_x + m_x``, and ``y = Σ_b d_b·Σ_i n_i·x̂_i + m_b·Σ_i x̂_i``, the
 TPU kernel's sum (``_vpu_core_q41``).  There is no Q4_1 multi-row kernel,
 as in the JAX package: more than one row dequantizes.
+
+**f32 activations** (``quantize_acts=False``, the model's
+``quantize_activations=False``): the same three products on unquantized
+rows, each with a kernel of its own and a launch counter of its own
+(:func:`q4_0_matvec_f32`, :func:`q4_1_matvec_f32`,
+:func:`q4_0_matmul_multi_f32`): Q4_0 ``y = Σ_b d_b·Σ_i (n_i − 8)·x_i``, Q4_1
+``y = Σ_b d_b·Σ_i n_i·x_i + m_b·Σ_i x_i``.  The TPU kernels compute them with
+``_prep_inputs*(quantize_acts=False)`` (``d_x = 1``, ``8·Σx`` as the
+correction); the sums are equal up to reassociation.
 """
 
 from __future__ import annotations
@@ -143,22 +152,28 @@ def dequantize_activations_q4_1(q: torch.Tensor, d: torch.Tensor, m: torch.Tenso
     return (qb * d[..., None] + m[..., None]).reshape(q.shape)
 
 
-def q4_0_block_partials(q: torch.Tensor, w: Q4_0Weight, rows: int = 4096) -> torch.Tensor:
-    """Exact integer block dots ``Σ_i (n−8)·q`` → int32 ``[..., out, in/32]``
-    for q ``[..., in]``.  Each block dot is a batched f32 product of 32
-    integer terms of magnitude ≤ 56: every partial sum is an integer below
-    2^24, so the f32 result is exact in any summation order.  Row chunks
-    bound the temporaries."""
+def _block_dots(x: torch.Tensor, w: Q4_0Weight, rows: int = 4096) -> torch.Tensor:
+    """Block dots ``Σ_i (n−8)·x_i`` → f32 ``[..., out, in/32]`` for x
+    ``[..., in]``, a batched f32 product per block; row chunks bound the
+    temporaries."""
     out, in_dim = w.shape
     nb = in_dim // QK
-    lead = q.shape[:-1]
-    qb = q.float().reshape(-1, nb, QK).permute(1, 2, 0)  # [nb, 32, R]
+    lead = x.shape[:-1]
+    xb = x.float().reshape(-1, nb, QK).permute(1, 2, 0)  # [nb, 32, R]
     parts = []
     for r0 in range(0, out, rows):
         n = unpack_nibbles(w.qs[r0 : r0 + rows]).float() - 8.0  # [rows, in]
         n = n.reshape(-1, nb, QK).transpose(0, 1)  # [nb, rows, 32]
-        parts.append(torch.bmm(n, qb).permute(2, 1, 0))  # [R, rows, nb]
-    return torch.cat(parts, dim=1).to(torch.int32).reshape(*lead, out, nb)
+        parts.append(torch.bmm(n, xb).permute(2, 1, 0))  # [R, rows, nb]
+    return torch.cat(parts, dim=1).reshape(*lead, out, nb)
+
+
+def q4_0_block_partials(q: torch.Tensor, w: Q4_0Weight, rows: int = 4096) -> torch.Tensor:
+    """Exact integer block dots ``Σ_i (n−8)·q`` → int32 ``[..., out, in/32]``
+    for q ``[..., in]``.  Each block dot is a batched f32 product of 32
+    integer terms of magnitude ≤ 56: every partial sum is an integer below
+    2^24, so the f32 result is exact in any summation order."""
+    return _block_dots(q, w, rows).to(torch.int32)
 
 
 def q4_0_matmul_multi_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
@@ -173,6 +188,18 @@ def q4_0_matmul_multi_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
 def q4_0_matvec_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     """Plain PyTorch version of the matvec: ``y [out]`` f32 from ``x [in]``."""
     return q4_0_matmul_multi_plain(x[None], w)[0]
+
+
+def q4_0_matmul_multi_f32_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """Plain PyTorch version of both f32-activation Q4_0 kernels: ``y [B,
+    out]`` from unquantized ``x [B, in]``: block dots ``Σ_i (n−8)·x_i`` by a
+    batched f32 product, then ``Σ_b d_b · dot_b``."""
+    return (_block_dots(x, w) * w.d[None]).sum(dim=-1)
+
+
+def q4_0_matvec_f32_plain(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """Plain PyTorch version of the f32-activation matvec: ``y [out]`` from ``x [in]``."""
+    return q4_0_matmul_multi_f32_plain(x[None], w)[0]
 
 
 def q4_1_matvec_plain(x: torch.Tensor, w: Q4_1Weight, quantize_acts: bool = True) -> torch.Tensor:
@@ -211,16 +238,53 @@ def _check_weight(w, x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: qs must be 16-byte and {name} {align}-byte aligned (vector loads)")
 
 
-def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
-    """``y [out] = W · x`` for one activation row ``x [in]`` f32 with the
-    reference's int4×int4 dot.  CPU tensors take the plain version; CUDA
+def _check_x(x: torch.Tensor, shape: tuple, what: str) -> None:
+    if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous float32 {list(shape)}, got {x.dtype} {tuple(x.shape)}")
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+#: the largest in-dim the f32 kernels stage in a block's shared memory (227 KB)
+MAX_F32_IN = 55 * 1024
+
+
+def q4_0_matvec_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """``y [out] = W · x`` for one unquantized activation row ``x [in]`` f32
+    (no 4-bit activation codes).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return q4_0_matvec_f32_plain(x, w)
+    out, in_dim = w.shape
+    _check_weight(w, x, "q4_0_matvec_f32")
+    _check_x(x, (in_dim,), "q4_0_matvec_f32")
+    if in_dim > MAX_F32_IN:
+        raise ValueError(f"q4_0_matvec_f32: in dim {in_dim} exceeds {MAX_F32_IN} (shared memory)")
+    y = torch.empty(out, dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_0_matvec_f32(
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, _stream(x))
+    build.check(code, "q4_0_matvec_f32")
+    q4_0_matvec_f32.launches += 1
+    return y
+
+
+q4_0_matvec_f32.launches = 0
+
+
+def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> torch.Tensor:
+    """``y [out] = W · x`` for one activation row ``x [in]`` f32 with the
+    reference's int4×int4 dot; ``quantize_acts=False`` takes the f32 row
+    as it is (:func:`q4_0_matvec_f32`).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise)."""
+    if not quantize_acts:
+        return q4_0_matvec_f32(x, w)
     if x.device.type == "cpu":
         return q4_0_matvec_plain(x, w)
     out, in_dim = w.shape
     _check_weight(w, x, "q4_0_matvec")
-    if x.dtype != torch.float32 or x.shape != (in_dim,) or not x.is_contiguous():
-        raise ValueError(f"q4_0_matvec: x must be contiguous float32 [{in_dim}], got {x.dtype} {tuple(x.shape)}")
+    _check_x(x, (in_dim,), "q4_0_matvec")
     nb = in_dim // QK
     xq = torch.empty(in_dim, dtype=torch.int8, device=x.device)
     qsum = torch.empty(nb, dtype=torch.int32, device=x.device)
@@ -228,8 +292,7 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     y = torch.empty(out, dtype=torch.float32, device=x.device)
     code = build.lib("q4_matvec").q4_0_matvec(
         w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
-        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, _stream(x),
     )
     build.check(code, "q4_0_matvec")
     q4_0_matvec.launches += 1
@@ -243,19 +306,43 @@ q4_0_matvec.launches = 0
 MAX_MULTI_ROWS = 32
 
 
-def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+def q4_0_matmul_multi_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """``y [B, out] = x [B, in] · Wᵀ`` for 2 ≤ B ≤ 32 unquantized activation
+    rows f32, streaming the packed weight once for all rows.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return q4_0_matmul_multi_f32_plain(x, w)
+    out, in_dim = w.shape
+    _check_weight(w, x, "q4_0_matmul_multi_f32")
+    B = x.shape[0] if x.dim() == 2 else 0
+    _check_x(x, (B, in_dim), "q4_0_matmul_multi_f32")
+    if not 1 <= B <= MAX_MULTI_ROWS:
+        raise ValueError(f"q4_0_matmul_multi_f32: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
+    y = torch.empty((B, out), dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_0_matmul_multi_f32(
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x))
+    build.check(code, "q4_0_matmul_multi_f32")
+    q4_0_matmul_multi_f32.launches += 1
+    return y
+
+
+q4_0_matmul_multi_f32.launches = 0
+
+
+def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> torch.Tensor:
     """``y [B, out] = x [B, in] · Wᵀ`` for 2 ≤ B ≤ 32 activation rows f32,
     each row with the reference's int4×int4 dot, streaming the packed weight
-    once for all rows.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (or raise)."""
+    once for all rows; ``quantize_acts=False`` takes the f32 rows as they are
+    (:func:`q4_0_matmul_multi_f32`).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise)."""
+    if not quantize_acts:
+        return q4_0_matmul_multi_f32(x, w)
     if x.device.type == "cpu":
         return q4_0_matmul_multi_plain(x, w)
     out, in_dim = w.shape
     _check_weight(w, x, "q4_0_matmul_multi")
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != in_dim or not x.is_contiguous():
-        raise ValueError(f"q4_0_matmul_multi: x must be contiguous float32 [B, {in_dim}], "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    B = x.shape[0]
+    B = x.shape[0] if x.dim() == 2 else 0
+    _check_x(x, (B, in_dim), "q4_0_matmul_multi")
     if not 1 <= B <= MAX_MULTI_ROWS:
         raise ValueError(f"q4_0_matmul_multi: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
     nb = in_dim // QK
@@ -265,8 +352,7 @@ def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     y = torch.empty((B, out), dtype=torch.float32, device=x.device)
     code = build.lib("q4_matvec").q4_0_matmul_multi(
         w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
-        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, B,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x),
     )
     build.check(code, "q4_0_matmul_multi")
     q4_0_matmul_multi.launches += 1
@@ -276,23 +362,47 @@ def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
 q4_0_matmul_multi.launches = 0
 
 
-def q4_1_matvec(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:
+def q4_1_matvec_f32(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:
+    """``y [out] = W · x`` for one unquantized activation row ``x [in]`` f32
+    against a Q4_1 weight.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return q4_1_matvec_plain(x, w, quantize_acts=False)
+    out, in_dim = w.shape
+    _check_weight(w, x, "q4_1_matvec_f32")
+    _check_x(x, (in_dim,), "q4_1_matvec_f32")
+    if in_dim > MAX_F32_IN:
+        raise ValueError(f"q4_1_matvec_f32: in dim {in_dim} exceeds {MAX_F32_IN} (shared memory)")
+    y = torch.empty(out, dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_1_matvec_f32(
+        w.qs.data_ptr(), w.dm.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, _stream(x))
+    build.check(code, "q4_1_matvec_f32")
+    q4_1_matvec_f32.launches += 1
+    return y
+
+
+q4_1_matvec_f32.launches = 0
+
+
+def q4_1_matvec(x: torch.Tensor, w: Q4_1Weight, quantize_acts: bool = True) -> torch.Tensor:
     """``y [out] = W · x`` for one activation row ``x [in]`` f32 against a
     Q4_1 weight, the activation quantized through Q4_1 (the reference's
-    Q4_1 matmul quantizes both operands).  CPU tensors take the plain
+    Q4_1 matmul quantizes both operands); ``quantize_acts=False`` takes the
+    f32 row as it is (:func:`q4_1_matvec_f32`).  CPU tensors take the plain
     version; CUDA tensors launch the kernel (or raise)."""
+    if not quantize_acts:
+        return q4_1_matvec_f32(x, w)
     if x.device.type == "cpu":
         return q4_1_matvec_plain(x, w)
     out, in_dim = w.shape
     _check_weight(w, x, "q4_1_matvec")
-    if x.dtype != torch.float32 or x.shape != (in_dim,) or not x.is_contiguous():
-        raise ValueError(f"q4_1_matvec: x must be contiguous float32 [{in_dim}], got {x.dtype} {tuple(x.shape)}")
+    _check_x(x, (in_dim,), "q4_1_matvec")
     xq = torch.empty(in_dim, dtype=torch.uint8, device=x.device)
     xs = torch.empty((in_dim // QK, 4), dtype=torch.float32, device=x.device)  # d_x, m_x, Σx̂, pad
     y = torch.empty(out, dtype=torch.float32, device=x.device)
     code = build.lib("q4_matvec").q4_1_matvec(
         w.qs.data_ptr(), w.dm.data_ptr(), x.data_ptr(), xq.data_ptr(), xs.data_ptr(), y.data_ptr(),
-        out, in_dim, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        out, in_dim, _stream(x),
     )
     build.check(code, "q4_1_matvec")
     q4_1_matvec.launches += 1

@@ -6,22 +6,26 @@ Parity-relevant semantics of the reference's quantized matmul
 activations are quantized to Q4_0 too and the dot is int4×int4, scaled by
 the product of block scales; rounding is half away from zero.
 
-:func:`linear` dispatches on the weight type and the number of rows:
+:func:`linear` dispatches on the weight type and the number of rows, as
+the JAX package's ``linear`` does (``quantized_matmul.py:236-250`` there),
+whatever ``quantize_activations`` is:
 
-* Q4_0, one row → the matvec kernel (``ops/q4_matvec.py``), exact integer
-  block dots;
+* Q4_0, one row → the matvec kernel (``ops/q4_matvec.py``): exact integer
+  block dots on 4-bit activation codes, or with ``quantize_activations=False``
+  the f32-activation matvec;
 * Q4_0, 2–32 rows (the engine's batched decode step, short prefill chunks)
   → the multi-row kernel (same file): one weight stream for all rows, exact
-  integer block dots per row;
-* Q4_0, more rows → fake-quantize the activations, dequantize the weight
-  with the dequant kernel (``ops/q4_dequant.py``), then one ``torch.matmul``
-  (the JAX package leaves this product to XLA);
+  integer block dots per row, or the f32-activation multi-row kernel;
+* Q4_0, more rows → fake-quantize the activations (when asked), dequantize
+  the weight with the dequant kernel (``ops/q4_dequant.py``), then one
+  ``torch.matmul`` (the JAX package leaves this product to XLA);
 * Q4_1, one row → the Q4_1 matvec kernel (``ops/q4_matvec.py``), the
-  activation quantized through Q4_1 (``ggml.c:6287+``);
-* Q4_1, any other row count → fake-quantize through Q4_1, the Q4_1 dequant
-  kernel, then one ``torch.matmul``: the JAX package has no Q4_1 multi-row
-  kernel (``quantized_matmul.py:192-195`` there), so the engine's batched
-  step dequantizes every weight too;
+  activation quantized through Q4_1 (``ggml.c:6287+``), or the f32-activation
+  Q4_1 matvec;
+* Q4_1, any other row count → fake-quantize through Q4_1 (when asked), the
+  Q4_1 dequant kernel, then one ``torch.matmul``: the JAX package has no
+  Q4_1 multi-row kernel (``quantized_matmul.py:192-195`` there), so the
+  engine's batched step dequantizes every weight too;
 * dense → ``torch.matmul`` in f32.
 
 A CPU tensor takes each kernel's plain version.
@@ -111,11 +115,13 @@ def linear(
         q41 = isinstance(w, Q4_1Weight)
         out_dim, in_dim = w.shape
         n_rows = x.numel() // x.shape[-1]
-        if n_rows == 1 and quantize_activations:
-            y = (q4_1_matvec if q41 else q4_0_matvec)(x.reshape(in_dim).float().contiguous(), w)
+        if n_rows == 1:
+            y = (q4_1_matvec if q41 else q4_0_matvec)(
+                x.reshape(in_dim).float().contiguous(), w, quantize_acts=quantize_activations)
             return y.reshape(*lead, out_dim).to(compute_dtype)
-        if not q41 and 1 < n_rows <= MAX_MULTI_ROWS and quantize_activations:
-            y = q4_0_matmul_multi(x.reshape(n_rows, in_dim).float().contiguous(), w)
+        if not q41 and 1 < n_rows <= MAX_MULTI_ROWS:
+            y = q4_0_matmul_multi(x.reshape(n_rows, in_dim).float().contiguous(), w,
+                                  quantize_acts=quantize_activations)
             return y.reshape(*lead, out_dim).to(compute_dtype)
         if quantize_activations:
             x = (fake_quantize_q4_1 if q41 else fake_quantize_q4_0)(x)

@@ -108,6 +108,8 @@ class LlamaRunner:
         )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # load time includes the copies
+        if mf.native_handle is not None:  # single-part files are mmap-loaded;
+            mf.native_handle.close()  # the tensors own their memory
         self._loaded = True
         self.stats["t_load_s"] = time.perf_counter() - t0
 
@@ -193,8 +195,8 @@ class LlamaRunner:
                     cache, generated,
                 )
             else:
-                # host sampler per token (numpy RNG stream; one device→host
-                # copy of the logits per token)
+                # host sampler per token (numpy / native-mt19937 RNG stream;
+                # one device→host copy of the logits per token)
                 for _ in range(n_predict):
                     tid = sampler.sample(logits)
                     generated.append(tid)

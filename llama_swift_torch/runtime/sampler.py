@@ -18,13 +18,15 @@ Pipeline (order matters, all in float64 like the reference's ``double``):
 6. draw from the resulting categorical (``std::discrete_distribution``,
    ``:424-427``).
 
-The RNG is a counted numpy Generator rather than ``std::mt19937`` — stream
-parity with libstdc++ is not a goal (SURVEY.md §7 #6); distribution parity
-is, and is tested.
+The default RNG is a counted numpy Generator: distribution parity with the
+reference is the goal there, and is tested.  ``rng_impl="mt19937"`` draws
+through the port's native sampler (``native/ggml_io.cpp``: a true
+``std::mt19937`` and ``std::discrete_distribution``), the reference's RNG
+stream; it falls back to the numpy Generator only when the native library
+cannot build (no C++ compiler).
 
-A copy of ``llama_swift_tpu/runtime/sampler.py`` without the native mt19937
-sampler: ``rng_impl="mt19937"`` draws from the numpy Generator, as the JAX
-package does when its native library is unavailable.
+A copy of ``llama_swift_tpu/runtime/sampler.py``; the same seed draws the
+same tokens in both packages, host sampler for host sampler.
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ class SamplerState:
     config: SamplingConfig
     rng: np.random.Generator = None  # type: ignore[assignment]
     ring: deque = None  # type: ignore[assignment]
+    _native = None
 
     def __post_init__(self):
         seed = self.config.seed
@@ -111,6 +114,15 @@ class SamplerState:
             seed = 0xFFFFFFFF if seed == -1 else None
         if self.rng is None:
             self.rng = np.random.default_rng(seed)
+        if self.config.rng_impl == "mt19937":
+            from ..native import bindings as nb
+
+            if nb.available():
+                import secrets
+
+                self._native = nb.NativeSampler(
+                    seed if seed is not None else secrets.randbits(32)
+                )
         if self.ring is None:
             self.ring = deque(
                 [0] * self.config.repeat_last_n, maxlen=max(1, self.config.repeat_last_n)
@@ -122,15 +134,22 @@ class SamplerState:
 
     def sample(self, logits: np.ndarray) -> int:
         c = self.config
-        token = sample_top_p_top_k(
-            logits,
-            list(self.ring),
-            repeat_penalty=c.repeat_penalty,
-            top_k=c.top_k,
-            top_p=c.top_p,
-            temp=c.temp,
-            rng=self.rng,
-        )
+        if self._native is not None:
+            token = self._native.sample(
+                np.asarray(logits, dtype=np.float32), list(self.ring),
+                repeat_penalty=c.repeat_penalty, top_k=c.top_k, top_p=c.top_p,
+                temp=c.temp,
+            )
+        else:
+            token = sample_top_p_top_k(
+                logits,
+                list(self.ring),
+                repeat_penalty=c.repeat_penalty,
+                top_k=c.top_k,
+                top_p=c.top_p,
+                temp=c.temp,
+                rng=self.rng,
+            )
         self.ring.append(token)
         return token
 

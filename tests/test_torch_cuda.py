@@ -305,8 +305,14 @@ def test_forward_batched_int8_card_matches_cpu(cuda, paged):
 
     kernel = att.flash_decode_attention_paged_int8 if paged else att.flash_decode_attention_batched_int8
     before = kernel.launches
+    f32_before, dq_before = mv.q4_0_matmul_multi_f32.launches, dq.q4_0_dequant.launches
     card = run(cuda)
     assert kernel.launches == before + len(steps) * cfg.n_layer
+    # every product of 3-9 rows (slot prefills, batched steps) takes the
+    # f32-activation multi-row kernel; none dequantizes
+    per_forward = 7 * cfg.n_layer + 1
+    assert mv.q4_0_matmul_multi_f32.launches == f32_before + (len(prompts) + len(steps)) * per_forward
+    assert dq.q4_0_dequant.launches == dq_before
     for c, r in zip(card, run("cpu")):
         assert _rel(c, r) <= 2e-3
 
@@ -427,3 +433,51 @@ def test_q4_1_wrappers_raise_on_bad_inputs(cuda):
         mv.q4_1_matvec(torch.randn(256, device=cuda), mv.Q4_1Weight(w.qs, w.dm.transpose(-1, -2)))
     with pytest.raises(ValueError):
         dq.q4_1_dequant(w, torch.float16)
+
+
+# f32 activations: the Q4_0 and Q4_1 matvecs and the Q4_0 multi-row matmul on
+# unquantized rows, at ragged shapes (rows not a multiple of a block's rows,
+# in-dims not a multiple of a warp's blocks or of a staged chunk), against
+# their plain versions within 1e-5 of max |y|
+
+
+@pytest.mark.parametrize("out,in_dim", [(8, 32), (1000, 352), (256, 4096), (77, 11008), (12288, 4096)])
+def test_f32_matvec_kernels_match_plain(cuda, out, in_dim):
+    w, g = _q41(out, in_dim, cuda)
+    w0 = mv.Q4_0Weight(w.qs, w.d.contiguous())
+    x = torch.randn(in_dim, device=cuda, generator=g)
+    before = (mv.q4_0_matvec_f32.launches, mv.q4_1_matvec_f32.launches, mv.q4_0_matvec.launches)
+    y0 = mv.q4_0_matvec(x, w0, quantize_acts=False)
+    y1 = mv.q4_1_matvec(x, w, quantize_acts=False)
+    torch.cuda.synchronize()
+    assert (mv.q4_0_matvec_f32.launches, mv.q4_1_matvec_f32.launches, mv.q4_0_matvec.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert _rel(y0, mv.q4_0_matvec_f32_plain(x, w0)) <= 1e-5
+    assert _rel(y1, mv.q4_1_matvec_plain(x, w, quantize_acts=False)) <= 1e-5
+
+
+@pytest.mark.parametrize("B", [2, 5, 8, 17, 32])
+@pytest.mark.parametrize("out,in_dim", [(77, 352), (1000, 4096), (300, 11008)])
+def test_f32_matmul_multi_kernel_matches_plain(cuda, B, out, in_dim):
+    w, g = _q4(out, in_dim, cuda)
+    x = torch.randn((B, in_dim), device=cuda, generator=g)
+    before = mv.q4_0_matmul_multi_f32.launches
+    y = mv.q4_0_matmul_multi(x, w, quantize_acts=False)
+    torch.cuda.synchronize()
+    assert mv.q4_0_matmul_multi_f32.launches == before + 1
+    assert _rel(y, mv.q4_0_matmul_multi_f32_plain(x, w)) <= 1e-5
+
+
+def test_f32_wrappers_raise_on_bad_inputs(cuda):
+    w, g = _q41(64, 256, cuda)
+    w0 = mv.Q4_0Weight(w.qs, w.d.contiguous())
+    with pytest.raises(ValueError):
+        mv.q4_0_matvec_f32(torch.randn(128, device=cuda), w0)  # wrong in dim
+    with pytest.raises(ValueError):
+        mv.q4_1_matvec_f32(torch.randn(256, device=cuda, dtype=torch.float16), w)
+    with pytest.raises(ValueError):
+        mv.q4_0_matmul_multi_f32(torch.randn((33, 256), device=cuda), w0)  # too many rows
+    with pytest.raises(ValueError):
+        mv.q4_0_matmul_multi_f32(torch.randn((256, 4), device=cuda).t(), w0)  # not contiguous
+    with pytest.raises(ValueError):  # x on the card, the weight on the CPU
+        mv.q4_0_matvec_f32(torch.randn(256, device=cuda), mv.Q4_0Weight(w0.qs.cpu(), w0.d.cpu()))

@@ -230,13 +230,21 @@ def test_dequant_vs_tpu_kernel_interpret(w_np, w_t, dtype, stacked):
 @pytest.mark.parametrize("rows", [1, 8])
 def test_linear_matches_jax(w_np, w_t, rows):
     """One row takes the matvec, more rows fake-quantize and dequantize
-    (there is no Q4_1 multi-row kernel)."""
+    (there is no Q4_1 multi-row kernel).  With f32 activations one row still
+    takes the matvec (its f32-activation form), as the JAX ``linear`` sends
+    it to ``q4_1_vpu_matvec(quantize_acts=False)``; more rows multiply the
+    dequantized weight."""
     x = _acts(7, rows)
     y = qmm.linear(torch.from_numpy(x), w_t).numpy()
     assert _rel(y, np.asarray(jqmm.linear(jnp.asarray(x), w_np))) <= MATVEC_BAR
     x0 = torch.from_numpy(x[0])
-    assert torch.equal(qmm.linear(x0[None], w_t, quantize_activations=False)[0],
-                       (x0 @ dq.dequantize_q4_1(w_t).t()))
+    y0 = qmm.linear(x0[None], w_t, quantize_activations=False)[0]
+    yj = q4_1_vpu_matvec(jnp.asarray(x[:1]), Q4_1TensorV.from_q4_1(w_np), quantize_acts=False, interpret=True)
+    assert _rel(y0.numpy(), np.asarray(yj)[0]) <= 2e-5
+    assert torch.equal(y0, mv.q4_1_matvec_plain(x0, w_t, quantize_acts=False))
+    if rows > 1:
+        xt = torch.from_numpy(x)
+        assert torch.equal(qmm.linear(xt, w_t, quantize_activations=False), xt @ dq.dequantize_q4_1(w_t).t())
 
 
 def test_embedding_lookup_matches_jax(w_np, w_t):
