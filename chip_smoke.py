@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # all phases; exits 0 only if all pass
     python3 chip_smoke.py --only kernels  # build + kernel checks only
     python3 chip_smoke.py --only q4_1     # build + kernel checks + the Q4_1 phases (3c, 5)
+    python3 chip_smoke.py --only tp       # build + kernel checks + the TP phases (4e)
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -11,7 +12,7 @@ Phases:
 1. identify the card (name and power limit from nvidia-smi), build the
    CUDA kernels from ``llama_swift_torch/csrc`` (one nvcc per source, all
    started together) and the native host library (g++, ``native/``);
-2. hold each of the fifteen kernels against its plain PyTorch version on
+2. hold each of the sixteen kernels against its plain PyTorch version on
    the card at the 7B shapes of the serving paths, and time kernel, plain
    version, bound and (where one exists) a single PyTorch call computing
    the same function; the int8 flash kernels read caches written by the
@@ -23,7 +24,9 @@ Phases:
    bit-exact) at 11008x4096, on weights whose mins centre them near zero;
    the three f32-activation kernels (Q4_0 and Q4_1 matvec, Q4_0 multi-row
    at B = 2, 8, 32) at the four matvec shapes and the fused 12288x4096 and
-   22016x4096, beside the dequant + matmul pair they replace;
+   22016x4096, beside the dequant + matmul pair they replace; the T
+   layout's product (``q4_0_matmul_t``) at the four matvec shapes with
+   N = 1, 8, 33, 64, beside the same pair;
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
@@ -57,7 +60,7 @@ Phases:
    reset just before and read just after, and checked against 225 matvec
    and 32 flash (f32) or int8 flash launches per decoded token and 225
    dequant launches per prefill; the same file is also loaded with fused
-   params before it is removed;
+   params, and kept for 4e;
 4b. serve four waves through the continuous-batching ``Engine`` on the same
    params: A, 12 requests through 8 slots of a dense f32 cache; B, 8 through
    8 slots of a paged bf16 cache (half of them seeded, so the host sampler
@@ -78,6 +81,21 @@ Phases:
    whole-stack launch and one matvec, each prefill 129 (4·32 + 1) dequant
    launches; then wave E, wave A's shape (12 requests, 8 dense f32 slots),
    129 multi-row launches per step and 129 dequant per chunk;
+4e. tensor parallelism, once the earlier runners are gone: TP parity at 7B
+   width and 2 layers (``check_tp_parity``), in a real NCCL group of one:
+   ``make_tp_forward`` on the V layout (fused) and on the T layout
+   (shard_pad=128, unfused and fused) against the same forward on the CPU
+   without a group, a 64-row prefill and 4 decode steps, within 1e-5 with
+   f32 activations; with 4-bit ones the CPU quantizes the card's product
+   inputs, and logits and inputs are within 2e-3 (no flip exempted); every T-layout
+   forward exactly 7·L + 1 (fused 4·L + 1) T kernel launches; then the TP
+   serving paths on the 7B file (``serve_tp``):
+   ``llama_swift_torch.serve.main`` in this process
+   (tp = 1 over its own NCCL group, 32 seeded tokens; 129 matvec and 32
+   flash launches a token, 129 dequant for the prefill), then the T-layout
+   TP forward (params with shard_pad=128): a 64-row prefill and 32 greedy
+   tokens, 225 T kernel launches a forward and no dequant; the file is
+   then removed;
 5. a synthetic 32-layer 7B Q4_1 file (5.05 GB, written from a seed once
    the Q4_0 runners are gone, see ``serve_q4_1``): the port's perplexity
    tool scores 2 windows of 512 tokens of README.md (225 Q4_1 dequant
@@ -104,7 +122,9 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -358,6 +378,54 @@ def check_f32_kernels(torch, g, summary) -> list:
     return failed
 
 
+T_ROWS = [1, 8, 33, 64]
+
+
+def check_t_kernel(torch, g, summary) -> list:
+    """Row 10, ``q4_0_matmul_t`` (the T layout's product of 1–64 f32 rows),
+    against its plain version at the four matvec shapes and N in
+    ``T_ROWS``, within 1e-5 of max |y|.  Beside kernel, plain and bound
+    times, the dequant + ``torch.matmul`` pair that the JAX package's
+    alternative is (the path above 64 rows) is timed as ``replaced_ms``; no
+    single PyTorch call reads Q4_0, so ``library_ms`` is None.  The bound is
+    the larger of the bytes (0.625 a weight, x and y) and the f32 work
+    (2·N operations a weight); ``bound_by`` says which.  Returns the cases
+    that disagree."""
+    from llama_swift_torch.ops import q4_dequant as dq
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    failed = []
+    for out, in_dim in MATVEC_SHAPES:
+        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
+        n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
+        base = rand_q4(torch, g, n, out, in_dim)
+        w = qm.Q4_0WeightT(base.qs, base.d)
+        for rows in T_ROWS:
+            x = torch.randn((rows, in_dim), device="cuda", generator=g)
+            fn = lambda i: qm.q4_0_matmul_t(x, w.layer(i % n))  # noqa: E731
+            plain = lambda i: qm.q4_0_matmul_t_plain(x, w.layer(i % n))  # noqa: E731
+            y, ref = fn(0), plain(0)
+            err = rel_err(y, ref)
+            t_bytes = (wbytes + rows * in_dim * 4 + rows * out * 4) / HBM_BYTES_PER_S
+            t_ops = 2 * rows * out * in_dim / F32_FLOPS
+            case = {"case": "q4_0_matmul_t", "rows": rows, "out": out, "in": in_dim, "max_rel_err": err,
+                    "max_abs_err": float((y - ref).abs().max()),
+                    "kernel_ms": time_ms(torch, fn, 100), "plain_ms": time_ms(torch, plain, 10),
+                    "bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "replaced_ms": time_ms(torch, lambda i: x @ dq.q4_0_dequant(w.layer(i % n), torch.float32).t(),
+                                           10),
+                    "library_ms": None, "ok": err <= 1e-5}
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
+            if (out, in_dim, rows) == (11008, 4096, 1):
+                summary["q4_0_matmul_t"] = dict(case, shape=f"N{rows} {out}x{in_dim}")
+        del w, base
+        torch.cuda.empty_cache()
+    return failed
+
+
 def check_kernels(torch) -> dict:
     """Returns {kernel name: summary at its representative shape}."""
     from llama_swift_torch.ops import attention as att
@@ -513,6 +581,7 @@ def check_kernels(torch) -> dict:
     failed += check_fused_kernel(torch, g, summary)
     failed += check_q4_1_kernels(torch, g, summary)
     failed += check_f32_kernels(torch, g, summary)
+    failed += check_t_kernel(torch, g, summary)
 
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
@@ -855,8 +924,10 @@ def check_parity(torch) -> None:
 @contextlib.contextmanager
 def recording(record, tag):
     """While active, every Q4_0 matvec and multi-row product, every Q4_1
-    matvec and every Q4_1 activation fake-quantization (the Q4_1 products
-    of more than one row) appends ``(tag[0], activation rows on the CPU)``
+    matvec and every Q4_0 and Q4_1 activation fake-quantization (the Q4_1
+    products of more than one row; the Q4_0 products of more than 32 rows
+    and every product on the T layout) appends ``(tag[0], activation rows
+    on the CPU)``
     to ``record`` (None: no recording), and every whole-stack call
     ``(tag[0], its quantizer inputs [L, 3D + F])``, so that two runs can be
     compared activation by activation."""
@@ -864,7 +935,7 @@ def recording(record, tag):
     from llama_swift_torch.ops import quantized_matmul as qmm
 
     matvec, multi, fused = qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block
-    matvec41, fq41 = qmm.q4_1_matvec, qmm.fake_quantize_q4_1
+    matvec41, fq41, fq40 = qmm.q4_1_matvec, qmm.fake_quantize_q4_1, qmm.fake_quantize_q4_0
 
     def fused_rec(*args, **kwargs):
         trace = []
@@ -877,12 +948,13 @@ def recording(record, tag):
         qmm.q4_0_matmul_multi = lambda x, w, **k: record.append((tag[0], x.cpu())) or multi(x, w, **k)
         qmm.q4_1_matvec = lambda x, w, **k: record.append((tag[0], x[None].cpu())) or matvec41(x, w, **k)
         qmm.fake_quantize_q4_1 = lambda x: record.append((tag[0], x.reshape(-1, x.shape[-1]).cpu())) or fq41(x)
+        qmm.fake_quantize_q4_0 = lambda x: record.append((tag[0], x.reshape(-1, x.shape[-1]).cpu())) or fq40(x)
         model_lib.fused_layers_block = fused_rec
     try:
         yield
     finally:
         qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block = matvec, multi, fused
-        qmm.q4_1_matvec, qmm.fake_quantize_q4_1 = matvec41, fq41
+        qmm.q4_1_matvec, qmm.fake_quantize_q4_1, qmm.fake_quantize_q4_0 = matvec41, fq41, fq40
 
 
 def flip_counts(rec_cpu, rec_card, q4_1: bool = False):
@@ -1282,7 +1354,7 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
 def serve(torch, workdir: str, profile: bool) -> dict:
     """Phase 4: write the synthetic 7B file, load it twice (as it is, and
     with fused wqkv/w13 params) and serve four requests on the unfused
-    runner; the file is removed once both are loaded."""
+    runner; the file stays for the TP phase (``serve_tp``)."""
     from llama_swift_torch import ops
     from llama_swift_torch.config import GGMLType, ModelConfig, RunnerConfig, SamplingConfig
     from llama_swift_torch.runtime.runner import LlamaRunner
@@ -1299,7 +1371,6 @@ def serve(torch, workdir: str, profile: bool) -> dict:
         r.ensure_loaded()
         log({"case": "load", "fused": r.fuse_layer_matmuls, "seconds": r.stats["t_load_s"],
              "device_gib": torch.cuda.memory_allocated() / 2**30})
-    os.remove(path)
     # (name, config, KV cache dtype of runner.config for the request)
     requests = [
         ("greedy_device", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=1, top_k=1)), "float32"),
@@ -1313,7 +1384,8 @@ def serve(torch, workdir: str, profile: bool) -> dict:
     counts = ops.launch_counts()  # read just after the main path's run
     if profile:
         profile_decode(torch, runner)
-    return {"launches": counts, "requests": per_request, "runner": runner, "fused_runner": fused_runner}
+    return {"launches": counts, "requests": per_request, "runner": runner, "fused_runner": fused_runner,
+            "path": path}
 
 
 def composed(n_layer: int, n_mm: int = 7, matvec: str = "q4_0_matvec", dequant: str = "q4_0_dequant"):
@@ -1674,6 +1746,248 @@ def serve_f32_acts(torch, runner) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (parallel/, serve.py) and the T layout
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_group_of_one(torch):
+    """A real NCCL process group of one rank (tcp://127.0.0.1:<free port>)."""
+    from llama_swift_torch.parallel.multihost import init_distributed, shutdown
+
+    device = init_distributed(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0, device="cuda")
+    if torch.distributed.get_backend() != "nccl":
+        raise SystemExit("chip_smoke: the card's process group is not NCCL")
+    try:
+        yield device
+    finally:
+        shutdown()
+
+
+def tp_forward(torch, tensors, cfg, device, mesh, **build_kw):
+    """(params, forward, cache) of the TP path on ``device`` over ``mesh``."""
+    from llama_swift_torch.models import llama as model_lib
+    from llama_swift_torch.parallel import tp as tp_lib
+
+    params = tp_lib.shard_params_tp(model_lib.params_from_tensors(tensors, cfg, device=device, **build_kw), mesh)
+    cache = tp_lib.shard_cache_tp(model_lib.init_cache(cfg, device=device), mesh)
+    return params, tp_lib.make_tp_forward(cfg, params, cache), cache
+
+
+@contextlib.contextmanager
+def forcing(own, card_record):
+    """While active, the i-th Q4_0 product input (every matvec, multi-row
+    product and activation fake-quantization, in ``recording``'s order) is
+    appended to ``own`` (as ``recording`` appends it, tagged None) and
+    replaced by the card's input in ``card_record[i]``, so
+    that both devices quantize the same activations: no 4-bit code can flip
+    between them, and the inputs themselves are compared instead."""
+    from llama_swift_torch.ops import quantized_matmul as qmm
+
+    matvec, multi, fq40 = qmm.q4_0_matvec, qmm.q4_0_matmul_multi, qmm.fake_quantize_q4_0
+
+    def take(x):
+        i = len(own)
+        own.append((None, x.reshape(-1, x.shape[-1]).cpu()))
+        if i >= len(card_record) or card_record[i][1].shape != own[-1][1].shape:
+            raise SystemExit(f"chip_smoke: product {i} has no card input of shape {tuple(own[-1][1].shape)}")
+        return card_record[i][1].reshape(x.shape).to(device=x.device, dtype=x.dtype)
+
+    qmm.q4_0_matvec = lambda x, w, **k: matvec(take(x), w, **k)
+    qmm.q4_0_matmul_multi = lambda x, w, **k: multi(take(x), w, **k)
+    qmm.fake_quantize_q4_0 = lambda x: fq40(take(x))
+    try:
+        yield
+    finally:
+        qmm.q4_0_matvec, qmm.q4_0_matmul_multi, qmm.fake_quantize_q4_0 = matvec, multi, fq40
+
+
+def check_tp_parity(torch) -> None:
+    """TP parity at 7B width, 2 layers, in a real NCCL group of one: the V
+    layout (fused, fuse_shards=1) and the T layout (shard_pad=128, unfused
+    and fused: on the card the default layout of such a build) through
+    ``make_tp_forward`` on the card, against the same forward on the CPU
+    without a group (the kernels' plain versions): the logits of a
+    64-row prefill (9 prompt tokens, right-padded) and of 4 decode steps.
+    With f32 activations within 1e-5.  With 4-bit activations the CPU runs
+    on the card's product inputs (``forcing``), so no code flips between
+    the devices; then the logits and every product's input (the prompt's
+    rows) are within 2e-3 of the card's, with no exemption for flips.  On
+    the T layout every card forward is exactly 7·L + 1 (4·L + 1 fused)
+    launches of the T kernel, prefill and decode alike."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import GGMLType, ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+    from llama_swift_torch.parallel.mesh import make_mesh, single_device_mesh
+
+    base = dataclasses.replace(ModelConfig.llama_7b(ftype=GGMLType.Q4_0), n_layer=2, prefill_bf16=False)
+    tensors = dict(synthetic_tensors(base, seed=7))
+    prompt, length = model_lib.pad_tokens([1, 450, 17, 3000, 9, 222, 31000, 5, 77], 64)
+    steps = [77, 12000, 345, 6]
+    cases = [  # (name, fused, build arguments, activations)
+        ("v_fused", True, dict(q4_layout="v"), "q4"),
+        ("v_fused", True, dict(q4_layout="v"), "f32"),
+        ("t", False, dict(shard_pad=128), "q4"),
+        ("t", False, dict(shard_pad=128), "f32"),
+        ("t_fused", True, dict(shard_pad=128), "q4"),
+    ]
+
+    def run(device, cfg, build_kw, record, force=None):
+        out = []
+        with recording(record, [None]) if force is None else forcing(record, force):
+            if device == "cpu":  # the CPU's default layout is the logical one: ask for T
+                params, fwd, cache = tp_forward(torch, tensors, cfg, "cpu", single_device_mesh(),
+                                                **{"q4_layout": "t", **build_kw})
+            else:
+                params, fwd, cache = tp_forward(torch, tensors, cfg, device, make_mesh(), **build_kw)
+            per = []
+            logits, cache = fwd(params, torch.as_tensor(prompt.astype(np.int64), device=device), 0, cache)
+            out.append(logits[:length].float().cpu())
+            for i, tok in enumerate(steps):
+                before = ops.launch_counts()
+                logits, cache = fwd(params, torch.tensor([tok], device=device), length + i, cache)
+                per.append({k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]})
+                out.append(logits[0].float().cpu())
+        return out, per
+
+    rec = {"case": "tp_parity_7b_width_2_layers"}
+    with nccl_group_of_one(torch) as device:
+        for name, fused, build_kw, act in cases:
+            cfg = dataclasses.replace(base, fuse_layer_matmuls=fused, quantize_activations=act == "q4")
+            rec_cpu, rec_card = ([], []) if act == "q4" else (None, None)
+            key = f"{name}_{act}"
+            before = ops.launch_counts()
+            card, per = run(device, cfg, build_kw, rec_card)
+            prefill = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            t0 = time.perf_counter()
+            cpu, _ = run("cpu", cfg, build_kw, rec_cpu, force=rec_card)
+            rec[f"{key}_cpu_s"] = time.perf_counter() - t0
+            rec[f"{key}_prefill_rel_err"] = rel_err(card[0], cpu[0])
+            rec[f"{key}_decode_rel_err_max"] = max(rel_err(a, b) for a, b in zip(card[1:], cpu[1:]))
+            rec[f"{key}_finite"] = all(bool(torch.isfinite(t).all()) for t in card)
+            bar = 2e-3 if act == "q4" else 1e-5
+            ok = rec[f"{key}_prefill_rel_err"] <= bar and rec[f"{key}_decode_rel_err_max"] <= bar
+            if act == "q4":  # the prompt's rows of every product input (no padding row reaches them)
+                pairs = [(c[:length], g[:length]) for (_, c), (_, g) in zip(rec_cpu, rec_card)]
+                rec[f"{key}_products"] = len(pairs)
+                rec[f"{key}_input_rel_err_max"] = max(rel_err(c, g) for c, g in pairs)
+                # the codes that would have flipped had the CPU quantized its own inputs
+                rec[f"{key}_flips_held_off"] = sum(int(f.sum()) for f in flip_counts(
+                    [(None, c) for c, _ in pairs], [(None, g) for _, g in pairs]))
+                ok = ok and len(rec_cpu) == len(rec_card) and rec[f"{key}_input_rel_err_max"] <= bar
+            if name.startswith("t"):  # every product on the T kernel, the prefill's 64 rows too
+                n_mm = (4 if fused else 7) * cfg.n_layer + 1
+                rec[f"{key}_step_launches"] = per[0]
+                ok = ok and all(p.get("q4_0_matmul_t") == n_mm and "q4_0_dequant" not in p for p in per)
+                ok = ok and prefill["q4_0_matmul_t"] - sum(p["q4_0_matmul_t"] for p in per) == n_mm
+            rec[f"{key}_ok"] = ok and rec[f"{key}_finite"]
+    rec["ok"] = all(v for k, v in rec.items() if k.endswith("_ok"))
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: TP parity outside its bars")
+
+
+SERVE_LINE = re.compile(r"\[serve\] (\d+) tokens, ([\d.]+) tok/s decode, prefill ([\d.]+)s")
+
+
+def serve_tp(torch, path: str, profile: bool) -> list:
+    """The TP serving paths on the 32-layer 7B Q4_0 file, each with the
+    launch counters reset just before and read just after:
+
+    * ``llama_swift_torch.serve.main`` in this process (its own NCCL group
+      of one, tp = 1: the V layout, fused, as the JAX serve at tp = 1), 32
+      sampled tokens: exactly 129 ``q4_0_matvec`` and 32
+      ``flash_decode_attention`` launches a token and 129 ``q4_0_dequant``
+      for the 64-row prefill;
+    * the T layout (params with shard_pad=128: the card's default layout
+      for a TP build) through ``make_tp_forward`` in a NCCL group of one: a
+      64-row prefill and 32 greedy tokens, exactly 225 ``q4_0_matmul_t``
+      launches a forward (prefill and decode alike) and 32 flash a token,
+      no dequant; with ``--profile`` an 8-step window of its decode.
+
+    Returns the two runs' launch counts."""
+    import io
+
+    from llama_swift_torch import ops, serve as serve_mod
+    from llama_swift_torch.formats import ggml
+    from llama_swift_torch.models import llama as model_lib
+    from llama_swift_torch.parallel.mesh import make_mesh
+
+    runs = []
+    ops.reset_launch_counts()  # the V serve path's run starts here
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_mod.main(["--model", path, "--tp", "1", "--coordinator", f"127.0.0.1:{free_port()}",
+                             "--num-processes", "1", "--process-id", "0", "--n-tokens", "32", "--seed", "5"])
+    counts = ops.launch_counts()  # read just after
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    m = SERVE_LINE.search(text)
+    n_layer, n_tok = 32, 32
+    expect = {k: 0 for k in counts}
+    expect.update({"q4_0_matvec": (4 * n_layer + 1) * n_tok, "flash_decode_attention": n_layer * n_tok,
+                   "q4_0_dequant": 4 * n_layer + 1})
+    rec = {"case": "serve_tp_v", "rc": rc, "wall_s": wall, "tokens": int(m.group(1)) if m else None,
+           "decode_tok_per_s": float(m.group(2)) if m else None, "prefill_s": float(m.group(3)) if m else None,
+           "launches": {k: v for k, v in counts.items() if v}, "text_tail": text[-160:]}
+    log(rec)
+    if rc != 0 or rec["tokens"] != n_tok or counts != expect:
+        raise SystemExit(f"chip_smoke: serve.main: rc {rc}, launches {counts} != expected {expect}")
+    runs.append(counts)
+    torch.cuda.empty_cache()
+
+    mf = ggml.load_model_file(path)
+    cfg = mf.config
+    with nccl_group_of_one(torch) as device:
+        t0 = time.perf_counter()
+        params, fwd, cache = tp_forward(torch, mf.tensors, cfg, device, make_mesh(), shard_pad=128)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if mf.native_handle is not None:
+            mf.native_handle.close()
+        del mf
+        prompt, length = model_lib.pad_tokens(list(range(1, 41)), 64)
+        ops.reset_launch_counts()  # the T path's run starts here
+        t0 = time.perf_counter()
+        logits, cache = fwd(params, torch.as_tensor(prompt.astype(np.int64), device=device), 0, cache)
+        tok = logits[length - 1].argmax().reshape(1)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        toks = []
+        t0 = time.perf_counter()
+        for i in range(n_tok):
+            logits, cache = fwd(params, tok, length + i, cache)
+            tok = logits[0].argmax().reshape(1)
+            toks.append(tok)
+        ids = torch.cat(toks).tolist()
+        t_decode = time.perf_counter() - t0
+        counts = ops.launch_counts()  # read just after
+        expect = {k: 0 for k in counts}
+        expect.update({"q4_0_matmul_t": (7 * n_layer + 1) * (n_tok + 1), "flash_decode_attention": n_layer * n_tok})
+        rec = {"case": "serve_tp_t", "t_load_s": t_load, "prefill_s": t_prefill, "decode_s": t_decode,
+               "decode_tok_per_s": n_tok / t_decode, "launches": {k: v for k, v in counts.items() if v},
+               "ids_tail": ids[-8:], "finite": bool(torch.isfinite(logits).all())}
+        log(rec)
+        if counts != expect or not rec["finite"] or len(ids) != n_tok:
+            raise SystemExit(f"chip_smoke: T-layout TP forward: launches {counts} != expected {expect}")
+        runs.append(counts)
+        if profile:
+            tok1 = torch.ones(1, dtype=torch.int64, device=device)
+            profile_window(torch, "profile_tp_t_decode_8_steps",
+                           lambda i: fwd(params, tok1, length + n_tok + i, cache))
+        del params, cache
+    torch.cuda.empty_cache()
+    return runs
+
+
 def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
     """Device busy share and kernel time by name over ``n_steps`` calls of
     ``step(i)`` after one warm-up call."""
@@ -1746,13 +2060,21 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
     "q4_0_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:276"),
     "q4_1_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
     "q4_0_matmul_multi_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
+    "q4_0_matmul_t": ("llama_swift_torch/csrc/q4_matmul_t.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:424"),
+}
+
+#: the kernels of the paths that ``--only q4_1`` and ``--only tp`` run
+ONLY_KERNELS = {
+    "q4_1": ("q4_1_matvec", "q4_1_dequant", "q4_1_matvec_f32"),
+    "tp": ("q4_0_matvec", "flash_decode_attention", "q4_0_dequant", "q4_0_matmul_t"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "q4_1"], default=None,
-                    help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases")
+    ap.add_argument("--only", choices=["kernels", "q4_1", "tp"], default=None,
+                    help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases; "
+                         "tp: those and the TP phases")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -1791,7 +2113,7 @@ def main(argv=None) -> int:
     runs = []
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        if args.only != "q4_1":
+        if args.only is None:
             check_parity(torch)
             check_parity_int8(torch)
             check_parity_fused(torch)
@@ -1800,7 +2122,7 @@ def main(argv=None) -> int:
             served = serve(torch, workdir, args.profile)
             runs += [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
             runs += serve_f32_acts(torch, served["runner"])
-            fused = served["fused_runner"]
+            fused, path = served["fused_runner"], served["path"]
             del served
             torch.cuda.empty_cache()
             runs.append(serve_fused(torch, fused, args.profile)["launches"])
@@ -1809,13 +2131,23 @@ def main(argv=None) -> int:
                                                      "flash_decode_attention_batched")]))
             del fused
             torch.cuda.empty_cache()
-        check_parity_q4_1(torch)
-        runs += serve_q4_1(torch, workdir, args.profile)
+        if args.only in (None, "tp"):
+            check_tp_parity(torch)
+            if args.only == "tp":
+                from llama_swift_torch.config import GGMLType, ModelConfig
+
+                path = os.path.join(workdir, "synthetic-7b-q4_0.bin")
+                write_model(path, ModelConfig.llama_7b(ftype=GGMLType.Q4_0), seed=2024)
+            runs += serve_tp(torch, path, args.profile)
+            os.remove(path)
+        if args.only in (None, "q4_1"):
+            check_parity_q4_1(torch)
+            runs += serve_q4_1(torch, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(r[k] for r in runs) for k in KERNEL_META}
-    if args.only == "q4_1":
-        launches = {k: v for k, v in launches.items() if k.startswith("q4_1")}
+    if args.only:  # the kernels of the paths that ran
+        launches = {k: v for k, v in launches.items() if k in ONLY_KERNELS[args.only]}
     if not all(launches.values()):
         raise SystemExit(f"chip_smoke: a kernel of the serving paths never launched: {launches}")
 

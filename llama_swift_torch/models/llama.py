@@ -32,6 +32,12 @@ conditions) runs every layer in one launch of the whole-stack kernel
 stays on the matvec.  Fused Q4_1 params decode on the composed path, as in
 the JAX package.
 
+T-layout params (``params_from_tensors(q4_layout="t")``, the card's default
+when ``shard_pad > 1``: the tensor-parallel builds of ``parallel/tp.py``)
+hold :class:`~..ops.q4_matmul.Q4_0WeightT`: every product of 1–64 rows
+takes the T kernel (``ops/q4_matmul.q4_0_matmul_t``), prefill bucket and
+decode alike, and the whole-stack kernel is never taken.
+
 Every cache may be f32, bf16 or int8.  An int8 cache holds symmetric codes
 and one f32 scale per (head, position) row, written by :func:`quantize_kv`
 (the JAX formula, round half to even); prefill and the plain attention read
@@ -66,11 +72,22 @@ from ..ops.attention import (
 )
 from ..ops.fused_layer import block_perm, fused_layers_block
 from ..ops.norms import norm
+from ..ops.q4_matmul import Q4_0WeightT, from_jax_t
 from ..ops.q4_matvec import Q4_0Weight, Q4_1Weight
 from ..ops.rope import rope
 
-Params = dict
 Cache = dict
+
+
+class Params(dict):
+    """The model's weights by name (``tok_embeddings``, ``norm``, ``output``,
+    ``layers_stacked``), and how the builder laid them out: ``shard_pad``
+    and ``fuse_shards`` (:func:`params_from_tensors`); ``mesh`` once
+    ``parallel/tp.shard_params_tp`` has kept one rank's shard."""
+
+    def __init__(self, *args, shard_pad: int = 1, fuse_shards: int = 1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.shard_pad, self.fuse_shards = shard_pad, fuse_shards
 
 LAYER_WEIGHTS = (
     "attention_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3",
@@ -83,6 +100,7 @@ FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
 FUSED_LAYER_WEIGHTS = ("attention_norm", "wqkv", "wo", "ffn_norm", "w13", "w2")
 
 #: the packed weight types: dataclasses of tensors with ``.layer(il)``
+#: (:class:`Q4_0WeightT` is a :class:`Q4_0Weight`)
 Q4_WEIGHTS = (Q4_0Weight, Q4_1Weight)
 
 #: prefill contexts at/above this use the chunked online-softmax attention
@@ -124,12 +142,21 @@ def _to_device(a, device, dense_dtype):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device, dtype)
 
 
+#: ``q4_layout`` values: ``"t"`` (:class:`Q4_0WeightT`), or ``"v"``, the
+#: port's one logical Q4_0 layout, which stands for the JAX package's V and
+#: W layouts alike
+Q4_LAYOUTS = ("t", "v")
+
+
 def params_from_tensors(
     tensors: dict,
     cfg: ModelConfig,
     *,
     device=None,
     param_dtype: Optional[torch.dtype] = None,
+    q4_layout: Optional[str] = None,
+    shard_pad: int = 1,
+    fuse_shards: int = 1,
 ) -> Params:
     """Arrange loader output (``formats/ggml.py``) into the model's params.
 
@@ -141,37 +168,98 @@ def params_from_tensors(
     filled layer by layer on the device (no host-side stack).  With
     ``cfg.fuse_layer_matmuls`` the layers hold ``wqkv`` and ``w13`` (see
     :data:`FUSED`) instead of their parts.
+
+    The JAX package's layout arguments (``llama_swift_tpu/models/llama.py:
+    55-140, 208-275``), with its defaults and rules:
+
+    * ``q4_layout="t"`` makes every Q4_0 weight
+      whose out dim is a multiple of 128 a :class:`Q4_0WeightT`, whose
+      products of 1–64 rows take the T kernel (the tensor-parallel path).
+      Left unset, the card takes ``"t"`` when ``shard_pad > 1``, as the TPU
+      does; otherwise ``"v"``, the port's logical layout (:data:`Q4_LAYOUTS`).
+    * ``shard_pad`` zero-pads the FFN hidden dim (w1/w3 rows, w2 columns)
+      and the vocab (``tok_embeddings`` and ``output`` rows) to a multiple
+      of itself, so that a row split gives every rank the same share; zero
+      blocks are exact, and ``forward`` slices the logits to ``n_vocab``.
+    * ``fuse_shards`` interleaves the fused concats per tensor-parallel
+      shard: rank r's rows are (q_r; k_r; v_r) and (w1_r; w3_r), so a
+      contiguous row split hands each rank its own fused matrices
+      (``parallel/tp.py`` checks it against the TP degree).
+
+    ``params.shard_pad`` and ``params.fuse_shards`` record the last two.
     """
     device = resolve_device(device)
     if param_dtype is None:
         param_dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    if q4_layout is None:
+        q4_layout = "t" if device.type == "cuda" and shard_pad > 1 else "v"
+    if q4_layout not in Q4_LAYOUTS:
+        raise ValueError(f"params_from_tensors: q4_layout {q4_layout!r} is not one of {Q4_LAYOUTS}")
+    t_layout = q4_layout == "t"
+    ff_pad, vocab_pad = (-(-n // shard_pad) * shard_pad for n in (cfg.n_ff, cfg.n_vocab))
     cvt = functools.partial(_to_device, device=device, dense_dtype=param_dtype)
     stacked: dict = {}
     names = FUSED_LAYER_WEIGHTS if cfg.fuse_layer_matmuls else LAYER_WEIGHTS
     for il in range(cfg.n_layer):
         for w in names:
-            t = _layer_tensor(tensors, il, w, param_dtype)
+            t = _as_layout(_layer_tensor(tensors, il, w, param_dtype, ff_pad, fuse_shards), t_layout)
             if w not in stacked:
                 stacked[w] = _empty_stack(t, cfg.n_layer, device)
             for a, b in zip(_fields(_stack_at(stacked[w], il)), _fields(t)):
                 a.copy_(b)
-    return {
-        "tok_embeddings": cvt(tensors["tok_embeddings.weight"]),
+    return Params({
+        "tok_embeddings": _as_layout(_pad(cvt(tensors["tok_embeddings.weight"]), out_to=vocab_pad), t_layout),
         "norm": cvt(tensors["norm.weight"]),
-        "output": cvt(tensors["output.weight"]),
+        "output": _as_layout(_pad(cvt(tensors["output.weight"]), out_to=vocab_pad), t_layout),
         "layers_stacked": stacked,
-    }
+    }, shard_pad=shard_pad, fuse_shards=fuse_shards)
 
 
-def _layer_tensor(tensors: dict, il: int, name: str, param_dtype):
-    """Layer ``il``'s weight ``name`` on the CPU; a fused name is the
-    out-dim concat of its parts."""
-    parts = [_to_device(tensors[_loader_name(il, w)], "cpu", param_dtype) for w in FUSED.get(name, (name,))]
+def _layer_tensor(tensors: dict, il: int, name: str, param_dtype, ff_pad: int, fuse_shards: int):
+    """Layer ``il``'s weight ``name`` on the CPU, its FFN hidden dim padded
+    to ``ff_pad``; a fused name is the out-dim concat of its parts,
+    interleaved per shard when ``fuse_shards > 1`` (the JAX package's
+    ``_concat_out_sharded``)."""
+    parts = [_pad(_to_device(tensors[_loader_name(il, w)], "cpu", param_dtype),
+                  out_to=ff_pad if w in ("w1", "w3") else None, in_to=ff_pad if w == "w2" else None)
+             for w in FUSED.get(name, (name,))]
     if len(parts) == 1:
         return parts[0]
-    if isinstance(parts[0], Q4_WEIGHTS):
-        return type(parts[0])(*(torch.cat(f) for f in zip(*map(_fields, parts))))
-    return torch.cat(parts)
+    rows = parts[0].shape[0]
+    if rows % fuse_shards:
+        raise ValueError(f"params_from_tensors: {rows} rows of {name} do not split into {fuse_shards} shards")
+    per = rows // fuse_shards
+    fields = [
+        torch.cat([f[r * per : (r + 1) * per] for r in range(fuse_shards) for f in part_fields])
+        for part_fields in zip(*map(_fields, parts))
+    ]
+    return type(parts[0])(*fields) if isinstance(parts[0], Q4_WEIGHTS) else fields[0]
+
+
+def _pad(t, out_to: Optional[int] = None, in_to: Optional[int] = None):
+    """Zero rows up to ``out_to`` and zero columns up to ``in_to`` of a
+    weight ``[out, in]`` (packed: whole zero blocks, which decode to exact
+    zeros; the JAX package's ``_pad_weight``)."""
+    if out_to is None and in_to is None:
+        return t
+    rows, cols = t.shape
+    ro, co = (out_to or rows) - rows, (in_to or cols) - cols
+    if not ro and not co:
+        return t
+
+    def pad(f):  # f [rows, cols·k, ...]: widths from the last axis back
+        return torch.nn.functional.pad(f, [0, 0] * (f.dim() - 2) + [0, co * f.shape[1] // cols, 0, ro])
+
+    return type(t)(*map(pad, _fields(t))) if isinstance(t, Q4_WEIGHTS) else pad(t)
+
+
+def _as_layout(t, t_layout: bool):
+    """``t`` as a :class:`Q4_0WeightT` when the T layout is asked and it is
+    a Q4_0 weight whose out dim is a multiple of 128 (the JAX package's
+    condition for tiling); otherwise ``t``."""
+    if t_layout and type(t) is Q4_0Weight and t.shape[0] % 128 == 0:
+        return Q4_0WeightT(t.qs, t.d)
+    return t
 
 
 def _fields(t) -> tuple:
@@ -205,7 +293,8 @@ def _unpack_qs_v(qs4v: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(qs4).view(np.uint8).reshape(*lead, ot * lt, kh4 * 4)
 
 
-def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Params:
+def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None, shard_pad: int = 1,
+                          fuse_shards: int = 1) -> Params:
     """Carry JAX params across: ``tree`` is the JAX package's stacked params
     pytree after ``jax.tree_util.tree_map(np.asarray, ...)``.
 
@@ -217,21 +306,33 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
     then the padding dropped) or ``qs``/``scales`` (logical).  Q4_1:
     ``qs4v``/``sm_v`` (V layout; delta lanes ``[0, nb)``, min lanes
     ``[nb, 2nb)``; the padding dropped) or ``qs``/``scales``/``mins``
-    (logical).  Fused ``wqkv``/``w13`` stay fused (any shard padding of
-    w13's halves dropped).  Dense leaves become f32 tensors.
+    (logical).  T layout (``qs4``/``scales_t``, stacked or not): unpacked by
+    :func:`~..ops.q4_matmul.from_jax_t`, the in-dim padding dropped, and
+    kept a :class:`Q4_0WeightT`.  Fused ``wqkv``/``w13`` stay fused.  Dense
+    leaves become f32 tensors.
+
+    Padding of the FFN hidden dim and the vocab is kept up to a multiple of
+    ``shard_pad`` and dropped beyond, so that the JAX package's
+    ``params_from_tensors(shard_pad=s, fuse_shards=f)`` comes across as the
+    port's own with the same two arguments (which are recorded as there).
+    Shard-interleaved fused rows (``fuse_shards > 1``) are kept as they are.
     """
     device = resolve_device(device)
     if "layers_stacked" not in tree:
         raise ValueError("params_from_jax_numpy: expected stacked JAX params (layers_stacked)")
-    in_dims = {"w2": cfg.n_ff}
-    n_ff = cfg.n_ff
+    n_ff, n_vocab = (-(-n // shard_pad) * shard_pad for n in (cfg.n_ff, cfg.n_vocab))
+    in_dims = {"w2": n_ff}
 
     def out_rows(name: str, n_out: int):
         """Rows to keep of a weight with ``n_out`` rows (None: all)."""
         if name in ("tok_embeddings", "output"):
-            return np.arange(cfg.n_vocab)
+            return np.arange(n_vocab)
         if name in ("w1", "w3"):
             return np.arange(n_ff)
+        if name == "w13" and fuse_shards > 1:
+            if n_out != 2 * n_ff:
+                raise ValueError(f"params_from_jax_numpy: w13 has {n_out} rows, {2 * n_ff} expected")
+            return None
         if name == "w13":  # halves w1; w3, each possibly padded
             return np.r_[0:n_ff, n_out // 2 : n_out // 2 + n_ff]
         return None
@@ -259,8 +360,9 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
             sc = np.stack([np.asarray(a.scales, dtype=np.float32), np.asarray(a.mins, dtype=np.float32)], axis=-1)
         elif hasattr(a, "qs") and hasattr(a, "scales"):
             qs, sc = np.asarray(a.qs), np.asarray(a.scales, dtype=np.float32)
-        elif hasattr(a, "qs4"):
-            raise NotImplementedError(f"params_from_jax_numpy: layout {type(a).__name__} is not carried across")
+        elif hasattr(a, "qs4"):  # T layout [..., out/128, in_pad/8, 128]
+            t = from_jax_t(a.qs4, a.scales_t, in_dim, np.shape(a.qs4)[-3] * 128)
+            qs, sc, cls = t.qs.numpy(), t.d.numpy(), Q4_0WeightT
         else:
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
         rows = out_rows(name, qs.shape[-2])
@@ -271,14 +373,14 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Param
             torch.from_numpy(np.ascontiguousarray(sc, dtype=np.float32)).to(device),
         )
 
-    return {
+    return Params({
         "tok_embeddings": cvt(tree["tok_embeddings"], "tok_embeddings", cfg.n_embd),
         "norm": cvt(tree["norm"], "norm", cfg.n_embd),
         "output": cvt(tree["output"], "output", cfg.n_embd),
         "layers_stacked": {
             k: cvt(v, k, in_dims.get(k, cfg.n_embd)) for k, v in tree["layers_stacked"].items()
         },
-    }
+    }, shard_pad=shard_pad, fuse_shards=fuse_shards)
 
 
 def random_params(
@@ -483,9 +585,9 @@ def _qkv(h, layer: dict, lin, N: int, H: int, Dh: int):
 def _takes_megakernel(stacked: dict, N: int, slot, cache: Cache, cfg: ModelConfig) -> bool:
     """The JAX package's conditions for the whole-stack kernel
     (``llama_swift_tpu/models/llama.py:899-906``): fused Q4_0 params (its
-    ``Q4_0TensorW``: fused Q4_1 stays composed), one token, no slot, no int8
-    scales, quantized activations, 128-dim heads."""
-    return (isinstance(stacked.get("wqkv"), Q4_0Weight) and N == 1 and slot is None and "k" in cache
+    ``Q4_0TensorW``: fused Q4_1 and T-layout params stay composed), one
+    token, no slot, no int8 scales, quantized activations, 128-dim heads."""
+    return (type(stacked.get("wqkv")) is Q4_0Weight and N == 1 and slot is None and "k" in cache
             and "k_scale" not in cache and cfg.quantize_activations and cfg.head_dim == 128)
 
 

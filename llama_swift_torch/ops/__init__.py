@@ -4,8 +4,9 @@ dequant), the engine's batched decode (multi-row matmul, batched and
 paged flash decode), the int8 KV cache (the three flash-decode kernels
 over int8 codes and row scales), the whole-stack batch-1 decode kernel
 on fused wqkv/w13 params, Q4_1 weights (the Q4_1 matvec and the Q4_1
-dequant), and f32 activations (the Q4_0 and Q4_1 matvecs and the Q4_0
-multi-row matmul on unquantized rows)."""
+dequant), f32 activations (the Q4_0 and Q4_1 matvecs and the Q4_0
+multi-row matmul on unquantized rows), and the T layout of the
+tensor-parallel path (the 1–64-row Q4_0 product on f32 rows)."""
 
 from .attention import (
     flash_decode_attention,
@@ -17,6 +18,7 @@ from .attention import (
 )
 from .fused_layer import fused_layers_block
 from .q4_dequant import q4_0_dequant, q4_1_dequant
+from .q4_matmul import q4_0_matmul_t
 from .q4_matvec import (
     q4_0_matmul_multi,
     q4_0_matmul_multi_f32,
@@ -32,7 +34,7 @@ KERNELS = (
     q4_0_matmul_multi, flash_decode_attention_batched, flash_decode_attention_paged,
     flash_decode_attention_stacked_int8, flash_decode_attention_batched_int8, flash_decode_attention_paged_int8,
     fused_layers_block, q4_1_matvec, q4_1_dequant,
-    q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32,
+    q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32, q4_0_matmul_t,
 )
 
 

@@ -53,6 +53,9 @@ SOURCES = {
         "q4_1_dequant": [ctypes.c_void_p] * 3
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     },
+    "q4_matmul_t": {
+        "q4_0_matmul_t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
     "fused_layer": {
         "fused_layers": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],

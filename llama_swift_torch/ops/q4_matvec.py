@@ -65,8 +65,9 @@ class Q4_0Weight:
         return (self.qs.shape[-2], self.qs.shape[-1] * 2)
 
     def layer(self, il: int) -> "Q4_0Weight":
-        """Layer ``il`` of a stacked weight, as views into the stack."""
-        return Q4_0Weight(self.qs[il], self.d[il])
+        """Layer ``il`` of a stacked weight, as views into the stack (of the
+        same type: a T-layout weight stays one)."""
+        return type(self)(self.qs[il], self.d[il])
 
     @classmethod
     def from_q4_0(cls, w: Q4_0Tensor, device="cpu") -> "Q4_0Weight":

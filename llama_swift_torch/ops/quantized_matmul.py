@@ -26,6 +26,13 @@ whatever ``quantize_activations`` is:
   Q4_1 dequant kernel, then one ``torch.matmul``: the JAX package has no
   Q4_1 multi-row kernel (``quantized_matmul.py:192-195`` there), so the
   engine's batched step dequantizes every weight too;
+* Q4_0 of the T layout (:class:`~.q4_matmul.Q4_0WeightT`, the
+  tensor-parallel path), tested before plain Q4_0 since it subclasses it:
+  1–64 rows → fake-quantize the activations (when asked), then the T
+  kernel (``ops/q4_matmul.py``); more rows → fake-quantize, the dequant
+  kernel, then one ``torch.matmul`` (``quantized_matmul.py:321-347``
+  there; its integer T kernels are switched off, so no row count reaches
+  them);
 * dense → ``torch.matmul`` in f32.
 
 A CPU tensor takes each kernel's plain version.
@@ -37,6 +44,7 @@ import torch
 
 from ..config import QK
 from .q4_dequant import dequantize_q4_0, dequantize_q4_1, q4_0_dequant, q4_1_dequant
+from .q4_matmul import MAX_PHASE_KERNEL_ROWS, Q4_0WeightT, q4_0_matmul_t
 from .q4_matvec import (
     MAX_MULTI_ROWS,
     Q4_0Weight,
@@ -115,6 +123,13 @@ def linear(
         q41 = isinstance(w, Q4_1Weight)
         out_dim, in_dim = w.shape
         n_rows = x.numel() // x.shape[-1]
+        # T first (it subclasses Q4_0Weight); above 64 rows it takes the
+        # dequant below, past the branches of fewer rows
+        if isinstance(w, Q4_0WeightT) and n_rows <= MAX_PHASE_KERNEL_ROWS:
+            if quantize_activations:
+                x = fake_quantize_q4_0(x)
+            y = q4_0_matmul_t(x.reshape(n_rows, in_dim).float().contiguous(), w)
+            return y.reshape(*lead, out_dim).to(compute_dtype)
         if n_rows == 1:
             y = (q4_1_matvec if q41 else q4_0_matvec)(
                 x.reshape(in_dim).float().contiguous(), w, quantize_acts=quantize_activations)
@@ -136,8 +151,10 @@ def linear(
 
 def embedding_lookup(tokens: torch.Tensor, w, *, compute_dtype=torch.float32) -> torch.Tensor:
     """``ggml_get_rows`` (``ggml.c:6760-6920``): rows of the (possibly
-    quantized) embedding table, dequantized to f32 per row."""
-    if isinstance(w, Q4_0Weight):
+    quantized) embedding table, dequantized to f32 per row.  A T-layout
+    table (``quantized_matmul.py:518-535`` there) holds the logical bytes,
+    so its rows are gathered and decoded as a Q4_0 table's."""
+    if isinstance(w, Q4_0Weight):  # Q4_0WeightT too
         rows = Q4_0Weight(w.qs.index_select(0, tokens), w.d.index_select(0, tokens))
         return dequantize_q4_0(rows, compute_dtype)
     if isinstance(w, Q4_1Weight):  # a gather and n·d + m, as XLA does in JAX

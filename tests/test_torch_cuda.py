@@ -481,3 +481,24 @@ def test_f32_wrappers_raise_on_bad_inputs(cuda):
         mv.q4_0_matmul_multi_f32(torch.randn((256, 4), device=cuda).t(), w0)  # not contiguous
     with pytest.raises(ValueError):  # x on the card, the weight on the CPU
         mv.q4_0_matvec_f32(torch.randn(256, device=cuda), mv.Q4_0Weight(w0.qs.cpu(), w0.d.cpu()))
+
+
+@pytest.mark.parametrize("rows", [1, 33, 64])
+@pytest.mark.parametrize("out,in_dim", [(77, 352), (1000, 4096), (300, 11008)])
+def test_q4_0_matmul_t_kernel_matches_plain(cuda, rows, out, in_dim):
+    """The T-layout kernel (ragged out tiles and in chunks, each row
+    template's edge) against its plain version; a bad input raises."""
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    w, g = _q4(out, in_dim, cuda, seed=rows)
+    w = qm.Q4_0WeightT(w.qs, w.d)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    before = qm.q4_0_matmul_t.launches
+    y = qm.q4_0_matmul_t(x, w)
+    torch.cuda.synchronize()
+    assert qm.q4_0_matmul_t.launches == before + 1
+    assert _rel(y, qm.q4_0_matmul_t_plain(x, w)) <= 1e-5
+    with pytest.raises(ValueError):
+        qm.q4_0_matmul_t(torch.randn((65, in_dim), device=cuda), w)
+    with pytest.raises(ValueError):
+        qm.q4_0_matmul_t(x[:, :-32].contiguous(), w)
