@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels  # build + kernel checks only
     python3 chip_smoke.py --only q4_1     # build + kernel checks + the Q4_1 phases (3c, 5)
     python3 chip_smoke.py --only tp       # build + kernel checks + the TP phases (4e)
+    python3 chip_smoke.py --only int      # build + kernel checks + paths A and B (4f, 4g)
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -426,6 +427,170 @@ def check_t_kernel(torch, g, summary) -> list:
     return failed
 
 
+INT_ROWS = [1, 8, 33, 64]
+
+
+def check_int_t_kernels(torch, g, summary) -> list:
+    """Row 12, ``q4_0_int_matmul`` (the exact int4×int4 T product on the int8
+    tensor cores), at the four matvec shapes and N in ``INT_ROWS``, and row
+    13, ``q4_0_t_matmul_multi`` (the multi-row T product on the V layout's
+    kernels), at B = 8 on the four shapes and B = 1 and 32 at 11008x4096,
+    with 4-bit and f32 activations; each within 1e-5 of max |y| of its plain
+    version.  Beside row 12, row 10 (``q4_0_matmul_t``, what serving takes at
+    these rows) on the same rows, fake-quantized, is timed as
+    ``replaced_ms``; no PyTorch call applies per-block scales to an int8
+    product (``torch._int_mm`` has none), so ``library_ms`` is None.  The
+    bound is the larger of the bytes (0.625 a weight, x and y in f32) and
+    the work (2·N operations a weight at the int8 rate, or the f32 rate for
+    f32 rows); ``bound_by`` says which.  Returns the cases that disagree."""
+    from llama_swift_torch.ops import q4_matmul as qm
+    from llama_swift_torch.ops import quantized_matmul as qmm
+
+    failed = []
+
+    def measure(case, fn, plain, rows, out, in_dim, wbytes, ops_rate, iters, plain_iters):
+        y, ref = fn(0), plain(0)
+        err = rel_err(y, ref)
+        t_bytes = (wbytes + rows * in_dim * 4 + rows * out * 4) / HBM_BYTES_PER_S
+        t_ops = 2 * rows * out * in_dim / ops_rate
+        case.update(max_rel_err=err, max_abs_err=float((y - ref).abs().max()),
+                    kernel_ms=time_ms(torch, fn, iters), plain_ms=time_ms(torch, plain, plain_iters),
+                    bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None, ok=err <= 1e-5)
+        return case
+
+    for out, in_dim in MATVEC_SHAPES:
+        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
+        n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
+        base = rand_q4(torch, g, n, out, in_dim)
+        w = qm.Q4_0WeightT(base.qs, base.d)
+        for rows in INT_ROWS:
+            x = torch.randn((rows, in_dim), device="cuda", generator=g)
+            xq = qmm.fake_quantize_q4_0(x)
+            case = measure({"case": "q4_0_int_matmul", "rows": rows, "out": out, "in": in_dim},
+                           lambda i: qm.q4_0_int_matmul(x, w.layer(i % n)),
+                           lambda i: qm.q4_0_int_matmul_plain(x, w.layer(i % n)),
+                           rows, out, in_dim, wbytes, INT8_OPS, 100, 3)
+            case["replaced_ms"] = time_ms(torch, lambda i: qm.q4_0_matmul_t(xq, w.layer(i % n)), 50)
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
+            if (out, in_dim, rows) == (11008, 4096, 64):
+                summary["q4_0_int_matmul"] = dict(case, shape=f"N{rows} {out}x{in_dim}")
+        for rows in [1, 8, 32] if (out, in_dim) == (11008, 4096) else [8]:
+            x = torch.randn((rows, in_dim), device="cuda", generator=g)
+            for quantize in (True, False):
+                case = measure({"case": "q4_0_t_matmul_multi", "rows": rows, "quantize_acts": quantize, "out": out,
+                                "in": in_dim},
+                               lambda i: qm.q4_0_t_matmul_multi(x, w.layer(i % n), quantize_acts=quantize),
+                               lambda i: qm.q4_0_t_matmul_multi_plain(x, w.layer(i % n), quantize_acts=quantize),
+                               rows, out, in_dim, wbytes, INT8_OPS if quantize else F32_FLOPS, 100, 3)
+                log(case)
+                if not case["ok"]:
+                    failed.append(case)
+                if (out, in_dim, rows, quantize) == (11008, 4096, MULTI_ROWS, True):
+                    summary["q4_0_t_matmul_multi"] = dict(case, shape=f"B{rows} {out}x{in_dim}")
+        del w, base
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_fused_blocks(torch, g, summary) -> list:
+    """Row 11, the attention block and the FFN block, against their plain
+    versions at 7B width (32 heads, n_ff 11008) with 2 layers of weights, at
+    ``FUSED_NPAST`` on f32 and bf16 caches whose rows at and beyond n_past
+    are stale (never read): the cache bytes unchanged by the call; k_new and
+    v_new within 1e-5 (bf16: one bf16 step, as ``fused_case``); each delta
+    within 5e-4 where no 4-bit activation code differs between the two
+    (their quantizer inputs are traced), else the flips counted and held
+    below ``FUSED_FLIP_LIMIT``.  Times against the bound of one layer's
+    bytes (the attention block's weights and the n_past history rows; the
+    FFN block's weights).  No single PyTorch call computes either block, so
+    ``library_ms`` is None."""
+    from llama_swift_torch.ops import fused_layer as fl
+    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
+
+    H, n_ctx, F, L = 32, 512, 11008, 2
+    D = H * fl.HEAD_DIM
+    wqkv, wo, w13, w2 = (rand_q4(torch, g, L, out, in_dim) for out, in_dim in
+                         [(3 * D, D), (D, D), (2 * F, D), (D, F)])
+    an, fn = (1.0 + 0.05 * torch.randn((L, D), device="cuda", generator=g) for _ in range(2))
+    x = torch.randn(D, device="cuda", generator=g)
+    grids = fl.block_grids(H, F)
+    log({"case": "fused_blocks_grid", "attn_blocks": grids[0], "ffn_blocks": grids[1]})
+    failed = []
+
+    def flips(tr_k, tr_p):
+        return int((quantize_activations_q4_0_int(tr_k[0])[0] != quantize_activations_q4_0_int(tr_p[0])[0]).sum())
+
+    def wbytes(*shapes):
+        return sum(out * in_dim // 2 + out * (in_dim // 32) * 4 for out, in_dim in shapes)
+
+    # the FFN block reads no cache: one case
+    tr_k, tr_p = [], []
+    delta = fl.fused_ffn_block(x, fn[1], w13, w2, 1, trace=tr_k)
+    ref = fl.fused_ffn_block_plain(x, fn[1], w13, w2, 1, trace=tr_p)
+    err, nflip = rel_err(delta, ref), flips(tr_k, tr_p)
+    nbytes = wbytes((2 * F, D), (D, F)) + 3 * D * 4
+    t_ops = 2 * 3 * D * F / INT8_OPS
+    case = {"case": "fused_ffn_block", "layers": L, "max_rel_err": err, "max_abs_err": float((delta - ref).abs().max()),
+            "q4_flips": nflip,
+            "kernel_ms": time_ms(torch, lambda i: fl.fused_ffn_block(x, fn[i % L], w13, w2, i % L), 50),
+            "plain_ms": time_ms(torch, lambda i: fl.fused_ffn_block_plain(x, fn[i % L], w13, w2, i % L), 3),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3, "bound_by": "bytes", "library_ms": None,
+            "ok": bool(torch.isfinite(delta).all()) and (err <= 5e-4 or 0 < nflip <= FUSED_FLIP_LIMIT)}
+    log(case)
+    if not case["ok"]:
+        failed.append(case)
+    summary["fused_ffn_block"] = dict(case, shape=f"D{D} n_ff{F}, one layer")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        kc0 = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
+        vc0 = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
+        for n_past in FUSED_NPAST:
+            kc, vc = kc0.clone(), vc0.clone()
+            kc[:, :, n_past:] = 1e4  # stale rows: the block reads only j < n_past
+            vc[:, :, n_past:] = -1e4
+            k0, v0 = kc.clone(), vc.clone()
+            cos, sin = fl.rope_vectors(n_past, device="cuda")
+            tr_k, tr_p = [], []
+            delta, k_new, v_new = fl.fused_attn_block(x, an[1], cos, sin, wqkv, wo, kc, vc, 1, n_past, trace=tr_k)
+            torch.cuda.synchronize()
+            cache_ok = bool(torch.equal(kc, k0) and torch.equal(vc, v0))
+            ref, k_ref, v_ref = fl.fused_attn_block_plain(x, an[1], cos, sin, wqkv, wo, kc, vc, 1, n_past,
+                                                          trace=tr_p)
+            pairs = ((k_new, k_ref), (v_new, v_ref))
+            kv_err = max(rel_err(a, b) for a, b in pairs)
+            if dtype == torch.bfloat16:
+                kv_ok = all(bool(((a - b).abs() <= b.abs() * 2.0**-7).all()) for a, b in pairs)
+            else:
+                kv_ok = kv_err <= 1e-5
+            err, nflip = rel_err(delta, ref), flips(tr_k, tr_p)
+            elt = kc.element_size()
+            nbytes = wbytes((3 * D, D), (D, D)) + 2 * H * n_past * fl.HEAD_DIM * elt + 2 * D * 4 + 3 * D * 4
+            t_ops = 2 * 4 * D * D / INT8_OPS
+            case = {"case": "fused_attn_block", "layers": L, "cache": str(dtype).split(".")[-1], "n_past": n_past,
+                    "max_rel_err": err, "max_abs_err": float((delta - ref).abs().max()), "kv_new_rel_err": kv_err,
+                    "kv_new_ok": kv_ok, "cache_unchanged": cache_ok, "q4_flips": nflip,
+                    "kernel_ms": time_ms(torch, lambda i: fl.fused_attn_block(
+                        x, an[i % L], cos, sin, wqkv, wo, kc, vc, i % L, n_past), 50),
+                    "plain_ms": time_ms(torch, lambda i: fl.fused_attn_block_plain(
+                        x, an[i % L], cos, sin, wqkv, wo, kc, vc, i % L, n_past), 3),
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3, "bound_by": "bytes",
+                    "library_ms": None}
+            case["ok"] = bool(torch.isfinite(delta).all()) and cache_ok and (
+                (err <= 5e-4 and kv_ok) or 0 < nflip <= FUSED_FLIP_LIMIT)
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
+            if dtype == torch.float32 and n_past == 127:
+                summary["fused_attn_block"] = dict(case, shape=f"H{H} n_past{n_past} f32, one layer")
+        del kc0, vc0, kc, vc
+    del wqkv, wo, w13, w2
+    torch.cuda.empty_cache()
+    return failed
+
+
 def check_kernels(torch) -> dict:
     """Returns {kernel name: summary at its representative shape}."""
     from llama_swift_torch.ops import attention as att
@@ -582,6 +747,8 @@ def check_kernels(torch) -> dict:
     failed += check_q4_1_kernels(torch, g, summary)
     failed += check_f32_kernels(torch, g, summary)
     failed += check_t_kernel(torch, g, summary)
+    failed += check_int_t_kernels(torch, g, summary)
+    failed += check_fused_blocks(torch, g, summary)
 
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
@@ -926,8 +1093,9 @@ def recording(record, tag):
     """While active, every Q4_0 matvec and multi-row product, every Q4_1
     matvec and every Q4_0 and Q4_1 activation fake-quantization (the Q4_1
     products of more than one row; the Q4_0 products of more than 32 rows
-    and every product on the T layout) appends ``(tag[0], activation rows
-    on the CPU)``
+    and the T layout's phase-kernel products), and every product of the
+    T layout's integer and multi-row wrappers, appends ``(tag[0], activation
+    rows on the CPU)``
     to ``record`` (None: no recording), and every whole-stack call
     ``(tag[0], its quantizer inputs [L, 3D + F])``, so that two runs can be
     compared activation by activation."""
@@ -936,6 +1104,7 @@ def recording(record, tag):
 
     matvec, multi, fused = qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block
     matvec41, fq41, fq40 = qmm.q4_1_matvec, qmm.fake_quantize_q4_1, qmm.fake_quantize_q4_0
+    int_t, multi_t = qmm.q4_0_int_matmul, qmm.q4_0_t_matmul_multi
 
     def fused_rec(*args, **kwargs):
         trace = []
@@ -949,12 +1118,15 @@ def recording(record, tag):
         qmm.q4_1_matvec = lambda x, w, **k: record.append((tag[0], x[None].cpu())) or matvec41(x, w, **k)
         qmm.fake_quantize_q4_1 = lambda x: record.append((tag[0], x.reshape(-1, x.shape[-1]).cpu())) or fq41(x)
         qmm.fake_quantize_q4_0 = lambda x: record.append((tag[0], x.reshape(-1, x.shape[-1]).cpu())) or fq40(x)
+        qmm.q4_0_int_matmul = lambda x, w: record.append((tag[0], x.cpu())) or int_t(x, w)
+        qmm.q4_0_t_matmul_multi = lambda x, w, **k: record.append((tag[0], x.cpu())) or multi_t(x, w, **k)
         model_lib.fused_layers_block = fused_rec
     try:
         yield
     finally:
         qmm.q4_0_matvec, qmm.q4_0_matmul_multi, model_lib.fused_layers_block = matvec, multi, fused
         qmm.q4_1_matvec, qmm.fake_quantize_q4_1, qmm.fake_quantize_q4_0 = matvec41, fq41, fq40
+        qmm.q4_0_int_matmul, qmm.q4_0_t_matmul_multi = int_t, multi_t
 
 
 def flip_counts(rec_cpu, rec_card, q4_1: bool = False):
@@ -1784,7 +1956,8 @@ def tp_forward(torch, tensors, cfg, device, mesh, **build_kw):
 @contextlib.contextmanager
 def forcing(own, card_record):
     """While active, the i-th Q4_0 product input (every matvec, multi-row
-    product and activation fake-quantization, in ``recording``'s order) is
+    product, activation fake-quantization and T-layout integer or multi-row
+    product, in ``recording``'s order) is
     appended to ``own`` (as ``recording`` appends it, tagged None) and
     replaced by the card's input in ``card_record[i]``, so
     that both devices quantize the same activations: no 4-bit code can flip
@@ -1792,6 +1965,7 @@ def forcing(own, card_record):
     from llama_swift_torch.ops import quantized_matmul as qmm
 
     matvec, multi, fq40 = qmm.q4_0_matvec, qmm.q4_0_matmul_multi, qmm.fake_quantize_q4_0
+    int_t, multi_t = qmm.q4_0_int_matmul, qmm.q4_0_t_matmul_multi
 
     def take(x):
         i = len(own)
@@ -1803,13 +1977,58 @@ def forcing(own, card_record):
     qmm.q4_0_matvec = lambda x, w, **k: matvec(take(x), w, **k)
     qmm.q4_0_matmul_multi = lambda x, w, **k: multi(take(x), w, **k)
     qmm.fake_quantize_q4_0 = lambda x: fq40(take(x))
+    qmm.q4_0_int_matmul = lambda x, w: int_t(take(x), w)
+    qmm.q4_0_t_matmul_multi = lambda x, w, **k: multi_t(take(x), w, **k)
     try:
         yield
     finally:
         qmm.q4_0_matvec, qmm.q4_0_matmul_multi, qmm.fake_quantize_q4_0 = matvec, multi, fq40
+        qmm.q4_0_int_matmul, qmm.q4_0_t_matmul_multi = int_t, multi_t
 
 
-def check_tp_parity(torch) -> None:
+#: (name, fused, build arguments, activations, the T gates (MAX_INT_KERNEL_ROWS, MAX_MULTI_ROWS_T))
+TP_CASES = [
+    ("v_fused", True, dict(q4_layout="v"), "q4", (0, 0)),
+    ("v_fused", True, dict(q4_layout="v"), "f32", (0, 0)),
+    ("t", False, dict(shard_pad=128), "q4", (0, 0)),
+    ("t", False, dict(shard_pad=128), "f32", (0, 0)),
+    ("t_fused", True, dict(shard_pad=128), "q4", (0, 0)),
+]
+#: path A's gates: (a) every product on row 12; (b) decode on row 13
+INT_TP_CASES = [
+    ("t_int", False, dict(shard_pad=128), "q4", (64, 0)),
+    ("t_multi", False, dict(shard_pad=128), "q4", (0, 32)),
+    ("t_multi", False, dict(shard_pad=128), "f32", (0, 32)),
+]
+
+
+@contextlib.contextmanager
+def t_gates(max_int: int, max_multi: int):
+    """``ops/q4_matmul``'s two T gates raised while active, restored after."""
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    saved = qm.MAX_INT_KERNEL_ROWS, qm.MAX_MULTI_ROWS_T
+    qm.MAX_INT_KERNEL_ROWS, qm.MAX_MULTI_ROWS_T = max_int, max_multi
+    try:
+        yield
+    finally:
+        qm.MAX_INT_KERNEL_ROWS, qm.MAX_MULTI_ROWS_T = saved
+
+
+def t_product_counts(fused: bool, n_layer: int, gates, n_rows: int) -> dict:
+    """The launches of one T-layout forward of ``n_rows`` rows: every
+    product on the wrapper that ``linear``'s gates pick (7·L + 1 products,
+    4·L + 1 fused)."""
+    n_mm = (4 if fused else 7) * n_layer + 1
+    max_int, max_multi = gates
+    if n_rows <= max_int:
+        return {"q4_0_int_matmul": n_mm}
+    if n_rows <= max_multi:
+        return {"q4_0_t_matmul_multi": n_mm}
+    return {"q4_0_matmul_t": n_mm}
+
+
+def check_tp_parity(torch, cases=TP_CASES) -> None:
     """TP parity at 7B width, 2 layers, in a real NCCL group of one: the V
     layout (fused, fuse_shards=1) and the T layout (shard_pad=128, unfused
     and fused: on the card the default layout of such a build) through
@@ -1821,7 +2040,9 @@ def check_tp_parity(torch) -> None:
     the devices; then the logits and every product's input (the prompt's
     rows) are within 2e-3 of the card's, with no exemption for flips.  On
     the T layout every card forward is exactly 7·L + 1 (4·L + 1 fused)
-    launches of the T kernel, prefill and decode alike."""
+    launches of the wrapper the case's gates pick (``t_product_counts``:
+    at the gates 0 the T kernel, prefill and decode alike; ``INT_TP_CASES``
+    raise them as path A does, both devices under the same gates)."""
     from llama_swift_torch import ops
     from llama_swift_torch.config import GGMLType, ModelConfig
     from llama_swift_torch.models import llama as model_lib
@@ -1831,13 +2052,6 @@ def check_tp_parity(torch) -> None:
     tensors = dict(synthetic_tensors(base, seed=7))
     prompt, length = model_lib.pad_tokens([1, 450, 17, 3000, 9, 222, 31000, 5, 77], 64)
     steps = [77, 12000, 345, 6]
-    cases = [  # (name, fused, build arguments, activations)
-        ("v_fused", True, dict(q4_layout="v"), "q4"),
-        ("v_fused", True, dict(q4_layout="v"), "f32"),
-        ("t", False, dict(shard_pad=128), "q4"),
-        ("t", False, dict(shard_pad=128), "f32"),
-        ("t_fused", True, dict(shard_pad=128), "q4"),
-    ]
 
     def run(device, cfg, build_kw, record, force=None):
         out = []
@@ -1859,16 +2073,17 @@ def check_tp_parity(torch) -> None:
 
     rec = {"case": "tp_parity_7b_width_2_layers"}
     with nccl_group_of_one(torch) as device:
-        for name, fused, build_kw, act in cases:
+        for name, fused, build_kw, act, gates in cases:
             cfg = dataclasses.replace(base, fuse_layer_matmuls=fused, quantize_activations=act == "q4")
             rec_cpu, rec_card = ([], []) if act == "q4" else (None, None)
             key = f"{name}_{act}"
             before = ops.launch_counts()
-            card, per = run(device, cfg, build_kw, rec_card)
-            prefill = {k: v - before[k] for k, v in ops.launch_counts().items()}
-            t0 = time.perf_counter()
-            cpu, _ = run("cpu", cfg, build_kw, rec_cpu, force=rec_card)
-            rec[f"{key}_cpu_s"] = time.perf_counter() - t0
+            with t_gates(*gates):
+                card, per = run(device, cfg, build_kw, rec_card)
+                prefill = {k: v - before[k] for k, v in ops.launch_counts().items()}
+                t0 = time.perf_counter()
+                cpu, _ = run("cpu", cfg, build_kw, rec_cpu, force=rec_card)
+                rec[f"{key}_cpu_s"] = time.perf_counter() - t0
             rec[f"{key}_prefill_rel_err"] = rel_err(card[0], cpu[0])
             rec[f"{key}_decode_rel_err_max"] = max(rel_err(a, b) for a, b in zip(card[1:], cpu[1:]))
             rec[f"{key}_finite"] = all(bool(torch.isfinite(t).all()) for t in card)
@@ -1882,11 +2097,12 @@ def check_tp_parity(torch) -> None:
                 rec[f"{key}_flips_held_off"] = sum(int(f.sum()) for f in flip_counts(
                     [(None, c) for c, _ in pairs], [(None, g) for _, g in pairs]))
                 ok = ok and len(rec_cpu) == len(rec_card) and rec[f"{key}_input_rel_err_max"] <= bar
-            if name.startswith("t"):  # every product on the T kernel, the prefill's 64 rows too
-                n_mm = (4 if fused else 7) * cfg.n_layer + 1
+            if name.startswith("t"):  # every product on the gates' wrapper, the prefill's 64 rows too
+                step = t_product_counts(fused, cfg.n_layer, gates, 1)
+                first = t_product_counts(fused, cfg.n_layer, gates, len(prompt))
                 rec[f"{key}_step_launches"] = per[0]
-                ok = ok and all(p.get("q4_0_matmul_t") == n_mm and "q4_0_dequant" not in p for p in per)
-                ok = ok and prefill["q4_0_matmul_t"] - sum(p["q4_0_matmul_t"] for p in per) == n_mm
+                ok = ok and all(p.get(k) == v and "q4_0_dequant" not in p for p in per for k, v in step.items())
+                ok = ok and all(prefill[k] - sum(p.get(k, 0) for p in per) == v for k, v in first.items())
             rec[f"{key}_ok"] = ok and rec[f"{key}_finite"]
     rec["ok"] = all(v for k, v in rec.items() if k.endswith("_ok"))
     log(rec)
@@ -1897,7 +2113,76 @@ def check_tp_parity(torch) -> None:
 SERVE_LINE = re.compile(r"\[serve\] (\d+) tokens, ([\d.]+) tok/s decode, prefill ([\d.]+)s")
 
 
-def serve_tp(torch, path: str, profile: bool) -> list:
+def t_forward_run(torch, fwd, params, cache, device, n_layer: int, n_tok: int, gates, name: str) -> dict:
+    """The 32-layer T-layout TP forward: a 40-token prompt in the 64-row
+    bucket and ``n_tok`` greedy tokens, the launch counters reset just
+    before and read just after; exactly 7·L + 1 launches a forward of the
+    wrapper that the T gates pick for its rows (``t_product_counts``), L
+    flash launches a decoded token and nothing else.  Returns the counts."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.models import llama as model_lib
+
+    prompt, length = model_lib.pad_tokens(list(range(1, 41)), 64)
+    ops.reset_launch_counts()  # the T path's run starts here
+    t0 = time.perf_counter()
+    logits, cache = fwd(params, torch.as_tensor(prompt.astype(np.int64), device=device), 0, cache)
+    tok = logits[length - 1].argmax().reshape(1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks = []
+    t0 = time.perf_counter()
+    for i in range(n_tok):
+        logits, cache = fwd(params, tok, length + i, cache)
+        tok = logits[0].argmax().reshape(1)
+        toks.append(tok)
+    ids = torch.cat(toks).tolist()
+    t_decode = time.perf_counter() - t0
+    counts = ops.launch_counts()  # read just after
+    expect = {k: 0 for k in counts}
+    expect.update(t_product_counts(False, n_layer, gates, len(prompt)))
+    for k, v in t_product_counts(False, n_layer, gates, 1).items():
+        expect[k] += v * n_tok
+    expect["flash_decode_attention"] = n_layer * n_tok
+    rec = {"case": name, "gates": list(gates), "prefill_s": t_prefill, "decode_s": t_decode,
+           "decode_tok_per_s": n_tok / t_decode, "launches": {k: v for k, v in counts.items() if v},
+           "ids_tail": ids[-8:], "finite": bool(torch.isfinite(logits).all())}
+    log(rec)
+    if counts != expect or not rec["finite"] or len(ids) != n_tok:
+        raise SystemExit(f"chip_smoke: T-layout TP forward {name}: launches {counts} != expected {expect}")
+    return counts
+
+
+def serve_tp_v(torch, path: str, n_layer: int, n_tok: int) -> dict:
+    """``llama_swift_torch.serve.main`` on the 7B file at tp = 1 (see
+    ``serve_tp``); returns its launch counts."""
+    import io
+
+    from llama_swift_torch import ops, serve as serve_mod
+
+    ops.reset_launch_counts()  # the V serve path's run starts here
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_mod.main(["--model", path, "--tp", "1", "--coordinator", f"127.0.0.1:{free_port()}",
+                             "--num-processes", "1", "--process-id", "0", "--n-tokens", "32", "--seed", "5"])
+    counts = ops.launch_counts()  # read just after
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    m = SERVE_LINE.search(text)
+    expect = {k: 0 for k in counts}
+    expect.update({"q4_0_matvec": (4 * n_layer + 1) * n_tok, "flash_decode_attention": n_layer * n_tok,
+                   "q4_0_dequant": 4 * n_layer + 1})
+    rec = {"case": "serve_tp_v", "rc": rc, "wall_s": wall, "tokens": int(m.group(1)) if m else None,
+           "decode_tok_per_s": float(m.group(2)) if m else None, "prefill_s": float(m.group(3)) if m else None,
+           "launches": {k: v for k, v in counts.items() if v}, "text_tail": text[-160:]}
+    log(rec)
+    if rc != 0 or rec["tokens"] != n_tok or counts != expect:
+        raise SystemExit(f"chip_smoke: serve.main: rc {rc}, launches {counts} != expected {expect}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_tp(torch, path: str, profile: bool, int_only: bool = False) -> list:
     """The TP serving paths on the 32-layer 7B Q4_0 file, each with the
     launch counters reset just before and read just after:
 
@@ -1910,40 +2195,21 @@ def serve_tp(torch, path: str, profile: bool) -> list:
       for a TP build) through ``make_tp_forward`` in a NCCL group of one: a
       64-row prefill and 32 greedy tokens, exactly 225 ``q4_0_matmul_t``
       launches a forward (prefill and decode alike) and 32 flash a token,
-      no dequant; with ``--profile`` an 8-step window of its decode.
+      no dequant; with ``--profile`` an 8-step window of its decode;
+    * path A, the same T forward with 16 greedy tokens under raised gates:
+      (a) ``MAX_INT_KERNEL_ROWS = 64``, 225 ``q4_0_int_matmul`` launches a
+      forward, the 64-row prefill too; (b) ``MAX_MULTI_ROWS_T = 32``, 225
+      ``q4_0_t_matmul_multi`` a decoded token and 225 ``q4_0_matmul_t`` for
+      the prefill; the gates restored after each.
 
-    Returns the two runs' launch counts."""
-    import io
-
-    from llama_swift_torch import ops, serve as serve_mod
+    ``int_only`` runs path A alone.  Returns each run's launch counts."""
     from llama_swift_torch.formats import ggml
-    from llama_swift_torch.models import llama as model_lib
     from llama_swift_torch.parallel.mesh import make_mesh
 
     runs = []
-    ops.reset_launch_counts()  # the V serve path's run starts here
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = serve_mod.main(["--model", path, "--tp", "1", "--coordinator", f"127.0.0.1:{free_port()}",
-                             "--num-processes", "1", "--process-id", "0", "--n-tokens", "32", "--seed", "5"])
-    counts = ops.launch_counts()  # read just after
-    wall = time.perf_counter() - t0
-    text = buf.getvalue()
-    m = SERVE_LINE.search(text)
     n_layer, n_tok = 32, 32
-    expect = {k: 0 for k in counts}
-    expect.update({"q4_0_matvec": (4 * n_layer + 1) * n_tok, "flash_decode_attention": n_layer * n_tok,
-                   "q4_0_dequant": 4 * n_layer + 1})
-    rec = {"case": "serve_tp_v", "rc": rc, "wall_s": wall, "tokens": int(m.group(1)) if m else None,
-           "decode_tok_per_s": float(m.group(2)) if m else None, "prefill_s": float(m.group(3)) if m else None,
-           "launches": {k: v for k, v in counts.items() if v}, "text_tail": text[-160:]}
-    log(rec)
-    if rc != 0 or rec["tokens"] != n_tok or counts != expect:
-        raise SystemExit(f"chip_smoke: serve.main: rc {rc}, launches {counts} != expected {expect}")
-    runs.append(counts)
-    torch.cuda.empty_cache()
-
+    if not int_only:
+        runs.append(serve_tp_v(torch, path, n_layer, n_tok))
     mf = ggml.load_model_file(path)
     cfg = mf.config
     with nccl_group_of_one(torch) as device:
@@ -1954,38 +2220,113 @@ def serve_tp(torch, path: str, profile: bool) -> list:
         if mf.native_handle is not None:
             mf.native_handle.close()
         del mf
-        prompt, length = model_lib.pad_tokens(list(range(1, 41)), 64)
-        ops.reset_launch_counts()  # the T path's run starts here
-        t0 = time.perf_counter()
-        logits, cache = fwd(params, torch.as_tensor(prompt.astype(np.int64), device=device), 0, cache)
-        tok = logits[length - 1].argmax().reshape(1)
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        toks = []
-        t0 = time.perf_counter()
-        for i in range(n_tok):
-            logits, cache = fwd(params, tok, length + i, cache)
-            tok = logits[0].argmax().reshape(1)
-            toks.append(tok)
-        ids = torch.cat(toks).tolist()
-        t_decode = time.perf_counter() - t0
-        counts = ops.launch_counts()  # read just after
-        expect = {k: 0 for k in counts}
-        expect.update({"q4_0_matmul_t": (7 * n_layer + 1) * (n_tok + 1), "flash_decode_attention": n_layer * n_tok})
-        rec = {"case": "serve_tp_t", "t_load_s": t_load, "prefill_s": t_prefill, "decode_s": t_decode,
-               "decode_tok_per_s": n_tok / t_decode, "launches": {k: v for k, v in counts.items() if v},
-               "ids_tail": ids[-8:], "finite": bool(torch.isfinite(logits).all())}
-        log(rec)
-        if counts != expect or not rec["finite"] or len(ids) != n_tok:
-            raise SystemExit(f"chip_smoke: T-layout TP forward: launches {counts} != expected {expect}")
-        runs.append(counts)
-        if profile:
-            tok1 = torch.ones(1, dtype=torch.int64, device=device)
-            profile_window(torch, "profile_tp_t_decode_8_steps",
-                           lambda i: fwd(params, tok1, length + n_tok + i, cache))
+        log({"case": "tp_t_load", "t_load_s": t_load})
+        if not int_only:  # the gates at 0: serving's T path
+            runs.append(t_forward_run(torch, fwd, params, cache, device, n_layer, n_tok, (0, 0), "serve_tp_t"))
+            if profile:
+                tok1 = torch.ones(1, dtype=torch.int64, device=device)
+                profile_window(torch, "profile_tp_t_decode_8_steps",
+                               lambda i: fwd(params, tok1, 40 + n_tok + i, cache))
+        # path A: the same forward with the integer gates raised, 16 tokens each
+        for name, gates in (("path_a_int_64", (64, 0)), ("path_a_multi_32", (0, 32))):
+            with t_gates(*gates):
+                runs.append(t_forward_run(torch, fwd, params, cache, device, n_layer, 16, gates, name))
         del params, cache
     torch.cuda.empty_cache()
     return runs
+
+
+def decode_r4(torch, params, cfg, n_past: int = 127) -> dict:
+    """Path B, the JAX package's "two kernels per layer" decode step, on the
+    fused 32-layer 7B params: one token at ``n_past`` through L attention
+    blocks and L FFN blocks; per layer the attention block, the caller's
+    write of k_new/v_new at n_past into an f32 cache (history rows from a
+    seed), the residual add, the FFN block, the residual add.  The counters
+    are reset just before and read just after: exactly L launches of each
+    block and nothing else.  The final x is held against the whole-stack
+    kernel on the same inputs (a copy of the cache): within 5e-4 where no
+    4-bit activation code differs (both traced), else the flips counted and
+    held below ``FUSED_FLIP_LIMIT``; the rows written at n_past likewise.
+    Times a step of each on the card.  Returns the blocks' launch counts."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.ops import fused_layer as fl
+    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
+
+    st = params["layers_stacked"]
+    L, H, D = cfg.n_layer, cfg.n_head, cfg.n_embd
+    g = torch.Generator(device="cuda").manual_seed(127)
+    kc = torch.randn((L, H, cfg.n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
+    vc = torch.randn((L, H, cfg.n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
+    x0 = torch.randn(D, device="cuda", generator=g)
+    cos, sin = fl.rope_vectors(n_past, device="cuda")
+    kw = dict(norm_type=cfg.norm_type, eps=cfg.norm_eps)
+
+    def step(trace=None):
+        x = x0
+        for il in range(L):
+            tr = [] if trace is not None else None
+            delta, k_new, v_new = fl.fused_attn_block(x, st["attention_norm"][il], cos, sin, st["wqkv"], st["wo"],
+                                                      kc, vc, il, n_past, trace=tr, **kw)
+            kc[il, :, n_past], vc[il, :, n_past] = k_new, v_new
+            x = x + delta
+            x = x + fl.fused_ffn_block(x, st["ffn_norm"][il], st["w13"], st["w2"], il,
+                                       fuse_shards=params.fuse_shards, trace=tr, **kw)
+            if trace is not None:
+                trace.append(torch.cat(tr))
+        return x
+
+    km, vm = kc.clone(), vc.clone()
+    tr_b, tr_m = [], []
+    ops.reset_launch_counts()  # path B's run starts here
+    x_b = step(tr_b)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()  # read just after
+    expect = {k: 0 for k in counts}
+    expect.update(fused_attn_block=L, fused_ffn_block=L)
+    mega = lambda i: fl.fused_layers_block(  # noqa: E731
+        x0, st["attention_norm"], st["ffn_norm"], st["wqkv"], st["wo"], st["w13"], st["w2"], km, vm, n_past, **kw)
+    x_m = fl.fused_layers_block(x0, st["attention_norm"], st["ffn_norm"], st["wqkv"], st["wo"], st["w13"], st["w2"],
+                                km, vm, n_past, trace=tr_m, **kw)
+    flips = int((quantize_activations_q4_0_int(torch.stack(tr_b))[0]
+                 != quantize_activations_q4_0_int(tr_m[0])[0]).sum())
+    err = rel_err(x_b, x_m)
+    kv_err = max(rel_err(a[:, :, n_past], b[:, :, n_past]) for a, b in ((kc, km), (vc, vm)))
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 8 * 1e3
+    blocks_ms, mega_ms = time_ms(torch, lambda i: step(), 5), time_ms(torch, mega, 10)
+    rec = {"case": "path_b_r4_decode", "layers": L, "n_past": n_past, "launches": {k: v for k, v in counts.items()
+                                                                                   if v},
+           "max_rel_err": err, "max_abs_err": float((x_b - x_m).abs().max()), "kv_new_rel_err": kv_err,
+           "q4_flips": flips, "blocks_step_ms": blocks_ms, "blocks_wall_ms": wall_ms, "megakernel_ms": mega_ms,
+           "blocks_tok_per_s_device": 1e3 / blocks_ms, "megakernel_tok_per_s_device": 1e3 / mega_ms}
+    rec["ok"] = counts == expect and bool(torch.isfinite(x_b).all()) and (
+        (err <= 5e-4 and kv_err <= 5e-4) or 0 < flips <= FUSED_FLIP_LIMIT)
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"chip_smoke: path B (two kernels a layer) failed: {rec}")
+    del kc, vc, km, vm
+    torch.cuda.empty_cache()
+    return counts
+
+
+def decode_r4_from_file(torch, path: str) -> dict:
+    """Path B on fused params loaded from the 7B file (``--only int``)."""
+    from llama_swift_torch.formats import ggml
+    from llama_swift_torch.models import llama as model_lib
+
+    mf = ggml.load_model_file(path)
+    cfg = dataclasses.replace(mf.config, fuse_layer_matmuls=True)
+    params = model_lib.params_from_tensors(mf.tensors, cfg, device="cuda")
+    if mf.native_handle is not None:
+        mf.native_handle.close()
+    del mf
+    counts = decode_r4(torch, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
@@ -2061,20 +2402,29 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
     "q4_1_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
     "q4_0_matmul_multi_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
     "q4_0_matmul_t": ("llama_swift_torch/csrc/q4_matmul_t.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:424"),
+    "q4_0_int_matmul": ("llama_swift_torch/csrc/q4_int_mma.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:196"),
+    # the T multi-row product runs the V layout's multi-row and matvec kernels (one logical layout)
+    "q4_0_t_matmul_multi": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:681"),
+    "fused_attn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:481"),
+    "fused_ffn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:320"),
 }
 
-#: the kernels of the paths that ``--only q4_1`` and ``--only tp`` run
+#: the kernels of the paths that ``--only q4_1``, ``--only tp`` and ``--only int`` run
 ONLY_KERNELS = {
     "q4_1": ("q4_1_matvec", "q4_1_dequant", "q4_1_matvec_f32"),
-    "tp": ("q4_0_matvec", "flash_decode_attention", "q4_0_dequant", "q4_0_matmul_t"),
+    "tp": ("q4_0_matvec", "flash_decode_attention", "q4_0_dequant", "q4_0_matmul_t", "q4_0_int_matmul",
+           "q4_0_t_matmul_multi"),
+    "int": ("flash_decode_attention", "q4_0_matmul_t", "q4_0_int_matmul", "q4_0_t_matmul_multi", "fused_attn_block",
+            "fused_ffn_block"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "q4_1", "tp"], default=None,
+    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int"], default=None,
                     help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases; "
-                         "tp: those and the TP phases")
+                         "tp: those and the TP phases; int: those, the T integer paths' parity, "
+                         "path B and path A")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -2129,16 +2479,19 @@ def main(argv=None) -> int:
             runs.append(serve_engine(torch, fused, [("E_fused_dense_f32", 8, dict(cache_dtype=torch.float32),
                                                      ENGINE_PROMPTS[:12], [None] * 12,
                                                      "flash_decode_attention_batched")]))
+            runs.append(decode_r4(torch, fused.params, fused.config))
             del fused
             torch.cuda.empty_cache()
-        if args.only in (None, "tp"):
-            check_tp_parity(torch)
-            if args.only == "tp":
+        if args.only in (None, "tp", "int"):
+            check_tp_parity(torch, INT_TP_CASES if args.only == "int" else TP_CASES + INT_TP_CASES)
+            if args.only in ("tp", "int"):
                 from llama_swift_torch.config import GGMLType, ModelConfig
 
                 path = os.path.join(workdir, "synthetic-7b-q4_0.bin")
                 write_model(path, ModelConfig.llama_7b(ftype=GGMLType.Q4_0), seed=2024)
-            runs += serve_tp(torch, path, args.profile)
+            if args.only == "int":
+                runs.append(decode_r4_from_file(torch, path))
+            runs += serve_tp(torch, path, args.profile, int_only=args.only == "int")
             os.remove(path)
         if args.only in (None, "q4_1"):
             check_parity_q4_1(torch)

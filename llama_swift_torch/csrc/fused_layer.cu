@@ -44,7 +44,8 @@
 //    (5-14 KB) into its shared memory for its rows.  The norm statistics
 //    are the only thing every block computes, with identical code on
 //    identical data (a fixed-order reduction), so all blocks agree.
-//  * The products reuse the matvec's inner loop (q4_common.cuh): a warp per
+//  * The products reuse the matvec's inner loop (q4_common.cuh, through
+//    fused_common.cuh, which fused_blocks.cu shares): a warp per
 //    output row, rows taken with a grid stride, never an early return
 //    (every thread reaches every barrier).  A residual row x[o] += y[o]
 //    belongs to one warp, and no block reads x in the phases that write it.
@@ -57,24 +58,11 @@
 //    never from a stale L1 line.
 //  * Float rounding follows the plain version: _rn intrinsics where nvcc
 //    would contract a multiply and an add, expf (not __expf) in SwiGLU.
-#include <cooperative_groups.h>
-
-#include "flash_common.cuh"
-#include "q4_common.cuh"
+#include "fused_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int DH = 128;  // head dim: one thread per dim in attention
-constexpr int THREADS = DH;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BLOCKS_PER_SM = 4;
-
-struct Weight {
-  const uint8_t* qs;  // [L, out, in/2]
-  const float* d;     // [L, out, in/32]
-};
 
 struct Args {
   float* x;            // [D] residual stream, updated in place
@@ -86,117 +74,11 @@ struct Args {
   float* qkv;          // scratch [3D]
   float* g13;          // scratch [2F]
   float* part;         // scratch [H, S, DH + 2]
-  int8_t* xq;          // scratch [max(D, F)]: the published activation's codes,
-  int* qsum;           //   [max(D, F) / 32] their sums per 32-block
-  float* dx;           //   and their scales
+  Staged st;           // scratch: the published activation, max(D, F) values
   float* trace;        // [L, 3D + F] quantizer inputs, or null
   int L, H, F, n_ctx, n_past, layernorm;
   float eps, scale;
 };
-
-__host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
-
-// Shared memory: the staged activation (codes, sums, scales) and the norm
-// reduction, or in phase B the split pass's arrays plus the roped q.
-__host__ __device__ size_t smem_bytes(int max_in) {
-  const size_t stage = round16(max_in) + 2 * sizeof(float) * (max_in / QK) + WARPS * sizeof(float);
-  const size_t attn = (2 * DH + 2 * CHUNK) * sizeof(float);
-  return stage > attn ? stage : attn;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
-
-// Sum over the block in a fixed order: every thread gets the same value.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum_f(v);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-  for (int w = 0; w < WARPS; ++w) s += red[w];
-  return s;
-}
-
-struct NormStats {
-  float mean, den;  // norm(x)_i = (x_i - mean) / den
-};
-
-// ggml_norm (mean-centered) or RMSNorm statistics of x [n]
-__device__ NormStats norm_stats(const float* x, int n, int layernorm, float eps, float* red) {
-  float s = 0.0f;
-#pragma unroll 8
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const float xi = __ldcg(x + i);
-    s += layernorm ? xi : __fmul_rn(xi, xi);
-  }
-  const float m = __fdiv_rn(block_sum(s, red), static_cast<float>(n));
-  if (!layernorm) return {0.0f, sqrtf(__fadd_rn(m, eps))};
-  float c2 = 0.0f;
-#pragma unroll 8
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const float c = __fsub_rn(__ldcg(x + i), m);
-    c2 += __fmul_rn(c, c);
-  }
-  const float var = __fdiv_rn(block_sum(c2, red), static_cast<float>(n));
-  return {m, sqrtf(__fadd_rn(var, eps))};
-}
-
-__device__ __forceinline__ float norm_elem(float xi, float w, NormStats ns) {
-  return __fmul_rn(__fdiv_rn(__fsub_rn(xi, ns.mean), ns.den), w);
-}
-
-// Quantize act(i), i < n, once across the grid: warps take 32-blocks with
-// a grid stride and publish codes, sums and scales (and the values, to
-// `trace` when given).  A barrier must follow before anyone reads them.
-template <typename Act>
-__device__ void quantize_grid(Act act, int n, const Args& a, float* trace) {
-  const int lane = threadIdx.x & 31;
-  for (int b = blockIdx.x * WARPS + (threadIdx.x >> 5); b < n / QK; b += gridDim.x * WARPS) {
-    const float v = act(b * QK + lane);
-    if (trace != nullptr) trace[b * QK + lane] = v;
-    quantize_block_warp(v, lane, a.xq + b * QK, a.qsum + b, a.dx + b);
-  }
-}
-
-// Copy the published activation of n values into this block's shared memory.
-__device__ void load_staged(const Args& a, int n, int8_t* xq, int* qsum, float* dx) {
-  __syncthreads();  // the previous phase's reads of the staging area are done
-  const uint4* src = reinterpret_cast<const uint4*>(a.xq);
-  for (int i = threadIdx.x; i < n / 16; i += THREADS) reinterpret_cast<uint4*>(xq)[i] = __ldcg(src + i);
-  for (int i = threadIdx.x; i < n / QK; i += THREADS) {
-    qsum[i] = __ldcg(a.qsum + i);
-    dx[i] = __ldcg(a.dx + i);
-  }
-  __syncthreads();
-}
-
-// y[row] (= or +=) W[il][row] . staged activation, a warp per row, rows
-// taken with a grid stride.
-__device__ void q4_rows(Weight w, int il, int out, int nb, const int8_t* xq, const int* qsum,
-                        const float* dx, float* y, bool accumulate) {
-  const int lane = threadIdx.x & 31;
-  const uint8_t* qs = w.qs + static_cast<size_t>(il) * out * nb * 16;
-  const float* dw = w.d + static_cast<size_t>(il) * out * nb;
-  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
-  for (int row = blockIdx.x * WARPS + (threadIdx.x >> 5); row < out; row += gridDim.x * WARPS) {
-    const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
-    const float* drow = dw + static_cast<size_t>(row) * nb;
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int b = lane; b < nb; b += 32) {
-      const int part = block_dot(__ldg(wrow + b), xq4[2 * b], xq4[2 * b + 1], qsum[b]);
-      const float scale = __fmul_rn(__ldg(drow + b), dx[b]);
-      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(part), scale));
-    }
-    acc = warp_sum_f(acc);
-    if (lane == 0) y[row] = accumulate ? __fadd_rn(__ldcg(y + row), acc) : acc;
-  }
-}
 
 // Element d of rope(x) for one head: pair (2j, 2j+1) rotated by (cs, sn).
 __device__ __forceinline__ float rope_elem(const float* x, int d, float cs, float sn) {
@@ -249,9 +131,9 @@ __global__ void __launch_bounds__(THREADS) fused_layers_kernel(Args a) {
     // (A) attention norm, wqkv
     const float* an = a.anorm + static_cast<size_t>(il) * D;
     const NormStats ns = norm_stats(a.x, D, a.layernorm, a.eps, red);
-    quantize_grid([&](int i) { return norm_elem(__ldcg(a.x + i), an[i], ns); }, D, a, tr);
+    quantize_grid([&](int i) { return norm_elem(__ldcg(a.x + i), an[i], ns); }, D, a.st, tr);
     grid.sync();
-    load_staged(a, D, xq, qsum, dx);
+    load_staged(a.st, D, xq, qsum, dx);
     q4_rows(a.wqkv, il, 3 * D, D / QK, xq, qsum, dx, a.qkv, false);
     grid.sync();
     // (B) rope, new K/V, attention splits
@@ -262,58 +144,35 @@ __global__ void __launch_bounds__(THREADS) fused_layers_kernel(Args a) {
       const float v = combine_splits(a.part + static_cast<size_t>(h) * S * (DH + 2), S, DH);
       const int b = h * (DH / QK) + (threadIdx.x >> 5);
       if (tr != nullptr) tr[D + b * QK + (threadIdx.x & 31)] = v;
-      quantize_block_warp(v, threadIdx.x & 31, a.xq + b * QK, a.qsum + b, a.dx + b);
+      quantize_block_warp(v, threadIdx.x & 31, a.st.xq + b * QK, a.st.qsum + b, a.st.dx + b);
     }
     grid.sync();
     // (D) wo + residual
-    load_staged(a, D, xq, qsum, dx);
+    load_staged(a.st, D, xq, qsum, dx);
     q4_rows(a.wo, il, D, D / QK, xq, qsum, dx, a.x, true);
     grid.sync();
     // (E) ffn norm, w13
     const float* fn = a.fnorm + static_cast<size_t>(il) * D;
     const NormStats fs = norm_stats(a.x, D, a.layernorm, a.eps, red);
-    quantize_grid([&](int i) { return norm_elem(__ldcg(a.x + i), fn[i], fs); }, D, a, tr ? tr + 2 * D : nullptr);
+    quantize_grid([&](int i) { return norm_elem(__ldcg(a.x + i), fn[i], fs); }, D, a.st, tr ? tr + 2 * D : nullptr);
     grid.sync();
-    load_staged(a, D, xq, qsum, dx);
+    load_staged(a.st, D, xq, qsum, dx);
     q4_rows(a.w13, il, 2 * F, D / QK, xq, qsum, dx, a.g13, false);
     grid.sync();
     // (F) SwiGLU, w2 + residual
-    quantize_grid(
-        [&](int i) {
-          const float g1 = __ldcg(a.g13 + i), g3 = __ldcg(a.g13 + F + i);
-          return __fmul_rn(__fdiv_rn(g1, __fadd_rn(1.0f, expf(-g1))), g3);
-        },
-        F, a, tr ? tr + 3 * D : nullptr);
+    quantize_grid([&](int i) { return swiglu(__ldcg(a.g13 + i), __ldcg(a.g13 + F + i)); }, F, a.st,
+                  tr ? tr + 3 * D : nullptr);
     grid.sync();
-    load_staged(a, F, xq, qsum, dx);
+    load_staged(a.st, F, xq, qsum, dx);
     q4_rows(a.w2, il, D, F / QK, xq, qsum, dx, a.x, true);
     grid.sync();
   }
 }
 
-// Blocks of one cooperative launch of fused_layers_kernel<T> with `smem`
-// bytes of shared memory a block, or a negative cudaError.
-template <typename T>
-int grid_blocks(size_t smem) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(fused_layers_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layers_kernel<T>, THREADS, smem);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  if (!coop) return -static_cast<int>(cudaErrorNotSupported);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  return (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM) * sms;
-}
-
 int blocks_for(int kind, size_t smem) {
   switch (kind) {
-    case 0: return grid_blocks<float>(smem);
-    case 1: return grid_blocks<__nv_bfloat16>(smem);
+    case 0: return coop_blocks(fused_layers_kernel<float>, smem);
+    case 1: return coop_blocks(fused_layers_kernel<__nv_bfloat16>, smem);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -362,7 +221,7 @@ extern "C" int fused_layers(void* x, const void* anorm, const void* fnorm, const
          {static_cast<const uint8_t*>(wo_qs), static_cast<const float*>(wo_d)},
          {static_cast<const uint8_t*>(w13_qs), static_cast<const float*>(w13_d)},
          {static_cast<const uint8_t*>(w2_qs), static_cast<const float*>(w2_d)},
-         k, v, qkv, qkv + 3 * D, qkv + 3 * D + 2 * F, codes, qsum, dx,
+         k, v, qkv, qkv + 3 * D, qkv + 3 * D + 2 * F, {codes, qsum, dx},
          static_cast<float*>(trace), L, H, F, n_ctx, n_past, layernorm, eps, scale};
   void* args[] = {&a};
   const void* fn = kind == 0 ? reinterpret_cast<const void*>(fused_layers_kernel<float>)

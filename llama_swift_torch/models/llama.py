@@ -70,9 +70,9 @@ from ..ops.attention import (
     gather_pages,
     reference_decode_attention_batched,
 )
-from ..ops.fused_layer import block_perm, fused_layers_block
+from ..ops.fused_layer import fused_layers_block
 from ..ops.norms import norm
-from ..ops.q4_matmul import Q4_0WeightT, from_jax_t
+from ..ops.q4_matmul import Q4_0WeightT, from_jax_t, from_jax_w, unpack_qs_v
 from ..ops.q4_matvec import Q4_0Weight, Q4_1Weight
 from ..ops.rope import rope
 
@@ -281,18 +281,6 @@ def params_from_file(model: GGMLModelFile, *, device=None, param_dtype=None) -> 
     return params_from_tensors(model.tensors, model.config, device=device, param_dtype=param_dtype)
 
 
-def _unpack_qs_v(qs4v: np.ndarray) -> np.ndarray:
-    """JAX V layout words ``[..., out/128, 128, in/8]`` (group-major lanes:
-    lane ``g·nb + b`` holds u32 #g of block b) → logical nibble bytes
-    ``[..., out, in/2]`` — the inverse of ``_pack_qs_v``
-    (``llama_swift_tpu/ops/q4_vpu_pallas.py:62-89``)."""
-    qs4 = np.asarray(qs4v).view(np.uint32)
-    *lead, ot, lt, kh4 = qs4.shape
-    nb = kh4 // 4
-    qs4 = qs4.reshape(*lead, ot * lt, 4, nb).swapaxes(-1, -2)  # [..., out, nb, 4]
-    return np.ascontiguousarray(qs4).view(np.uint8).reshape(*lead, ot * lt, kh4 * 4)
-
-
 def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None, shard_pad: int = 1,
                           fuse_shards: int = 1) -> Params:
     """Carry JAX params across: ``tree`` is the JAX package's stacked params
@@ -302,8 +290,8 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None, shard_pa
     the JAX classes.  Q4_0: ``qs4v``/``scales_v`` (V layout: unpacked to
     logical order, the 4096 in-dim zero padding dropped), ``qs4w``/
     ``scales_w`` (W layout of the fused-layer kernels: the V geometry with
-    blocks permuted by λ, undone with :func:`~..ops.fused_layer.block_perm`,
-    then the padding dropped) or ``qs``/``scales`` (logical).  Q4_1:
+    blocks permuted by λ, carried by :func:`~..ops.q4_matmul.from_jax_w`,
+    which undoes λ and drops the padding) or ``qs``/``scales`` (logical).  Q4_1:
     ``qs4v``/``sm_v`` (V layout; delta lanes ``[0, nb)``, min lanes
     ``[nb, 2nb)``; the padding dropped) or ``qs``/``scales``/``mins``
     (logical).  T layout (``qs4``/``scales_t``, stacked or not): unpacked by
@@ -340,21 +328,19 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig, *, device=None, shard_pa
     def cvt(a, name: str, in_dim: int):
         cls = Q4_0Weight
         if hasattr(a, "sm_v"):  # Q4_1 V layout; sc becomes [..., out, in/32, (d, m)]
-            qs, sm = _unpack_qs_v(a.qs4v), np.asarray(a.sm_v, dtype=np.float32)
+            qs, sm = unpack_qs_v(a.qs4v), np.asarray(a.sm_v, dtype=np.float32)
             sm = sm.reshape(*sm.shape[:-3], -1, sm.shape[-1])  # [..., out, 2·in_pad/32]
             nb = sm.shape[-1] // 2
             sc = np.stack([sm[..., :nb], sm[..., nb:]], axis=-1)
             qs, sc, cls = qs[..., : in_dim // 2], sc[..., : in_dim // QK, :], Q4_1Weight
-        elif hasattr(a, "qs4v") or hasattr(a, "qs4w"):
-            w_layout = hasattr(a, "qs4w")
-            qs = _unpack_qs_v(a.qs4w if w_layout else a.qs4v)  # [..., out, in_pad/2]
-            sc = np.asarray(a.scales_w if w_layout else a.scales_v, dtype=np.float32)
+        elif hasattr(a, "qs4v"):
+            qs = unpack_qs_v(a.qs4v)  # [..., out, in_pad/2]
+            sc = np.asarray(a.scales_v, dtype=np.float32)
             sc = sc.reshape(*sc.shape[:-3], -1, sc.shape[-1])  # [..., out, in_pad/32]
-            if w_layout:  # packed block position λ holds logical block block_perm(nb)[λ]
-                inv = np.argsort(block_perm(sc.shape[-1]))
-                qs = qs.reshape(*qs.shape[:-1], -1, 16)[..., inv, :].reshape(qs.shape)
-                sc = sc[..., inv]
             qs, sc = qs[..., : in_dim // 2], sc[..., : in_dim // QK]
+        elif hasattr(a, "qs4w"):  # W layout: λ undone, the padding dropped
+            t = from_jax_w(a.qs4w, a.scales_w, in_dim)
+            qs, sc = t.qs.numpy(), t.d.numpy()
         elif hasattr(a, "mins"):  # logical Q4_1
             qs, cls = np.asarray(a.qs), Q4_1Weight
             sc = np.stack([np.asarray(a.scales, dtype=np.float32), np.asarray(a.mins, dtype=np.float32)], axis=-1)

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: source stem -> {C function: argument types}; every function returns an
 #: int: the ``cudaGetLastError()`` code after its launches (0 = launched),
-#: or for the ``fused_layers_*`` queries the value asked for
+#: or for the ``*_blocks``/``*_scratch_bytes`` queries the value asked for
 SOURCES = {
     "q4_matvec": {
         "q4_0_matvec": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
@@ -55,6 +55,18 @@ SOURCES = {
     },
     "q4_matmul_t": {
         "q4_0_matmul_t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
+    "q4_int_mma": {
+        "q4_0_int_matmul": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    },
+    "fused_blocks": {
+        "fused_attn_block": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "fused_attn_block_blocks": [ctypes.c_int] * 2,
+        "fused_attn_block_scratch_bytes": [ctypes.c_int] * 2,
+        "fused_ffn_block": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+        "fused_ffn_block_blocks": [ctypes.c_int] * 2,
+        "fused_ffn_block_scratch_bytes": [ctypes.c_int] * 2,
     },
     "fused_layer": {
         "fused_layers": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6

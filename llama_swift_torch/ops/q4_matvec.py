@@ -258,20 +258,27 @@ def q4_0_matvec_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return q4_0_matvec_f32_plain(x, w)
-    out, in_dim = w.shape
-    _check_weight(w, x, "q4_0_matvec_f32")
-    _check_x(x, (in_dim,), "q4_0_matvec_f32")
-    if in_dim > MAX_F32_IN:
-        raise ValueError(f"q4_0_matvec_f32: in dim {in_dim} exceeds {MAX_F32_IN} (shared memory)")
-    y = torch.empty(out, dtype=torch.float32, device=x.device)
-    code = build.lib("q4_matvec").q4_0_matvec_f32(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, _stream(x))
-    build.check(code, "q4_0_matvec_f32")
+    y = _launch_q4_0_matvec_f32(x, w, "q4_0_matvec_f32")
     q4_0_matvec_f32.launches += 1
     return y
 
 
 q4_0_matvec_f32.launches = 0
+
+
+def _launch_q4_0_matvec_f32(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.Tensor:
+    """Check and launch the f32-activation matvec kernel (no count: the
+    caller's wrapper counts its launch)."""
+    out, in_dim = w.shape
+    _check_weight(w, x, what)
+    _check_x(x, (in_dim,), what)
+    if in_dim > MAX_F32_IN:
+        raise ValueError(f"{what}: in dim {in_dim} exceeds {MAX_F32_IN} (shared memory)")
+    y = torch.empty(out, dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_0_matvec_f32(
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, _stream(x))
+    build.check(code, what)
+    return y
 
 
 def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> torch.Tensor:
@@ -283,9 +290,20 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> t
         return q4_0_matvec_f32(x, w)
     if x.device.type == "cpu":
         return q4_0_matvec_plain(x, w)
+    y = _launch_q4_0_matvec(x, w, "q4_0_matvec")
+    q4_0_matvec.launches += 1
+    return y
+
+
+q4_0_matvec.launches = 0
+
+
+def _launch_q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.Tensor:
+    """Check and launch the matvec kernel (no count: the caller's wrapper
+    counts its launch)."""
     out, in_dim = w.shape
-    _check_weight(w, x, "q4_0_matvec")
-    _check_x(x, (in_dim,), "q4_0_matvec")
+    _check_weight(w, x, what)
+    _check_x(x, (in_dim,), what)
     nb = in_dim // QK
     xq = torch.empty(in_dim, dtype=torch.int8, device=x.device)
     qsum = torch.empty(nb, dtype=torch.int32, device=x.device)
@@ -295,12 +313,8 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> t
         w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
         qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, _stream(x),
     )
-    build.check(code, "q4_0_matvec")
-    q4_0_matvec.launches += 1
+    build.check(code, what)
     return y
-
-
-q4_0_matvec.launches = 0
 
 
 #: rows the multi-row kernel accepts (``MAX_MULTI_ROWS`` of the TPU kernel)
@@ -313,21 +327,28 @@ def q4_0_matmul_multi_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     take the plain version; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return q4_0_matmul_multi_f32_plain(x, w)
-    out, in_dim = w.shape
-    _check_weight(w, x, "q4_0_matmul_multi_f32")
-    B = x.shape[0] if x.dim() == 2 else 0
-    _check_x(x, (B, in_dim), "q4_0_matmul_multi_f32")
-    if not 1 <= B <= MAX_MULTI_ROWS:
-        raise ValueError(f"q4_0_matmul_multi_f32: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
-    y = torch.empty((B, out), dtype=torch.float32, device=x.device)
-    code = build.lib("q4_matvec").q4_0_matmul_multi_f32(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x))
-    build.check(code, "q4_0_matmul_multi_f32")
+    y = _launch_q4_0_matmul_multi_f32(x, w, "q4_0_matmul_multi_f32")
     q4_0_matmul_multi_f32.launches += 1
     return y
 
 
 q4_0_matmul_multi_f32.launches = 0
+
+
+def _launch_q4_0_matmul_multi_f32(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.Tensor:
+    """Check and launch the f32-activation multi-row kernel (no count: the
+    caller's wrapper counts its launch)."""
+    out, in_dim = w.shape
+    _check_weight(w, x, what)
+    B = x.shape[0] if x.dim() == 2 else 0
+    _check_x(x, (B, in_dim), what)
+    if not 1 <= B <= MAX_MULTI_ROWS:
+        raise ValueError(f"{what}: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
+    y = torch.empty((B, out), dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matvec").q4_0_matmul_multi_f32(
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x))
+    build.check(code, what)
+    return y
 
 
 def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> torch.Tensor:
@@ -340,12 +361,23 @@ def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True
         return q4_0_matmul_multi_f32(x, w)
     if x.device.type == "cpu":
         return q4_0_matmul_multi_plain(x, w)
+    y = _launch_q4_0_matmul_multi(x, w, "q4_0_matmul_multi")
+    q4_0_matmul_multi.launches += 1
+    return y
+
+
+q4_0_matmul_multi.launches = 0
+
+
+def _launch_q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.Tensor:
+    """Check and launch the multi-row kernel (no count: the caller's
+    wrapper counts its launch)."""
     out, in_dim = w.shape
-    _check_weight(w, x, "q4_0_matmul_multi")
+    _check_weight(w, x, what)
     B = x.shape[0] if x.dim() == 2 else 0
-    _check_x(x, (B, in_dim), "q4_0_matmul_multi")
+    _check_x(x, (B, in_dim), what)
     if not 1 <= B <= MAX_MULTI_ROWS:
-        raise ValueError(f"q4_0_matmul_multi: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
+        raise ValueError(f"{what}: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
     nb = in_dim // QK
     xq = torch.empty((B, in_dim), dtype=torch.int8, device=x.device)
     qsum = torch.empty((B, nb), dtype=torch.int32, device=x.device)
@@ -355,12 +387,8 @@ def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True
         w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
         qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x),
     )
-    build.check(code, "q4_0_matmul_multi")
-    q4_0_matmul_multi.launches += 1
+    build.check(code, what)
     return y
-
-
-q4_0_matmul_multi.launches = 0
 
 
 def q4_1_matvec_f32(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:

@@ -27,12 +27,16 @@ whatever ``quantize_activations`` is:
   Q4_1 multi-row kernel (``quantized_matmul.py:192-195`` there), so the
   engine's batched step dequantizes every weight too;
 * Q4_0 of the T layout (:class:`~.q4_matmul.Q4_0WeightT`, the
-  tensor-parallel path), tested before plain Q4_0 since it subclasses it:
-  1–64 rows → fake-quantize the activations (when asked), then the T
-  kernel (``ops/q4_matmul.py``); more rows → fake-quantize, the dequant
-  kernel, then one ``torch.matmul`` (``quantized_matmul.py:321-347``
-  there; its integer T kernels are switched off, so no row count reaches
-  them);
+  tensor-parallel path), tested before plain Q4_0 since it subclasses it,
+  in the JAX package's order (``quantized_matmul.py:321-347`` there): with
+  quantized activations and at most ``q4_matmul.MAX_INT_KERNEL_ROWS`` rows
+  → the integer kernel; 1 to ``q4_matmul.MAX_MULTI_ROWS_T`` rows → the
+  multi-row T product; 1–64 rows → fake-quantize the activations (when
+  asked), then the phase kernel's counterpart; more rows → fake-quantize,
+  the dequant kernel, then one ``torch.matmul``.  Both gates are 0, as in
+  the JAX package, and are read at each call, so a caller may raise them.
+  JAX's third condition, ``_pick_kt4(kh4)`` (a Mosaic tiling rule), holds
+  for every in-dim after its 1024-padding and has no counterpart here;
 * dense → ``torch.matmul`` in f32.
 
 A CPU tensor takes each kernel's plain version.
@@ -44,7 +48,8 @@ import torch
 
 from ..config import QK
 from .q4_dequant import dequantize_q4_0, dequantize_q4_1, q4_0_dequant, q4_1_dequant
-from .q4_matmul import MAX_PHASE_KERNEL_ROWS, Q4_0WeightT, q4_0_matmul_t
+from . import q4_matmul
+from .q4_matmul import MAX_PHASE_KERNEL_ROWS, Q4_0WeightT, q4_0_int_matmul, q4_0_matmul_t, q4_0_t_matmul_multi
 from .q4_matvec import (
     MAX_MULTI_ROWS,
     Q4_0Weight,
@@ -123,12 +128,19 @@ def linear(
         q41 = isinstance(w, Q4_1Weight)
         out_dim, in_dim = w.shape
         n_rows = x.numel() // x.shape[-1]
-        # T first (it subclasses Q4_0Weight); above 64 rows it takes the
-        # dequant below, past the branches of fewer rows
-        if isinstance(w, Q4_0WeightT) and n_rows <= MAX_PHASE_KERNEL_ROWS:
-            if quantize_activations:
-                x = fake_quantize_q4_0(x)
-            y = q4_0_matmul_t(x.reshape(n_rows, in_dim).float().contiguous(), w)
+        # T first (it subclasses Q4_0Weight); above 64 rows (and above the
+        # gates) it takes the dequant below, past the branches of fewer rows
+        if isinstance(w, Q4_0WeightT) and n_rows <= max(
+                MAX_PHASE_KERNEL_ROWS, q4_matmul.MAX_INT_KERNEL_ROWS if quantize_activations else 0):
+            x2 = x.reshape(n_rows, in_dim).float().contiguous()
+            if quantize_activations and n_rows <= q4_matmul.MAX_INT_KERNEL_ROWS:
+                y = q4_0_int_matmul(x2, w)
+            elif 1 <= n_rows <= q4_matmul.MAX_MULTI_ROWS_T:
+                y = q4_0_t_matmul_multi(x2, w, quantize_acts=quantize_activations)
+            else:
+                if quantize_activations:
+                    x2 = fake_quantize_q4_0(x2)
+                y = q4_0_matmul_t(x2, w)
             return y.reshape(*lead, out_dim).to(compute_dtype)
         if n_rows == 1:
             y = (q4_1_matvec if q41 else q4_0_matvec)(

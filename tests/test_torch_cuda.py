@@ -3,7 +3,10 @@ and ragged shapes (row counts that are not a multiple of a block's rows,
 in-dims that are not a multiple of a warp's blocks, several head dims,
 multi-row counts on both sides of the kernel's row templates, per-slot
 n_pasts on both sides of a 64-key split, page sizes 16 and 128, int8 caches
-with stale codes and scales beyond each n_past; Q4_1 weights).
+with stale codes and scales beyond each n_past; Q4_1 weights; the T
+layout's integer products on both sides of the 8-row MMA tiles and of the
+64-row launch; the two-kernels-per-layer blocks at n_past on both sides of a
+64-key split).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -502,3 +505,98 @@ def test_q4_0_matmul_t_kernel_matches_plain(cuda, rows, out, in_dim):
         qm.q4_0_matmul_t(torch.randn((65, in_dim), device=cuda), w)
     with pytest.raises(ValueError):
         qm.q4_0_matmul_t(x[:, :-32].contiguous(), w)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 33, 64, 100])
+@pytest.mark.parametrize("out,in_dim", [(16, 32), (77, 352), (1000, 4096), (300, 11008)])
+def test_q4_0_int_matmul_kernel_matches_plain(cuda, rows, out, in_dim):
+    """The int8 mma kernel (row 12): a single 16-row block first, then
+    ragged out tiles, in-dims that are not a multiple of the 8 warps'
+    blocks, N on both sides of an 8-row tile and beyond one 64-row launch;
+    within 1e-5 of max |y| (exact integer block dots, f32 sums in another
+    order); bad inputs raise."""
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    w, g = _q4(out, in_dim, cuda, seed=rows + out)
+    w = qm.Q4_0WeightT(w.qs, w.d)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    before = qm.q4_0_int_matmul.launches
+    y = qm.q4_0_int_matmul(x, w)
+    torch.cuda.synchronize()
+    assert qm.q4_0_int_matmul.launches == before + 1
+    assert _rel(y, qm.q4_0_int_matmul_plain(x, w)) <= 1e-5
+    with pytest.raises(ValueError):
+        qm.q4_0_int_matmul(x[:, :-32].contiguous(), w)  # wrong in dim
+    with pytest.raises(ValueError):
+        qm.q4_0_int_matmul(x.double(), w)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("rows", [1, 2, 8, 32])
+def test_q4_0_t_matmul_multi_matches_plain(cuda, rows, quantize):
+    """Row 13's wrapper over the matvec (B = 1) and the multi-row kernels,
+    quantized or on f32 rows, counted as its own launch only."""
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    w, g = _q4(300, 4096, cuda, seed=rows)
+    w = qm.Q4_0WeightT(w.qs, w.d)
+    x = torch.randn((rows, 4096), device=cuda, generator=g)
+    ops.reset_launch_counts()
+    y = qm.q4_0_t_matmul_multi(x, w, quantize_acts=quantize)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop("q4_0_t_matmul_multi") == 1 and set(counts.values()) == {0}
+    assert _rel(y, qm.q4_0_t_matmul_multi_plain(x, w, quantize_acts=quantize)) <= 1e-5
+    with pytest.raises(ValueError):
+        qm.q4_0_t_matmul_multi(torch.randn((33, 4096), device=cuda), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_past", [0, 63, 64, 200])
+def test_fused_blocks_match_plain(cuda, dtype, n_past):
+    """The attention and FFN blocks against their plain versions at 2
+    heads, n_ff 768, stale rows at and beyond n_past (never read): the cache
+    unchanged, k_new/v_new within 1e-5 (bf16: one bf16 step), the deltas
+    within 5e-4 where no 4-bit activation code differs (traced)."""
+    from llama_swift_torch.ops import fused_layer as fl
+
+    x, (an, fn), (wqkv, wo, w13, w2), kc, vc = _fused_inputs(cuda, 2, 2, 768, 256, dtype, seed=n_past)
+    kc[:, :, n_past:] = 1e4
+    vc[:, :, n_past:] = -1e4
+    k0, v0 = kc.clone(), vc.clone()
+    cos, sin = fl.rope_vectors(n_past, device=cuda)
+    tr_k, tr_p = [], []
+    before = (fl.fused_attn_block.launches, fl.fused_ffn_block.launches)
+    delta, k_new, v_new = fl.fused_attn_block(x, an[1], cos, sin, wqkv, wo, kc, vc, 1, n_past, trace=tr_k)
+    fdelta = fl.fused_ffn_block(x, fn[1], w13, w2, 1, trace=tr_k)
+    torch.cuda.synchronize()
+    assert (fl.fused_attn_block.launches, fl.fused_ffn_block.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(kc, k0) and torch.equal(vc, v0)
+    ref, k_ref, v_ref = fl.fused_attn_block_plain(x, an[1], cos, sin, wqkv, wo, kc, vc, 1, n_past, trace=tr_p)
+    fref = fl.fused_ffn_block_plain(x, fn[1], w13, w2, 1, trace=tr_p)
+    for a, b in ((k_new, k_ref), (v_new, v_ref)):
+        if dtype == torch.bfloat16:
+            assert bool(((a - b).abs() <= b.abs() * 2.0**-7).all())
+        else:
+            assert _rel(a, b) <= 1e-5
+    for (got, want), tk, tp in zip(((delta, ref), (fdelta, fref)), tr_k, tr_p):
+        flips = int((mv.quantize_activations_q4_0_int(tk)[0] != mv.quantize_activations_q4_0_int(tp)[0]).sum())
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= 5e-4 or 0 < flips <= 8, (_rel(got, want), flips)
+
+
+def test_fused_blocks_grid_and_bad_inputs(cuda):
+    from llama_swift_torch.ops import fused_layer as fl
+
+    n_attn, n_ffn = fl.block_grids(32, 11008)
+    assert min(n_attn, n_ffn) >= torch.cuda.get_device_properties(0).multi_processor_count
+    x, (an, fn), (wqkv, wo, w13, w2), kc, vc = _fused_inputs(cuda, 1, 2, 768, 64, torch.float32, seed=1)
+    cos, sin = fl.rope_vectors(3, device=cuda)
+    with pytest.raises(ValueError):  # n_past beyond the cache
+        fl.fused_attn_block(x, an[0], cos, sin, wqkv, wo, kc, vc, 0, 64)
+    with pytest.raises(ValueError):  # an int8 cache: the JAX block has no scales
+        fl.fused_attn_block(x, an[0], cos, sin, wqkv, wo, kc.to(torch.int8), vc.to(torch.int8), 0, 3)
+    with pytest.raises(ValueError):  # a layer beyond the stack
+        fl.fused_ffn_block(x, fn[0], w13, w2, 1)
+    with pytest.raises(ValueError):  # the weight on the CPU
+        fl.fused_ffn_block(x, fn[0], mv.Q4_0Weight(w13.qs.cpu(), w13.d.cpu()), w2, 0)
