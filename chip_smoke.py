@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only q4_1     # build + kernel checks + the Q4_1 phases (3c, 5)
     python3 chip_smoke.py --only tp       # build + kernel checks + the TP phases (4e)
     python3 chip_smoke.py --only int      # build + kernel checks + paths A and B (4f, 4g)
+    python3 chip_smoke.py --only bench    # build + kernel checks + the kernelbench path (2b)
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -13,7 +14,7 @@ Phases:
 1. identify the card (name and power limit from nvidia-smi), build the
    CUDA kernels from ``llama_swift_torch/csrc`` (one nvcc per source, all
    started together) and the native host library (g++, ``native/``);
-2. hold each of the sixteen kernels against its plain PyTorch version on
+2. hold each kernel against its plain PyTorch version on
    the card at the 7B shapes of the serving paths, and time kernel, plain
    version, bound and (where one exists) a single PyTorch call computing
    the same function; the int8 flash kernels read caches written by the
@@ -27,7 +28,12 @@ Phases:
    at B = 2, 8, 32) at the four matvec shapes and the fused 12288x4096 and
    22016x4096, beside the dequant + matmul pair they replace; the T
    layout's product (``q4_0_matmul_t``) at the four matvec shapes with
-   N = 1, 8, 33, 64, beside the same pair;
+   N = 1, 8, 33, 64, beside the same pair; the stream probe
+   (``stream_probe``) at kernelbench's five shapes, every row bit-equal,
+   beside ``torch.sum(words, dtype=int32)``;
+2b. the kernelbench path (``tools/kernelbench.main``, every variant at its
+   five shapes; see ``run_kernelbench``): the stream probe's launches come
+   from here, with each product's GB/s against the probe's on its shape;
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
@@ -81,7 +87,15 @@ Phases:
    f32 cache, sampled on a bf16 cache), each decoded token exactly one
    whole-stack launch and one matvec, each prefill 129 (4·32 + 1) dequant
    launches; then wave E, wave A's shape (12 requests, 8 dense f32 slots),
-   129 multi-row launches per step and 129 dequant per chunk;
+   129 multi-row launches per step and 129 dequant per chunk; then path B
+   (``decode_r4``);
+4h. dense-dequant params (``params_from_tensors(dense_dequant=True)``): 2-layer
+   parity at 7B width, card vs CPU in bf16 within 2e-3, one dequant launch a
+   packed tensor at load and no Q4 kernel in the forwards
+   (``check_parity_dense``); the 7B file loaded dense in bf16, a prompt and 32
+   greedy tokens through ``greedy_decode_loop``, and ``profiling.trace``
+   around one more step (``serve_dense``); then ggml ops and an Adam run on
+   the card against the CPU within 1e-5 (``check_aux``);
 4e. tensor parallelism, once the earlier runners are gone: TP parity at 7B
    width and 2 layers (``check_tp_parity``), in a real NCCL group of one:
    ``make_tp_forward`` on the V layout (fused) and on the T layout
@@ -107,7 +121,8 @@ Phases:
    (8 requests through 4 dense f32 slots, 16 tokens each: 225 Q4_1 dequant
    launches a step and a chunk, no multi-row launch) and one request with
    f32 activations (225 f32-activation Q4_1 matvec launches a token) with
-   its profiled window; with ``--profile``
+   its profiled window; ``perplexity_of_text`` against the tokenized call
+   on the same README text; with ``--profile``
    8-step windows of Q4_1 batch-1 decode and of a Q4_1 engine step (B = 4);
 6. print the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
@@ -495,6 +510,72 @@ def check_int_t_kernels(torch, g, summary) -> list:
     return failed
 
 
+def check_stream_probe(torch, g, summary) -> list:
+    """Row 14, the HBM stream probe, at kernelbench's five shapes: every
+    row's sum bit-equal to the plain version's; timed over a round robin of
+    copies that streams more than 200 MB (the H100's L2 holds 50 MB), beside
+    the plain version and ``torch.sum(words, dim=1, dtype=torch.int32)``
+    (the one PyTorch call that reads the same words).  Bytes-bound: one
+    integer add per 4 bytes read."""
+    from llama_swift_torch.ops import q4_matvec as mv
+    from llama_swift_torch.tools import kernelbench as kb
+
+    failed = []
+    for name, (out, in_dim) in kb.SHAPES.items():
+        nib = out * in_dim // 2
+        n = max(2, math.ceil(2e8 / nib))
+        qs = torch.randint(0, 256, (n, out, in_dim // 2), dtype=torch.uint8, device="cuda", generator=g)
+        words = qs.view(torch.int32)
+        rows = mv.stream_probe(qs[1], -7, all_rows=True)
+        ref = mv.stream_probe_plain(qs[1], -7, all_rows=True)
+        exact = bool(torch.equal(rows, ref)) and bool(torch.equal(mv.stream_probe(qs[1], -7), ref[::128]))
+        case = {"case": "stream_probe", "shape": name, "out": out, "in": in_dim, "copies": n, "exact": exact,
+                "max_abs_err": float((rows - ref).abs().max()),
+                "kernel_ms": time_ms(torch, lambda i: mv.stream_probe(qs[i % n], i), 200),
+                "plain_ms": time_ms(torch, lambda i: mv.stream_probe_plain(qs[i % n], i), 5),
+                "library_ms": time_ms(torch, lambda i: torch.sum(words[i % n], dim=1, dtype=torch.int32), 200),
+                "bound_ms": (nib + out * 4) / HBM_BYTES_PER_S * 1e3, "ok": exact}
+        case["gbps"] = nib / case["kernel_ms"] / 1e6
+        log(case)
+        if not exact:
+            failed.append(case)
+        if name == "output":
+            summary["stream_probe"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
+        del qs, words
+    return failed
+
+
+def run_kernelbench(torch) -> dict:
+    """The kernelbench path (``tools/kernelbench.main``, every variant at
+    its five shapes): the counters are reset just before and read just
+    after; each variant makes ``iters + 1`` launches a shape of its kernel
+    (probe: the stream probe; vpu, vpu_raw: the Q4_0 matvec on 4-bit and on
+    f32 activations; phase: the T kernel; dense: none of the port's).  Logs
+    one line a shape: GB/s, the share of the probe's rate on that shape and
+    of the nominal 3,350 GB/s.  Returns the launch counts."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.tools import kernelbench as kb
+
+    iters = 50
+    ops.reset_launch_counts()  # the kernelbench path's run starts here
+    t0 = time.perf_counter()
+    res = kb.main(["--iters", str(iters), "--shapes", ",".join(kb.SHAPES), "--variants", ",".join(kb.VARIANTS)])
+    counts = ops.launch_counts()  # read just after
+    wall = time.perf_counter() - t0
+    for shape, rates in res.items():
+        log({"case": "kernelbench", "shape": shape, "dims": kb.SHAPES[shape], "gbps": rates,
+             "share_of_probe": {v: r / rates["probe"] for v, r in rates.items()},
+             "share_of_nominal": {v: r / kb.H100_HBM_GBPS for v, r in rates.items()}})
+    expect = {k: 0 for k in counts}
+    per = (iters + 1) * len(res)
+    expect.update(stream_probe=per, q4_0_matvec=per, q4_0_matvec_f32=per, q4_0_matmul_t=per)
+    log({"case": "kernelbench_run", "wall_s": wall, "launches": {k: v for k, v in counts.items() if v}})
+    if counts != expect or set(res) != set(kb.SHAPES):
+        raise SystemExit(f"chip_smoke: the kernelbench path launched {counts}, expected {expect}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def check_fused_blocks(torch, g, summary) -> list:
     """Row 11, the attention block and the FFN block, against their plain
     versions at 7B width (32 heads, n_ff 11008) with 2 layers of weights, at
@@ -749,6 +830,7 @@ def check_kernels(torch) -> dict:
     failed += check_t_kernel(torch, g, summary)
     failed += check_int_t_kernels(torch, g, summary)
     failed += check_fused_blocks(torch, g, summary)
+    failed += check_stream_probe(torch, g, summary)
 
     # dequant 11008x4096 to bf16 and f32: bit-exact
     out, in_dim = 11008, 4096
@@ -1668,6 +1750,30 @@ def serve_fused(torch, runner, profile: bool) -> dict:
     return {"launches": counts, "requests": per_request}
 
 
+def check_perplexity_of_text(torch, runner, readme: str) -> None:
+    """``perplexity_of_text`` on the start of README.md (the text the
+    perplexity tool scored) against ``perplexity`` of the same text
+    tokenized, on the runner's Q4_1 params with the tool's exact-f32
+    prefill: the same windows on the same kernels give the same ppl."""
+    import dataclasses
+
+    from llama_swift_torch.utils.perplexity import perplexity, perplexity_of_text
+
+    with open(readme, encoding="utf-8") as f:
+        text = f.read()[:4000]
+    cfg = dataclasses.replace(runner.config, prefill_bf16=False)
+    got = perplexity_of_text(runner.params, cfg, runner.vocab, text)
+    want = perplexity(runner.params, cfg, np.asarray(runner.vocab.tokenize(text, bos=False)))
+    rec = {"case": "perplexity_of_text_q4_1", "chars": len(text), **got, "tokenized_ppl": want["ppl"],
+           "identical": got == want}
+    rec["ok"] = (got["n_scored"] == want["n_scored"] > 0 and math.isfinite(got["ppl"])
+                 and abs(got["ppl"] - want["ppl"]) <= 1e-6 * want["ppl"])
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: perplexity_of_text disagrees with the tokenized call")
+    torch.cuda.empty_cache()
+
+
 def serve_q4_1(torch, workdir: str, profile: bool) -> list:
     """Phase 5: a synthetic 32-layer 7B Q4_1 file (5.05 GB, written from a
     seed), scored by the port's perplexity tool (2 windows of 512 tokens of
@@ -1716,6 +1822,7 @@ def serve_q4_1(torch, workdir: str, profile: bool) -> list:
              "device_gib": torch.cuda.memory_allocated() / 2**30})
     os.remove(path)
     n_layer = cfg.n_layer
+    check_perplexity_of_text(torch, runner, readme)
 
     ops.reset_launch_counts()  # the runner's Q4_1 run starts here
     run_requests(torch, runner, [
@@ -2329,6 +2436,154 @@ def decode_r4_from_file(torch, path: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# dense-dequant params (params_from_tensors(dense_dequant=True)) and the aux modules
+# ---------------------------------------------------------------------------
+
+
+def check_parity_dense(torch) -> None:
+    """Dense-dequant params at 7B width and 2 layers, bf16 on both devices:
+    an 8-token prefill and 4 decode steps, card vs CPU within 2e-3 (the
+    same bf16 weights, f32 products summed in other orders).  The card's
+    load makes exactly one Q4_0 dequant launch a packed tensor (7·L + 2) and
+    its forwards no launch of a Q4 kernel (decode: the flash kernel only)."""
+    import dataclasses
+
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import GGMLType, ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg = dataclasses.replace(ModelConfig.llama_7b(ftype=GGMLType.Q4_0), n_layer=2)
+    tensors = dict(synthetic_tensors(cfg, seed=17))
+    prompt = [1, 450, 17, 3000, 9, 222, 31000, 5]
+    steps = [77, 12000, 345, 6]
+
+    def run(device):
+        ops.reset_launch_counts()
+        params = model_lib.params_from_tensors(tensors, cfg, device=device, param_dtype=torch.bfloat16,
+                                               dense_dequant=True)
+        load = ops.launch_counts()
+        ops.reset_launch_counts()
+        cache = model_lib.init_cache(cfg, device=device)
+        logits, cache = model_lib.prefill(params, torch.tensor(prompt, device=device), 0, cache, cfg)
+        out = [logits[-1].float().cpu()]
+        for i, tok in enumerate(steps):
+            lg, cache = model_lib.decode_step(params, torch.tensor(tok, device=device), len(prompt) + i, cache, cfg)
+            out.append(lg.float().cpu())
+        return out, load, ops.launch_counts()
+
+    cpu, _, _ = run("cpu")
+    card, load, fwd = run("cuda")
+    errs = [rel_err(a, b) for a, b in zip(card, cpu)]
+    want_load = {k: 0 for k in load}
+    want_load["q4_0_dequant"] = 7 * cfg.n_layer + 2
+    want_fwd = {k: 0 for k in fwd}
+    want_fwd["flash_decode_attention"] = cfg.n_layer * len(steps)
+    rec = {"case": "parity_dense_dequant_7b_width_2_layers", "param_dtype": "bfloat16",
+           "prefill_rel_err": errs[0], "decode_rel_err_max": max(errs[1:]),
+           "load_launches": {k: v for k, v in load.items() if v},
+           "forward_launches": {k: v for k, v in fwd.items() if v},
+           "finite": all(bool(torch.isfinite(t).all()) for t in card)}
+    rec["ok"] = rec["finite"] and max(errs) <= 2e-3 and load == want_load and fwd == want_fwd
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: dense-dequant parity failed its checks")
+
+
+def serve_dense(torch, path: str, workdir: str) -> dict:
+    """The 32-layer 7B Q4_0 file loaded with ``dense_dequant=True`` (bf16,
+    13.5 GB on the card; 226 dequant launches), a prompt prefilled and 32
+    greedy tokens through ``greedy_decode_loop`` (32 flash launches a
+    token, no Q4 kernel); counters reset just before the load and read just
+    after the decode.  Then ``utils/profiling.trace`` around one decode
+    step must write a non-empty trace.  Returns the launch counts."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.formats import ggml
+    from llama_swift_torch.models import llama as model_lib
+    from llama_swift_torch.tokenizer import BOS_TOKEN_ID, Vocab
+    from llama_swift_torch.utils import profiling
+
+    n_tok = 32
+    ops.reset_launch_counts()  # the dense-dequant path's run starts here
+    t0 = time.perf_counter()
+    mf = ggml.load_model_file(path)
+    cfg = mf.config
+    params = model_lib.params_from_tensors(mf.tensors, cfg, device="cuda", param_dtype=torch.bfloat16,
+                                           dense_dequant=True)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    ids = [BOS_TOKEN_ID] + Vocab(mf.vocab).tokenize(PROMPTS[0])
+    if mf.native_handle is not None:
+        mf.native_handle.close()
+    del mf
+    cache = model_lib.init_cache(cfg, device="cuda")
+    t0 = time.perf_counter()
+    logits, cache = model_lib.prefill(params, torch.tensor(ids, device="cuda"), 0, cache, cfg)
+    first = logits[-1].argmax()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks, cache = model_lib.greedy_decode_loop(params, first, len(ids), cache, cfg, n_tok)
+    toks = toks.cpu()
+    t_decode = time.perf_counter() - t0
+    counts = ops.launch_counts()  # read just after
+    expect = {k: 0 for k in counts}
+    expect.update(q4_0_dequant=7 * cfg.n_layer + 2, flash_decode_attention=cfg.n_layer * n_tok)
+    trace_dir = os.path.join(workdir, "trace")
+    with profiling.trace(trace_dir):
+        lg, _ = model_lib.decode_step(params, toks[-1].to("cuda"), len(ids) + n_tok, cache, cfg)
+        torch.cuda.synchronize()
+    traces = [os.path.getsize(os.path.join(trace_dir, f)) for f in os.listdir(trace_dir)]
+    rec = {"case": "serve_dense_dequant_7b", "param_dtype": "bfloat16", "t_load_s": t_load,
+           "device_gib": torch.cuda.memory_allocated() / 2**30, "prompt_tokens": len(ids),
+           "t_prefill_s": t_prefill, "decode_tokens": n_tok, "t_decode_s": t_decode,
+           "decode_tok_per_s": n_tok / t_decode, "launches": {k: v for k, v in counts.items() if v},
+           "trace_bytes": traces, "finite": bool(torch.isfinite(logits).all() and torch.isfinite(lg).all())}
+    rec["ok"] = counts == expect and rec["finite"] and len(traces) == 1 and traces[0] > 0
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"chip_smoke: the dense-dequant 7B run failed its checks: {rec}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_aux(torch) -> None:
+    """ggml ops (mul_mat, soft_max, rope, flash_attn) and one Adam run on
+    the card against the CPU, within 1e-5 relative: the same f32
+    arithmetic (matrix products in full f32, PyTorch's default) in other
+    orders."""
+    from llama_swift_torch.ops import ggml_compat as gc
+    from llama_swift_torch.utils.optimize import opt
+
+    g = torch.Generator().manual_seed(9)
+    a, b = torch.randn(64, 256, generator=g), torch.randn(32, 256, generator=g)
+    scores = gc.diag_mask_inf(torch.randn(4, 16, 24, generator=g), 8)
+    x = torch.randn(24, 4, 64, generator=g)
+    q, k, v = torch.randn(16, 4, 64, generator=g), torch.randn(24, 4, 64, generator=g), torch.randn(24, 4, 64,
+                                                                                                    generator=g)
+    target = torch.randn(128, generator=g)
+
+    def adam(dev):
+        t = target.to(dev)
+        return opt(lambda z: ((z - t) ** 2).sum() + 0.1 * (z ** 4).sum(), torch.zeros(128, device=dev),
+                   method="adam", n_iter=50, alpha=0.05, eps_f=0.0, eps_g=0.0).x
+
+    cases = {
+        "mul_mat": lambda d: gc.mul_mat(a.to(d), b.to(d)),
+        "soft_max": lambda d: gc.soft_max(scores.to(d)),
+        "rope": lambda d: gc.rope(x.to(d), 5, 64, 0),
+        "rope_mode1": lambda d: gc.rope(x.to(d), 5, 64, 1),
+        "flash_attn": lambda d: gc.flash_attn(q.to(d), k.to(d), v.to(d), True),
+        "adam_50_steps": adam,
+    }
+    errs = {name: rel_err(fn("cuda").cpu(), fn("cpu")) for name, fn in cases.items()}
+    rec = {"case": "aux_card_vs_cpu", "rel_err": errs, "ok": max(errs.values()) <= 1e-5}
+    log(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: an aux op disagrees between the card and the CPU")
+
+
 def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
     """Device busy share and kernel time by name over ``n_steps`` calls of
     ``step(i)`` after one warm-up call."""
@@ -2407,10 +2662,12 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
     "q4_0_t_matmul_multi": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:681"),
     "fused_attn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:481"),
     "fused_ffn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:320"),
+    "stream_probe": ("llama_swift_torch/csrc/stream_probe.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:996"),
 }
 
-#: the kernels of the paths that ``--only q4_1``, ``--only tp`` and ``--only int`` run
+#: the kernels of the paths that ``--only q4_1|tp|int|bench`` run
 ONLY_KERNELS = {
+    "bench": ("q4_0_matvec", "q4_0_matvec_f32", "q4_0_matmul_t", "stream_probe"),
     "q4_1": ("q4_1_matvec", "q4_1_dequant", "q4_1_matvec_f32"),
     "tp": ("q4_0_matvec", "flash_decode_attention", "q4_0_dequant", "q4_0_matmul_t", "q4_0_int_matmul",
            "q4_0_t_matmul_multi"),
@@ -2421,10 +2678,10 @@ ONLY_KERNELS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int"], default=None,
+    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench"], default=None,
                     help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases; "
                          "tp: those and the TP phases; int: those, the T integer paths' parity, "
-                         "path B and path A")
+                         "path B and path A; bench: those and the kernelbench path")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -2463,6 +2720,8 @@ def main(argv=None) -> int:
     runs = []
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        if args.only in (None, "bench"):
+            runs.append(run_kernelbench(torch))
         if args.only is None:
             check_parity(torch)
             check_parity_int8(torch)
@@ -2482,6 +2741,9 @@ def main(argv=None) -> int:
             runs.append(decode_r4(torch, fused.params, fused.config))
             del fused
             torch.cuda.empty_cache()
+            check_parity_dense(torch)
+            runs.append(serve_dense(torch, path, workdir))
+            check_aux(torch)
         if args.only in (None, "tp", "int"):
             check_tp_parity(torch, INT_TP_CASES if args.only == "int" else TP_CASES + INT_TP_CASES)
             if args.only in ("tp", "int"):

@@ -11,7 +11,14 @@ cache mode: batch 1 (the runner), dense batched and paged (the engine).
 Fused wqkv/w13 params decode batch 1 through a whole-stack kernel.  Q4_1
 files take a Q4_1 matvec (one row) and a Q4_1 dequant (more rows).  They
 are built with ``nvcc`` at first use.  ``tools/quantize.py`` writes Q4_0
-and Q4_1 files; ``tools/perplexity.py`` scores a model on a text.
+and Q4_1 files, ``tools/convert_pth.py`` converts a PyTorch checkpoint to
+an f32/f16 GGML file; ``tools/perplexity.py`` scores a model on a text;
+``tools/kernelbench.py`` holds each product's HBM rate against the stream
+probe's (a kernel that only reads the packed weight).  Params built with
+``dense_dequant=True`` decode every Q4 weight once, at load.  The ggml op
+set (``ops/ggml_compat.py``), the ``ggml_opt`` optimizers
+(``utils/optimize.py``) and profiling helpers (``utils/profiling.py``)
+complete the JAX package's modules.
 
     from llama_swift_torch import LlamaRunner, RunnerConfig
 

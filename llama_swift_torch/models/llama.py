@@ -72,6 +72,7 @@ from ..ops.attention import (
 )
 from ..ops.fused_layer import fused_layers_block
 from ..ops.norms import norm
+from ..ops.q4_dequant import q4_0_dequant, q4_1_dequant
 from ..ops.q4_matmul import Q4_0WeightT, from_jax_t, from_jax_w, unpack_qs_v
 from ..ops.q4_matvec import Q4_0Weight, Q4_1Weight
 from ..ops.rope import rope
@@ -157,6 +158,7 @@ def params_from_tensors(
     q4_layout: Optional[str] = None,
     shard_pad: int = 1,
     fuse_shards: int = 1,
+    dense_dequant: bool = False,
 ) -> Params:
     """Arrange loader output (``formats/ggml.py``) into the model's params.
 
@@ -187,6 +189,19 @@ def params_from_tensors(
       (``parallel/tp.py`` checks it against the TP degree).
 
     ``params.shard_pad`` and ``params.fuse_shards`` record the last two.
+
+    ``dense_dequant`` decodes every Q4_0 and Q4_1 weight (layer weights,
+    fused concats, ``tok_embeddings`` and ``output``) once, at load, into a
+    dense ``param_dtype`` tensor: on the card by the dequant kernels
+    (``ops/q4_dequant``), one launch a packed tensor, straight into
+    ``param_dtype``; on the CPU by their plain versions.  Either is
+    bit-equal to ``Q4_0Tensor.dequantize()``/``Q4_1Tensor.dequantize()``
+    cast to ``param_dtype``.  The check comes before any layout: padding
+    applies, the T layout never does.  Dense weights take ``linear``'s dense
+    branch, which applies no activation fake-quantization whatever
+    ``cfg.quantize_activations`` says: the JAX package's code does the same
+    (its docstring says otherwise), so such params compute an f32-activation
+    product on the decoded weights, and never take the whole-stack kernel.
     """
     device = resolve_device(device)
     if param_dtype is None:
@@ -200,17 +215,20 @@ def params_from_tensors(
     cvt = functools.partial(_to_device, device=device, dense_dtype=param_dtype)
     stacked: dict = {}
     names = FUSED_LAYER_WEIGHTS if cfg.fuse_layer_matmuls else LAYER_WEIGHTS
+    densify = (functools.partial(_decode_at_load, device=device, dtype=param_dtype) if dense_dequant
+               else lambda t: t)
     for il in range(cfg.n_layer):
         for w in names:
-            t = _as_layout(_layer_tensor(tensors, il, w, param_dtype, ff_pad, fuse_shards), t_layout)
+            t = _as_layout(densify(_layer_tensor(tensors, il, w, param_dtype, ff_pad, fuse_shards)), t_layout)
             if w not in stacked:
                 stacked[w] = _empty_stack(t, cfg.n_layer, device)
             for a, b in zip(_fields(_stack_at(stacked[w], il)), _fields(t)):
                 a.copy_(b)
     return Params({
-        "tok_embeddings": _as_layout(_pad(cvt(tensors["tok_embeddings.weight"]), out_to=vocab_pad), t_layout),
+        "tok_embeddings": _as_layout(densify(_pad(cvt(tensors["tok_embeddings.weight"]), out_to=vocab_pad)),
+                                     t_layout),
         "norm": cvt(tensors["norm.weight"]),
-        "output": _as_layout(_pad(cvt(tensors["output.weight"]), out_to=vocab_pad), t_layout),
+        "output": _as_layout(densify(_pad(cvt(tensors["output.weight"]), out_to=vocab_pad)), t_layout),
         "layers_stacked": stacked,
     }, shard_pad=shard_pad, fuse_shards=fuse_shards)
 
@@ -234,6 +252,15 @@ def _layer_tensor(tensors: dict, il: int, name: str, param_dtype, ff_pad: int, f
         for part_fields in zip(*map(_fields, parts))
     ]
     return type(parts[0])(*fields) if isinstance(parts[0], Q4_WEIGHTS) else fields[0]
+
+
+def _decode_at_load(t, device, dtype):
+    """``t`` decoded into a dense ``dtype`` tensor on ``device`` when it is
+    a packed weight (one dequant launch on the card); otherwise ``t``."""
+    if not isinstance(t, Q4_WEIGHTS):
+        return t
+    t = type(t)(*(f.to(device) for f in _fields(t)))
+    return (q4_1_dequant if isinstance(t, Q4_1Weight) else q4_0_dequant)(t, dtype)
 
 
 def _pad(t, out_to: Optional[int] = None, in_to: Optional[int] = None):

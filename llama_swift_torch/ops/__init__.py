@@ -8,8 +8,9 @@ dequant), f32 activations (the Q4_0 and Q4_1 matvecs and the Q4_0
 multi-row matmul on unquantized rows), the T layout of the
 tensor-parallel path (the 1–64-row Q4_0 product on f32 rows, and behind
 gates that are 0, as in the JAX package, the exact integer product on the
-int8 tensor cores and the multi-row T product), and one decode layer in two
-kernels (the attention block and the FFN block)."""
+int8 tensor cores and the multi-row T product), one decode layer in two
+kernels (the attention block and the FFN block), and the HBM stream probe
+of ``tools/kernelbench.py``."""
 
 from .attention import (
     flash_decode_attention,
@@ -29,6 +30,7 @@ from .q4_matvec import (
     q4_0_matvec_f32,
     q4_1_matvec,
     q4_1_matvec_f32,
+    stream_probe,
 )
 
 #: every kernel wrapper; each carries a ``launches`` counter
@@ -38,7 +40,7 @@ KERNELS = (
     flash_decode_attention_stacked_int8, flash_decode_attention_batched_int8, flash_decode_attention_paged_int8,
     fused_layers_block, q4_1_matvec, q4_1_dequant,
     q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32, q4_0_matmul_t,
-    q4_0_int_matmul, q4_0_t_matmul_multi, fused_attn_block, fused_ffn_block,
+    q4_0_int_matmul, q4_0_t_matmul_multi, fused_attn_block, fused_ffn_block, stream_probe,
 )
 
 

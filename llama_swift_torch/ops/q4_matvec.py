@@ -3,8 +3,9 @@
 the CUDA kernels in ``csrc/q4_matvec.cu``.
 
 Counterpart of ``llama_swift_tpu/ops/q4_vpu_pallas.py`` (``q4_0_vpu_matvec``,
-``q4_0_vpu_matvec_stacked``, ``q4_0_vpu_matmul_multi``, ``q4_1_vpu_matvec``
-and ``q4_1_vpu_matvec_stacked``).  The kernel notes at the top of the CUDA
+``q4_0_vpu_matvec_stacked``, ``q4_0_vpu_matmul_multi``, ``q4_1_vpu_matvec``,
+``q4_1_vpu_matvec_stacked`` and the bandwidth probe ``stream_probe``, whose
+kernel is ``csrc/stream_probe.cu``).  The kernel notes at the top of the CUDA
 source say what bounds each kernel on the H100 and how the design answers.
 
 **Layout.**  :class:`Q4_0Weight` keeps the ggml logical order: ``qs`` uint8
@@ -439,3 +440,58 @@ def q4_1_matvec(x: torch.Tensor, w: Q4_1Weight, quantize_acts: bool = True) -> t
 
 
 q4_1_matvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the HBM stream probe (tools/kernelbench.py's read ceiling)
+# ---------------------------------------------------------------------------
+
+#: rows of a TPU probe tile: the entry point keeps one sum per tile
+PROBE_TILE = 128
+
+
+def _wrap_i32(v: int) -> int:
+    return (int(v) + 2**31) % 2**32 - 2**31
+
+
+def _probe_rows(sums: torch.Tensor, all_rows: bool) -> torch.Tensor:
+    return sums if all_rows else sums[::PROBE_TILE]
+
+
+def stream_probe_plain(qs: torch.Tensor, bias: int, *, all_rows: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the probe: every row's ``Σ_k (word[r, k] +
+    bias)`` over the little-endian int32 words of ``qs`` uint8 ``[out,
+    in/2]``, wrapped to int32 (``torch.sum`` widens to int64) and rounded
+    once to f32; rows 0, 128, 256, … unless ``all_rows``."""
+    words = qs.contiguous().view(torch.int32).long()
+    s = (words + _wrap_i32(bias)).sum(dim=1)
+    sums = ((s + 2**31) % 2**32 - 2**31).to(torch.int32).float()
+    return _probe_rows(sums, all_rows)
+
+
+def stream_probe(qs: torch.Tensor, bias: int, *, all_rows: bool = False) -> torch.Tensor:
+    """The read ceiling of a packed weight (``stream_probe`` of
+    ``llama_swift_tpu/ops/q4_vpu_pallas.py``): ``qs`` uint8 ``[out, in/2]``
+    (a :class:`Q4_0Weight`'s nibbles, ``out % 128 == 0``) → f32 ``[out/128]``,
+    the int32 sum of each 128-row tile's first row of words, each word plus
+    ``bias`` (an int, wrapped to int32, that a timing loop varies); with
+    ``all_rows`` every row's sum ``[out]``, which the kernel always writes.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    if qs.dim() != 2 or qs.dtype != torch.uint8 or qs.shape[0] % PROBE_TILE or qs.shape[1] % 16:
+        raise ValueError(f"stream_probe: qs must be uint8 [out, in/2] with out % {PROBE_TILE} == 0 "
+                         f"and in % 32 == 0, got {qs.dtype} {tuple(qs.shape)}")
+    if qs.device.type == "cpu":
+        return stream_probe_plain(qs, bias, all_rows=all_rows)
+    if not qs.is_cuda or not qs.is_contiguous() or qs.data_ptr() % 16:
+        raise ValueError("stream_probe: qs must be a contiguous, 16-byte aligned CUDA tensor")
+    rows, in_dim = qs.shape[0], qs.shape[1] * 2
+    sums = torch.empty(rows, dtype=torch.float32, device=qs.device)
+    code = build.lib("stream_probe").stream_probe(
+        qs.data_ptr(), _wrap_i32(bias), sums.data_ptr(), rows, in_dim, _stream(qs))
+    build.check(code, "stream_probe")
+    stream_probe.launches += 1
+    return _probe_rows(sums, all_rows)
+
+
+stream_probe.launches = 0

@@ -26,7 +26,14 @@ import torch
 
 from ..config import ModelConfig
 from ..models import llama as model_lib
-from ..tokenizer import BOS_TOKEN_ID
+from ..tokenizer import BOS_TOKEN_ID, Vocab
+
+
+def log_softmax_row(logits: np.ndarray, target: int) -> float:
+    """``log p(target)`` of one row of logits, on the host (numpy)."""
+    m = float(np.max(logits))
+    lse = m + math.log(float(np.sum(np.exp(logits - m))))
+    return float(logits[target]) - lse
 
 
 def window_nll(logits: torch.Tensor, targets: torch.Tensor, first_scored: int) -> float:
@@ -38,12 +45,14 @@ def window_nll(logits: torch.Tensor, targets: torch.Tensor, first_scored: int) -
     return -float(picked.double().sum())
 
 
-def perplexity(params, cfg: ModelConfig, token_ids: np.ndarray, *, progress=None,
-               window_seconds: Optional[list] = None) -> dict:
+def perplexity(params, cfg: ModelConfig, token_ids: np.ndarray, *, stride: Optional[int] = None,
+               progress=None, window_seconds: Optional[list] = None) -> dict:
     """Perplexity over ``token_ids`` with non-overlapping ``cfg.n_ctx``
-    windows, scoring the second half of each.  ``window_seconds``, when
-    given, collects each window's time (prefill and scoring, ended by the
-    host read of its NLL).  Returns {"ppl", "nll", "n_scored"}."""
+    windows, scoring the second half of each.  ``stride`` is accepted and
+    ignored, as in the JAX harness (the windows never overlap).
+    ``window_seconds``, when given, collects each window's time (prefill and
+    scoring, ended by the host read of its NLL).  Returns {"ppl", "nll",
+    "n_scored"}."""
     n_ctx = cfg.n_ctx
     first_scored = n_ctx // 2
     ids = np.asarray(token_ids, dtype=np.int64)
@@ -66,3 +75,10 @@ def perplexity(params, cfg: ModelConfig, token_ids: np.ndarray, *, progress=None
         if progress:
             progress(w + 1, n_windows, math.exp(total_nll / n_scored))
     return {"ppl": math.exp(total_nll / n_scored), "nll": total_nll / n_scored, "n_scored": n_scored}
+
+
+def perplexity_of_text(params, cfg: ModelConfig, vocab: Vocab, text: str, **kw) -> dict:
+    """:func:`perplexity` of ``text``, tokenized without BOS (each window
+    starts from BOS anyway)."""
+    ids = vocab.tokenize(text, bos=False)
+    return perplexity(params, cfg, np.asarray(ids, dtype=np.int64), **kw)

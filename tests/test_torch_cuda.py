@@ -600,3 +600,58 @@ def test_fused_blocks_grid_and_bad_inputs(cuda):
         fl.fused_ffn_block(x, fn[0], w13, w2, 1)
     with pytest.raises(ValueError):  # the weight on the CPU
         fl.fused_ffn_block(x, fn[0], mv.Q4_0Weight(w13.qs.cpu(), w13.d.cpu()), w2, 0)
+
+
+@pytest.mark.parametrize("bias", [0, -7, 2**31 - 1])
+@pytest.mark.parametrize("out,in_dim", [(128, 32), (384, 352), (256, 4096), (128, 11008)])
+def test_stream_probe_kernel_bit_equal_to_plain(cuda, out, in_dim, bias):
+    """Every row's wrapped int32 sum, rounded once to f32, equal to the
+    plain version (in-dims on both sides of a warp's four 512-byte loads)."""
+    g = torch.Generator(device=cuda).manual_seed(out + in_dim)
+    qs = torch.randint(0, 256, (out, in_dim // 2), dtype=torch.uint8, device=cuda, generator=g)
+    before = mv.stream_probe.launches
+    rows = mv.stream_probe(qs, bias, all_rows=True)
+    torch.cuda.synchronize()
+    assert mv.stream_probe.launches == before + 1
+    assert torch.equal(rows, mv.stream_probe_plain(qs, bias, all_rows=True))
+    assert torch.equal(mv.stream_probe(qs, bias), rows[::128])
+    with pytest.raises(ValueError):
+        mv.stream_probe(qs[:, 1:], bias)  # not 16-byte aligned
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+def test_dense_dequant_params_on_card_equal_cpu(cuda, kind):
+    """params_from_tensors(dense_dequant=True): the card's leaves equal the
+    CPU's (bf16), one dequant launch a packed tensor, and a decode step on
+    them launches no Q4 kernel."""
+    import numpy as np
+
+    from llama_swift_torch.config import ModelConfig
+    from llama_swift_torch.formats.quant import Q4_0Tensor, Q4_1Tensor
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg = ModelConfig(n_vocab=256, n_embd=256, n_mult=256, n_head=2, n_layer=2, n_ctx=64)
+    cls = Q4_0Tensor if kind == "q4_0" else Q4_1Tensor
+    rng = np.random.default_rng(0)
+    tensors = {}
+    for name, shape in model_lib.expected_tensor_shapes(cfg).items():
+        if len(shape) == 1:
+            tensors[name] = np.ones(shape, np.float32)
+        else:
+            tensors[name] = cls.quantize((rng.standard_normal(shape) * 0.05).astype(np.float32))
+    ops.reset_launch_counts()
+    params = model_lib.params_from_tensors(tensors, cfg, device=cuda, dense_dequant=True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {f"{kind}_dequant": 7 * cfg.n_layer + 2}
+    ref = model_lib.params_from_tensors(tensors, cfg, device="cpu", param_dtype=torch.bfloat16, dense_dequant=True)
+    for name in ("tok_embeddings", "output"):
+        assert torch.equal(params[name].cpu(), ref[name])
+    for name, t in params["layers_stacked"].items():
+        assert torch.equal(t.cpu(), ref["layers_stacked"][name]), name
+    ops.reset_launch_counts()
+    cache = model_lib.init_cache(cfg, device=cuda)
+    logits, _ = model_lib.decode_step(params, torch.tensor(5, device=cuda), 0, cache, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {"flash_decode_attention": cfg.n_layer}

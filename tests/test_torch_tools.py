@@ -4,8 +4,12 @@ llama_swift_tpu.tools.quantize from the same f32 and f16 files, types 2
 (Q4_0) and 3 (Q4_1); the perplexity harness (llama_swift_torch/utils/
 perplexity.py) scores a tiny f16 model and its two quantizations as the
 JAX harness does (ppl within 1e-4 relative: the logits agree to ~1e-6 and
-the NLL sums differ only in order and width; the same n_scored); the
-perplexity CLI prints its JSON summary."""
+the NLL sums differ only in order and width; the same n_scored), and so does
+``perplexity_of_text`` (within 1e-5); ``log_softmax_row`` returns JAX's
+value; the perplexity CLI prints its JSON summary.  The converter
+(llama_swift_torch/tools/convert_pth.py) writes the JAX converter's bytes
+(f32 and f16) from a tiny checkpoint the test saves, with a shim
+``sentencepiece``; the port quantizes the result and serves it."""
 
 import dataclasses
 import json
@@ -13,20 +17,27 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from llama_swift_tpu.config import GGMLType
 from llama_swift_tpu.formats import ggml as jggml
 from llama_swift_tpu.models import llama as jllama
+from llama_swift_tpu.tools import convert_pth as jax_convert
 from llama_swift_tpu.tools.quantize import quantize_model_file as jax_quantize
 from llama_swift_tpu.tokenizer import Vocab as JVocab
+from llama_swift_tpu.utils.perplexity import log_softmax_row as jax_log_softmax_row
 from llama_swift_tpu.utils.perplexity import perplexity as jax_perplexity
+from llama_swift_tpu.utils.perplexity import perplexity_of_text as jax_ppl_of_text
+from llama_swift_torch import LlamaRunner, RunnerConfig, SamplingConfig
 from llama_swift_torch.config import ModelConfig as TModelConfig
 from llama_swift_torch.formats import ggml as tggml
 from llama_swift_torch.models import llama as tllama
+from llama_swift_torch.runtime.events import EventKind
 from llama_swift_torch.tokenizer import Vocab
+from llama_swift_torch.tools import convert_pth
 from llama_swift_torch.tools import perplexity as ppl_tool
 from llama_swift_torch.tools import quantize as quantize_tool
-from llama_swift_torch.utils.perplexity import perplexity
+from llama_swift_torch.utils.perplexity import log_softmax_row, perplexity, perplexity_of_text
 
 N_CTX = 64
 TEXT = ("the rain in spain stays mainly in the plain; he said that on a warm night "
@@ -125,3 +136,116 @@ def test_perplexity_cli_prints_json(quantized_files, tmp_path, capsys):
 def test_perplexity_needs_a_window():
     with pytest.raises(ValueError):
         perplexity({"norm": None}, TModelConfig.tiny(n_ctx=N_CTX), np.arange(10))
+
+
+# ---------------------------------------------------------------------------
+# perplexity_of_text, log_softmax_row
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["f16", "q4_0"])
+def test_perplexity_of_text_matches_jax(quantized_files, kind):
+    """The whole text tokenized without BOS, every window scored; within
+    1e-5 relative of the JAX harness (logits agree to ~1e-6)."""
+    jmf = jggml.load_model_file(quantized_files[kind], n_ctx=N_CTX)
+    jcfg = dataclasses.replace(jmf.config, prefill_bf16=False)
+    want = jax_ppl_of_text(jllama.params_from_tensors(jmf.tensors, jcfg, param_dtype=jnp.float32), jcfg,
+                           JVocab(jmf.vocab), TEXT)
+    mf = tggml.load_model_file(quantized_files[kind], n_ctx=N_CTX)
+    cfg = dataclasses.replace(mf.config, prefill_bf16=False)
+    params = tllama.params_from_tensors(mf.tensors, cfg, device="cpu")
+    got = perplexity_of_text(params, cfg, Vocab(mf.vocab), TEXT, stride=N_CTX // 2)  # stride: ignored, as in JAX
+    assert got["n_scored"] == want["n_scored"] >= 4 * N_CTX // 2
+    assert abs(got["ppl"] - want["ppl"]) <= 1e-5 * want["ppl"]
+    ids = np.asarray(Vocab(mf.vocab).tokenize(TEXT, bos=False))
+    assert got == perplexity(params, cfg, ids)
+
+
+def test_log_softmax_row_equals_jax():
+    logits = (np.random.default_rng(3).standard_normal(512) * 8).astype(np.float32)
+    for target in (0, 17, 511):
+        assert log_softmax_row(logits, target) == jax_log_softmax_row(logits, target)
+    lp = np.array([log_softmax_row(logits, t) for t in range(512)])
+    assert abs(np.log(np.exp(lp).sum())) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# convert_pth
+# ---------------------------------------------------------------------------
+
+
+class _FakeSentencePiece:
+    """The sentencepiece calls the converters make, over a 256-piece vocab:
+    unknown, two controls, four byte tokens and normal pieces."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def vocab_size(self):
+        return 256
+
+    def is_unknown(self, i):
+        return i == 0
+
+    def is_control(self, i):
+        return i in (1, 2)
+
+    def is_byte(self, i):
+        return 3 <= i < 7
+
+    def id_to_piece(self, i):
+        return f"<0x{i + 0x3D:02X}>" if 3 <= i < 7 else f"▁tok{i}"
+
+
+@pytest.fixture()
+def checkpoint(tmp_path, tiny_cfg, tiny_tensors, monkeypatch):
+    """A tiny LLaMA checkpoint (``params.json``, ``consolidated.00.pth`` with
+    the reference's names and a ``rope.freqs`` tensor to skip) in two
+    directories, one for each converter, and a shim ``sentencepiece``."""
+    import sys
+    import types
+
+    shim = types.ModuleType("sentencepiece")
+    shim.SentencePieceProcessor = _FakeSentencePiece
+    monkeypatch.setitem(sys.modules, "sentencepiece", shim)
+    sd = {k: torch.from_numpy(v.copy()) for k, v in tiny_tensors.items()}
+    sd["layers.0.attention.inner_attention.rope.freqs"] = torch.zeros(8)
+    dirs = {}
+    for who in ("jax", "port"):
+        d = tmp_path / who / "tiny"
+        d.mkdir(parents=True)
+        (d / "params.json").write_text(json.dumps({"dim": tiny_cfg.n_embd, "multiple_of": tiny_cfg.n_mult,
+                                                   "n_heads": tiny_cfg.n_head, "n_layers": tiny_cfg.n_layer}))
+        torch.save(sd, d / "consolidated.00.pth")
+        dirs[who] = str(d)
+    return dirs
+
+
+@pytest.mark.parametrize("ftype", [0, 1], ids=["f32", "f16"])
+def test_convert_pth_writes_the_jax_converters_bytes(checkpoint, ftype):
+    (ours,) = convert_pth.convert(checkpoint["port"], ftype)
+    (theirs,) = jax_convert.convert(checkpoint["jax"], ftype)
+    assert ours.endswith(f"ggml-model-{('f32', 'f16')[ftype]}.bin")
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    mf = tggml.load_model_file(ours, n_ctx=N_CTX)
+    assert mf.config.ftype == GGMLType(ftype)
+    assert mf.vocab[:4] == [" ⁇ ".encode(), b"", b"", b"@"] and mf.vocab[40] == b" tok40"
+    assert "layers.0.attention.inner_attention.rope.freqs" not in mf.tensors
+
+
+def test_convert_pth_cli(checkpoint, capsys):
+    assert convert_pth.main([]) == 1
+    assert convert_pth.main([checkpoint["port"], "2"]) == 1
+    assert convert_pth.main([checkpoint["port"]]) == 0  # f16 by default
+    assert "Done. Output file:" in capsys.readouterr().out
+
+
+def test_converted_file_quantized_and_served_by_the_port(checkpoint, tmp_path):
+    (f16,) = convert_pth.convert(checkpoint["port"], 1)
+    q4 = str(tmp_path / "ggml-model-q4_0.bin")
+    assert quantize_tool.quantize_model_file(f16, q4, 2, log=_quiet)
+    runner = LlamaRunner(q4, n_ctx=N_CTX, prefill_bucket=8, device="cpu")
+    events = list(runner.run_events(" tok40 tok41", RunnerConfig(num_tokens=6, sampling=SamplingConfig(seed=1))))
+    assert events[-1].kind == EventKind.COMPLETED
+    assert sum(e.kind == EventKind.OUTPUT_TOKEN for e in events) >= 6
