@@ -19,8 +19,10 @@ Phases:
    version, bound and (where one exists) a single PyTorch call computing
    the same function; the int8 flash kernels read caches written by the
    port's own int8 write, with stale codes and huge scales beyond n_past;
-   the whole-stack kernel runs 2 layers at n_past 0, 127 and 511 on f32
-   and bf16 caches, then all 32 layers of one token (see
+   batch-1 flash decode also at n_ctx 2048 and its kernel launches a call
+   from a profiler window (one); the whole-stack kernel runs 2 layers at
+   n_past 0, 127 and 511 on f32 and bf16 caches, then all 32 layers of one
+   token on both caches at n_past 127 and 511 (see
    ``check_fused_kernel`` for how 4-bit activation flips are counted); the
    Q4_1 matvec at the four matvec shapes and the Q4_1 dequant (bf16, f32,
    bit-exact) at 11008x4096, on weights whose mins centre them near zero;
@@ -156,7 +158,7 @@ BF16_PREFILL_BAR = 0.25
 MATVEC_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
 F32_SHAPES = MATVEC_SHAPES + [(12288, 4096), (22016, 4096)]  # and fused wqkv, w13
 F32_MULTI_ROWS = [2, 8, 32]
-FLASH_NPAST = [0, 127, 128, 511]
+FLASH_NPAST = [0, 63, 64, 127, 128, 511]  # 63/64: a split edge of the batched kernels
 MULTI_ROWS = 8  # the engine's slots
 BATCHED_NPASTS = [0, 63, 64, 127, 200, 311, 511, 5]  # per slot, at n_ctx 512
 BATCHED_NPASTS_16 = BATCHED_NPASTS + [31, 400, 256, 1, 450, 99, 64, 383]  # wave C's 16 slots
@@ -201,6 +203,32 @@ def time_ms(torch, fn, iters: int) -> float:
     if host_ms > sleep.elapsed_time(start):
         raise RuntimeError(f"time_ms: host queueing ({host_ms:.1f} ms) outlasted the sleep kernel")
     return start.elapsed_time(end) / iters
+
+
+def launches_per_call(torch, fn, calls: int = 4, windows: int = 3) -> float:
+    """Kernel launches a call of ``fn(i)``: device kernel events in a
+    ``torch.profiler`` window of ``calls`` calls, after a warm-up call.  A
+    window that shows fewer than the calls made lost records (the wrapper
+    raises on a launch that fails), so up to ``windows`` windows are taken
+    until one shows a whole number; returns the last window's count, which
+    the caller holds to 1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    per_call = 0.0
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(1, calls + 1):
+                fn(i)
+            torch.cuda.synchronize()
+        kernels = {ev.key: ev.count for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA}
+        n = sum(kernels.values())
+        per_call = n / calls
+        log({"case": "launches_window", "calls": calls, "kernels": kernels})
+        if n % calls == 0:
+            break
+    return per_call
 
 
 def rel_err(a, b) -> float:
@@ -581,7 +609,7 @@ def check_fused_blocks(torch, g, summary) -> list:
     versions at 7B width (32 heads, n_ff 11008) with 2 layers of weights, at
     ``FUSED_NPAST`` on f32 and bf16 caches whose rows at and beyond n_past
     are stale (never read): the cache bytes unchanged by the call; k_new and
-    v_new within 1e-5 (bf16: one bf16 step, as ``fused_case``); each delta
+    v_new within 1e-5 (bf16: one bf16 step of their value); each delta
     within 5e-4 where no 4-bit activation code differs between the two
     (their quantizer inputs are traced), else the flips counted and held
     below ``FUSED_FLIP_LIMIT``.  Times against the bound of one layer's
@@ -736,9 +764,40 @@ def check_kernels(torch) -> dict:
             log(case)
             if not case["ok"]:
                 failed.append(case)
+            if n_past == 511:
+                case["launches_per_call"] = launches_per_call(
+                    torch, lambda i: att.flash_decode_attention(q, kc, vc, i % L, n_past))
+                case["ok"] = case["ok"] and case["launches_per_call"] == 1
+                log({"case": "flash_decode_attention_launches", "cache": case["cache"],
+                     "launches_per_call": case["launches_per_call"]})
+                if not case["ok"]:
+                    failed.append(case)
             if dtype == torch.float32 and n_past == 511:
                 summary["flash_decode_attention"] = dict(
                     case, bound_by="bytes", shape=f"H{H} Dh{dh} n_past{n_past} f32")
+        del kc, vc
+    # LLaMA's context: n_ctx 2048, 4 layers, up to its last position
+    for dtype in (torch.float32, torch.bfloat16):
+        L4, n_ctx_l = 4, 2048
+        kc = torch.randn((L4, H, n_ctx_l, dh), device=dev, generator=g).to(dtype)
+        vc = torch.randn((L4, H, n_ctx_l, dh), device=dev, generator=g).to(dtype)
+        for n_past in (1000, 2047):
+            q = torch.randn((H, dh), device=dev, generator=g)
+            kc[1, :, n_past + 1 :] = 1e4
+            vc[1, :, n_past + 1 :] = -1e4
+            out = att.flash_decode_attention(q, kc, vc, 1, n_past)
+            err = rel_err(out, att.flash_decode_attention_plain(q, kc, vc, 1, n_past))
+            nbytes = 2 * H * (n_past + 1) * dh * kc.element_size() + 2 * H * dh * 4
+            case = {"case": "flash_decode_attention", "cache": str(dtype).split(".")[-1], "n_ctx": n_ctx_l,
+                    "n_past": n_past, "max_rel_err": err,
+                    "kernel_ms": time_ms(torch, lambda i: att.flash_decode_attention(q, kc, vc, i % L4, n_past), 200),
+                    "library_ms": time_ms(torch, lambda i: sdpa(
+                        q.to(dtype)[None, :, None, :], kc[i % L4, :, : n_past + 1][None],
+                        vc[i % L4, :, : n_past + 1][None]), 200),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ok": err <= 1e-5}
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
         del kc, vc
 
     # multi-row matmul: B=8 at the matvec shapes, B=32 at 11008x4096
@@ -871,7 +930,7 @@ def check_kernels(torch) -> dict:
 
 
 FUSED_NPAST = [0, 127, 511]
-FUSED_FLIP_LIMIT = 64  # flipped 4-bit codes a kernel-vs-plain case may show (a fault flips thousands)
+FUSED_FLIP_LIMIT = 64  # flipped 4-bit codes a row-11 or path-B case may show (a fault flips thousands)
 
 
 def events_ms(torch, fn) -> float:
@@ -888,43 +947,21 @@ def events_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def fused_case(torch, x, norms, weights, kc, vc, n_past: int) -> dict:
-    """The megakernel and its plain version on copies of one cache state;
-    returns the errors of x and of the new K/V rows, and the 4-bit codes
-    of the quantizer inputs that differ between the two (both traced).  A
-    bf16 cache rounds the new K/V from f32 values that differ by ulps, so
-    there each element may differ by one bf16 step (2^-7 of its value)."""
-    from llama_swift_torch.ops import fused_layer as fl
-    from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
-
-    kp, vp = kc.clone(), vc.clone()
-    tr_k, tr_p = [], []
-    out = fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past, trace=tr_k)
-    ref = fl.fused_layers_block_plain(x, *norms, *weights, kp, vp, n_past, trace=tr_p)
-    flips = int((quantize_activations_q4_0_int(tr_k[0])[0] != quantize_activations_q4_0_int(tr_p[0])[0]).sum())
-    rows = [(a[:, :, n_past].float(), b[:, :, n_past].float()) for a, b in ((kc, kp), (vc, vp))]
-    kv_err = max(rel_err(a, b) for a, b in rows)
-    if kc.dtype == torch.bfloat16:
-        kv_ok = all(bool(((a - b).abs() <= b.abs() * 2.0**-7).all()) for a, b in rows)
-    else:
-        kv_ok = kv_err <= 5e-4
-    err = rel_err(out, ref)
-    ok = bool(torch.isfinite(out).all()) and ((err <= 5e-4 and kv_ok) or 0 < flips <= FUSED_FLIP_LIMIT)
-    return {"max_rel_err": err, "max_abs_err": float((out - ref).abs().max()), "kv_new_rel_err": kv_err,
-            "kv_new_ok": kv_ok, "q4_flips": flips, "ok": ok}
-
-
 def check_fused_kernel(torch, g, summary) -> list:
     """The whole-stack kernel against its plain version at 7B width (32
     heads, n_ff 11008): 2 layers at ``FUSED_NPAST`` on f32 and bf16 caches
     with stale rows at and beyond n_past; then all 32 layers at n_past 127
-    (f32), timed against the bound of one token's bytes.  Where no 4-bit
-    activation code differs between the two, x and the new K/V agree within
-    5e-4 (the JAX package's fused tests' bar); a flipped code moves the
-    result by a quantization step, so then the flips are counted and held
-    below ``FUSED_FLIP_LIMIT``.  No single PyTorch call computes this
-    function, so ``library_ms`` is None."""
+    and 511, f32 and bf16, timed against the bound of one token's bytes.
+    Each case is held to the bar of ``llama_swift_torch/utils/fused_check.py``
+    (``fused_case``, which ``tests/test_torch_cuda.py`` shares): x and the
+    new K/V within 5e-4 (the JAX package's fused tests' bar; bf16 K/V
+    within one bf16 step), or, where 4-bit codes flip, the first flip at a
+    rounding boundary and the plain arithmetic run on the kernel's own
+    quantizer inputs and K/V rows agreeing everywhere; the kernel's second
+    launch repeats the first bit for bit.  No single PyTorch call computes
+    this function, so ``library_ms`` is None."""
     from llama_swift_torch.ops import fused_layer as fl
+    from llama_swift_torch.utils.fused_check import fused_case
 
     H, n_ctx, F = 32, 512, 11008
     D = H * fl.HEAD_DIM
@@ -955,7 +992,7 @@ def check_fused_kernel(torch, g, summary) -> list:
             kc[:, :, n_past:] = 1e4  # stale rows: n_past is written first, beyond it never read
             vc[:, :, n_past:] = -1e4
             case = {"case": "fused_layers_block", "layers": L, "cache": str(dtype).split(".")[-1],
-                    "n_past": n_past, **fused_case(torch, x, norms, weights, kc, vc, n_past)}
+                    "n_past": n_past, **fused_case(x, norms, weights, kc, vc, n_past)}
             case.update(
                 kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 20),
                 plain_ms=time_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past),
@@ -967,23 +1004,27 @@ def check_fused_kernel(torch, g, summary) -> list:
         del kc0, vc0, kc, vc
     del weights, norms
 
-    # one token of the 32-layer stack: 4.05 GB of weights, far beyond L2
-    L, n_past = 32, 127
+    # one token of the 32-layer stack: 4.05 GB of weights, far beyond L2;
+    # f32 and bf16 caches at n_past 127 and 511 (the summary: f32 at 127)
+    L = 32
     weights, norms = inputs(L)
-    kc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
-    vc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
-    case = {"case": "fused_layers_block", "layers": L, "cache": "float32", "n_past": n_past,
-            **fused_case(torch, x, norms, weights, kc, vc, n_past)}
-    case.update(
-        kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 10),
-        plain_ms=events_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past)),
-        bound_ms=bound_ms(L, n_past, kc.element_size()), library_ms=None)
-    log(case)
-    if not case["ok"]:
-        failed.append(case)
-    summary["fused_layers_block"] = dict(case, bound_by="bytes",
-                                         shape=f"L{L} H{H} n_ff{F} n_past{n_past} f32, per token")
-    del weights, norms, kc, vc
+    for dtype, n_past in ((torch.float32, 127), (torch.bfloat16, 127), (torch.float32, 511), (torch.bfloat16, 511)):
+        kc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
+        vc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
+        case = {"case": "fused_layers_block", "layers": L, "cache": str(dtype).split(".")[-1], "n_past": n_past,
+                **fused_case(x, norms, weights, kc, vc, n_past)}
+        case.update(
+            kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 10),
+            plain_ms=events_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past)),
+            bound_ms=bound_ms(L, n_past, kc.element_size()), library_ms=None)
+        log(case)
+        if not case["ok"]:
+            failed.append(case)
+        if dtype == torch.float32 and n_past == 127:
+            summary["fused_layers_block"] = dict(case, bound_by="bytes",
+                                                 shape=f"L{L} H{H} n_ff{F} n_past{n_past} f32, per token")
+        del kc, vc
+    del weights, norms
     torch.cuda.empty_cache()
     return failed
 
@@ -1063,6 +1104,13 @@ def check_int8_kernels(torch, g, summary) -> list:
             lambda i: att.flash_decode_attention_stacked_int8_plain(q, k8, v8, ks, vs, i % L, n_past),
             bound_ms(n_past + 1, 1))
         if n_past == 511:
+            case["launches_per_call"] = launches_per_call(
+                torch, lambda i: att.flash_decode_attention_stacked_int8(q, k8, v8, ks, vs, i % L, n_past))
+            log({"case": "flash_decode_attention_stacked_int8_launches",
+                 "launches_per_call": case["launches_per_call"]})
+            if case["launches_per_call"] != 1:
+                case["ok"] = False
+                failed.append(case)
             summary["flash_decode_attention_stacked_int8"] = dict(
                 case, bound_by="bytes", shape=f"H{H} Dh{dh} n_past{n_past} int8")
     del k8, ks, v8, vs, fresh

@@ -31,24 +31,48 @@
 //
 // What bounds it on the H100: device-memory bandwidth (2 * (n_past+1) * H
 // rows of Dh elements per slot, plus 8 B of scales per int8 row; 4 flops
-// per element), and at 7B decode shapes also launch and latency: 32 heads
-// are fewer blocks than the card's 132 SMs.
+// per element), and at 7B decode shapes also launch and latency: at n_past
+// 511 a batch-1 layer is 8.4 MB of bf16 rows, 2.5 us at 3.35 TB/s, against
+// a fixed ~3 us a launch.
 //
-// Design (split-K flash decoding, two launches):
+// Batch 1 (`flash_decode`): one launch a call.
+//  * Grid (S, H), a thread-block cluster of S <= 8 blocks per head (256
+//    threads each): block (c, h) takes split c, a contiguous run of the
+//    head's keys 0..n_past (split_plan: at most 8 splits of a multiple of
+//    16 keys, so 32 heads give 256 blocks from n_past 127 on, and any
+//    n_past < n_ctx works).
+//  * Each block runs the chunk pass of flash_common.cuh: its run of K and
+//    V rows copied into shared memory by the 1-D bulk copy (TMA,
+//    cp.async.bulk; int8 row scales by cp.async) in a ring of 32 KB
+//    tiles, up to four of them in flight from the start (q is loaded
+//    behind them; the ring holds only the tiles a split needs, so more
+//    blocks fit on an SM), every key of a tile scored at once, online
+//    softmax from tile to tile.  Before, a block waited on memory once a
+//    key (the old split pass below) and the card held too few bytes in
+//    flight: bf16 cost what f32 did.
+//  * The splits of a head combine inside the launch: every block writes
+//    its (acc, m, l) into block 0's shared memory (distributed shared
+//    memory) and arrives on the cluster barrier (release); block 0 waits
+//    (acquire), rescales by exp(m_c - max m) in split order and writes the
+//    head's output; the other blocks exit right after arriving.  No
+//    global scratch, no counter, nothing that two streams could share.
+//
+// Batched and paged (split-K flash decoding in two launches, on the older
+// split pass):
 //  * split kernel, grid (H, S, B): block (h, c, b) takes keys
 //    [64c, 64c+64) of slot b, head h, one thread per head dim.  Warps compute
 //    the scores (a warp reads a key row as one coalesced line: lanes split
 //    the dims, a char4 per lane for int8, shuffles reduce), the block takes
 //    the chunk max m_c, p_j = exp(s_j - m_c), l_c = sum p_j, and thread d
-//    accumulates acc_c[d] = sum_j p_j v[j, d] (the block reads each value
-//    row coalesced).  Splitting the keys puts H * S * B blocks on the card
-//    instead of H * B.  S covers the largest n_past of the step (the host
-//    knows it); a block whose chunk starts past its own slot's n_past exits
-//    at once.
+//    accumulates acc_c[d] = sum_j p_j v[j, d].  S covers the largest n_past
+//    of the step (the host knows it); a block whose chunk starts past its
+//    own slot's n_past exits at once.
 //  * combine kernel, grid (H, B): rescales slot b's live partials by
 //    exp(m_c - max m) and normalises (online softmax across chunks).
 // Per-slot n_past is read on the device from an int32 tensor, so a step
 // needs no device-to-host read.  All arithmetic is f32.
+#include <cooperative_groups.h>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -111,6 +135,100 @@ __global__ void flash_combine_kernel(const float* __restrict__ part, const int* 
   o[bh * dh + threadIdx.x] = combine_splits(part + bh * S * (dh + 2), live, dh);
 }
 
+constexpr int ONE_THREADS = 256;          // threads of a batch-1 block
+constexpr int ONE_STAGES = 5;             // ring tiles of the chunk pass: four in flight
+constexpr int ONE_STAGE_BYTES = 32768;    // K and V rows of a tile
+constexpr int ONE_SMEM_LIMIT = 232448;    // the most a block may take (227 KB)
+constexpr int ONE_MAX_SPLITS = 8;         // blocks of a head: a cluster of the portable size
+
+// Batch 1: q [H, dh]; k/v: layer plane [H, n_ctx, dh]; ks/vs its row
+// scales [H, n_ctx] (int8) or null; o [H, dh].  Grid (S, H), cluster
+// (S, 1, 1); split c takes keys [c * split, min((c + 1) * split, n_keys)).
+// Shared memory: the cluster's partials [S][dh + 2] (used in block 0
+// only), q [dh], this split's (acc, m, l), the chunk pass.
+template <typename T>
+__global__ void __launch_bounds__(ONE_THREADS)
+    flash_one_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ ks, const float* __restrict__ vs, float* __restrict__ o,
+                     int n_ctx, int dh, int n_keys, int split, int tile, float scale) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char one_smem[];
+  const int c = blockIdx.x, S = gridDim.x, h = blockIdx.y, tid = threadIdx.x;
+  float* parts = reinterpret_cast<float*>(one_smem);                              // [S][dh + 2]
+  float* qs = reinterpret_cast<float*>(one_smem + round16(4 * S * (dh + 2)));      // [dh]
+  float* mine = qs + round16(4 * dh) / 4;                                          // [dh + 2]
+  unsigned char* pass = reinterpret_cast<unsigned char*>(mine) + round16(4 * (dh + 2));
+  const size_t rows = static_cast<size_t>(h) * n_ctx;
+  const int j0 = c * split;
+  // barrier phase 1 (waited on below): every block of the cluster has started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  chunk_pass<T, ONE_THREADS, ONE_STAGES>(
+      qs,
+      [&] {  // q, while the first tiles are in flight
+        for (int d = tid; d < dh; d += ONE_THREADS) qs[d] = __ldg(q + static_cast<size_t>(h) * dh + d);
+      },
+      k + rows * dh, v + rows * dh, ks ? ks + rows : nullptr, vs ? vs + rows : nullptr, dh, j0,
+      min(split, n_keys - j0), tile, scale, pass, mine);
+  // every split pushes its (acc, m, l) into block 0's shared memory, then
+  // arrives; block 0 waits for all and combines; the others exit at once
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* dst = cluster.map_shared_rank(parts, 0) + c * (dh + 2);
+  for (int d = tid; d < dh + 2; d += ONE_THREADS) dst[d] = mine[d];
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (c != 0) return;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  float mx = -INFINITY;
+  for (int r = 0; r < S; ++r) mx = fmaxf(mx, parts[r * (dh + 2) + dh]);
+  for (int d = tid; d < dh; d += ONE_THREADS) {
+    float l = 0.0f, acc = 0.0f;
+    for (int r = 0; r < S; ++r) {
+      const float* pc = parts + r * (dh + 2);
+      const float a = expf(pc[dh] - mx);
+      l += a * pc[dh + 1];
+      acc += a * pc[d];
+    }
+    o[static_cast<size_t>(h) * dh + d] = acc / l;
+  }
+}
+
+// Dynamic shared memory of a batch-1 launch: S splits of `keys` keys.
+size_t one_smem_bytes(int dh, int elt, bool scaled, int S, int keys, int tile) {
+  return round16(4 * S * (dh + 2)) + round16(4 * dh) + round16(4 * (dh + 2)) +
+         pass_smem_bytes(tile, dh * elt, scaled, ONE_THREADS, pass_stages(keys, tile, ONE_STAGES));
+}
+
+template <typename T>
+int launch_one(cudaStream_t s, const void* q, const void* k, const void* v, const void* ks, const void* vs,
+               void* out, int H, int n_ctx, int dh, int n_keys, float scale) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_one_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, ONE_SMEM_LIMIT);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const SplitPlan plan = split_plan(n_keys, ONE_MAX_SPLITS);
+  const int tile = pass_tile_rows(dh * static_cast<int>(sizeof(T)), ONE_STAGE_BYTES);
+  const size_t smem = one_smem_bytes(dh, sizeof(T), kScaled, plan.splits, plan.keys, tile);
+  if (smem > ONE_SMEM_LIMIT || (dh * sizeof(T)) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.splits, H, 1);
+  cfg.blockDim = dim3(ONE_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = plan.splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_one_kernel<T>, static_cast<const float*>(q),
+                                           static_cast<const T*>(k), static_cast<const T*>(v),
+                                           static_cast<const float*>(ks), static_cast<const float*>(vs),
+                                           static_cast<float*>(out), n_ctx, dh, n_keys, plan.keys, tile, scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 size_t split_smem(int dh) { return (dh + 2 * CHUNK) * sizeof(float); }
 int n_splits(int n_keys) { return (n_keys + CHUNK - 1) / CHUNK; }
 
@@ -150,21 +268,20 @@ bool split_dense_kind(int kind, dim3 grid, int dh, cudaStream_t s, const void* q
 
 }  // namespace
 
-// k/v point at layer il of the stacked cache, ks/vs at its row scales
-// (int8) or are null; n_keys = n_past + 1; part is scratch of
-// H * ceil(n_keys/64) * (dh + 2) floats.
-extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* ks,
-                            const void* vs, void* part, void* out, int H, int n_ctx, int dh,
-                            int n_keys, float scale, int kind, void* stream) {
+// k/v point at layer il of the stacked cache ([H, n_ctx, dh]), ks/vs at
+// its row scales (int8) or are null, all 16-byte aligned; n_keys =
+// n_past + 1.  One launch.
+extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                            void* out, int H, int n_ctx, int dh, int n_keys, float scale, int kind,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int S = n_splits(n_keys);
-  float* pf = static_cast<float*>(part);
-  if (!split_dense_kind(kind, dim3(H, S, 1), dh, s, q, k, v, ks, vs, nullptr, pf, H, n_ctx, n_keys,
-                        scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  flash_combine_kernel<<<dim3(H, 1), dh, 0, s>>>(pf, nullptr, static_cast<float*>(out), H, dh, S,
-                                                  n_keys);
-  return static_cast<int>(cudaGetLastError());
+  if (H < 1 || n_keys < 1 || n_keys > n_ctx) return static_cast<int>(cudaErrorInvalidValue);
+  switch (kind) {
+    case 0: return launch_one<float>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+    case 1: return launch_one<__nv_bfloat16>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+    case 2: return launch_one<int8_t>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // B slots: k/v point at layer il of the batched cache ([B, H, n_ctx, Dh]),

@@ -20,12 +20,13 @@
 //     g     = w13[il] . q4(h)                           2F rows (g1; g3)
 //     delta = w2[il] . q4(g1 / (1 + exp(-g1)) * g3)
 //
-// q4(.) and the products are those of the whole-stack kernel
-// (fused_common.cuh).  The differences from its layer are the TPU blocks':
-// the cache is only read, and only at j < n_past; the new token's k and v go
-// out to the caller (who writes them at n_past) and enter the softmax as its
-// last term, from their cache-rounded values; neither block adds the
-// residual, each writes its delta.
+// q4(.) and the products compute what the whole-stack kernel's do (the
+// quantizer and the block dot of q4_common.cuh), with loops of their own
+// for these 128-thread blocks, below.  The differences from its layer are
+// the TPU blocks': the cache is only read, and only at j < n_past; the new
+// token's k and v go out to the caller (who writes them at n_past) and
+// enter the softmax as its last term, from their cache-rounded values;
+// neither block adds the residual, each writes its delta.
 //
 // What bounds them on the H100: device-memory bandwidth.  At 7B the
 // attention block streams 4 D^2 weights at 0.625 bytes (41.9 MB) and
@@ -49,6 +50,97 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+constexpr int THREADS = DH;  // threads a block: one per head dim in attention
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_BLOCKS_PER_SM = 4;
+
+// Shared memory: the staged activation (codes, sums, scales) and the norm
+// reduction, or in attention the split pass's arrays plus the roped q.
+__host__ __device__ size_t smem_bytes(int max_in) {
+  const size_t stage = round16(max_in) + 2 * sizeof(float) * (max_in / QK) + WARPS * sizeof(float);
+  const size_t attn = (2 * DH + 2 * CHUNK) * sizeof(float);
+  return stage > attn ? stage : attn;
+}
+
+// Sum over the block in a fixed order: every thread gets the same value.
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum_f(v);
+  __syncthreads();  // red may still be read by a previous call
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < WARPS; ++w) s += red[w];
+  return s;
+}
+
+// ggml_norm (mean-centered) or RMSNorm statistics of x [n]
+__device__ NormStats norm_stats(const float* x, int n, int layernorm, float eps, float* red) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const float xi = __ldcg(x + i);
+    s += layernorm ? xi : __fmul_rn(xi, xi);
+  }
+  const float m = __fdiv_rn(block_sum(s, red), static_cast<float>(n));
+  if (!layernorm) return {0.0f, sqrtf(__fadd_rn(m, eps))};
+  float c2 = 0.0f;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const float c = __fsub_rn(__ldcg(x + i), m);
+    c2 += __fmul_rn(c, c);
+  }
+  const float var = __fdiv_rn(block_sum(c2, red), static_cast<float>(n));
+  return {m, sqrtf(__fadd_rn(var, eps))};
+}
+
+// Quantize act(i), i < n, once across the grid: warps take 32-blocks with
+// a grid stride and publish codes, sums and scales (and the values, to
+// `trace` when given).  A barrier must follow before anyone reads them.
+template <typename Act>
+__device__ void quantize_grid(Act act, int n, Staged st, float* trace) {
+  const int lane = threadIdx.x & 31;
+  for (int b = blockIdx.x * WARPS + (threadIdx.x >> 5); b < n / QK; b += gridDim.x * WARPS) {
+    const float v = act(b * QK + lane);
+    if (trace != nullptr) trace[b * QK + lane] = v;
+    quantize_block_warp(v, lane, st.xq + b * QK, st.qsum + b, st.dx + b);
+  }
+}
+
+// Copy the published activation of n values into this block's shared memory.
+__device__ void load_staged(Staged st, int n, int8_t* xq, int* qsum, float* dx) {
+  __syncthreads();  // the previous phase's reads of the staging area are done
+  const uint4* src = reinterpret_cast<const uint4*>(st.xq);
+  for (int i = threadIdx.x; i < n / 16; i += THREADS) reinterpret_cast<uint4*>(xq)[i] = __ldcg(src + i);
+  for (int i = threadIdx.x; i < n / QK; i += THREADS) {
+    qsum[i] = __ldcg(st.qsum + i);
+    dx[i] = __ldcg(st.dx + i);
+  }
+  __syncthreads();
+}
+
+// y[row] (= or +=) W[il][row] . staged activation, a warp per row, rows
+// taken with a grid stride.
+__device__ void q4_rows(Weight w, int il, int out, int nb, const int8_t* xq, const int* qsum,
+                        const float* dx, float* y, bool accumulate) {
+  const int lane = threadIdx.x & 31;
+  const uint8_t* qs = w.qs + static_cast<size_t>(il) * out * nb * 16;
+  const float* dw = w.d + static_cast<size_t>(il) * out * nb;
+  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
+  for (int row = blockIdx.x * WARPS + (threadIdx.x >> 5); row < out; row += gridDim.x * WARPS) {
+    const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
+    const float* drow = dw + static_cast<size_t>(row) * nb;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int b = lane; b < nb; b += 32) {
+      const int part = block_dot(__ldg(wrow + b), xq4[2 * b], xq4[2 * b + 1], qsum[b]);
+      const float scale = __fmul_rn(__ldg(drow + b), dx[b]);
+      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(part), scale));
+    }
+    acc = warp_sum_f(acc);
+    if (lane == 0) y[row] = accumulate ? __fadd_rn(__ldcg(y + row), acc) : acc;
+  }
+}
 
 struct AttnArgs {
   const float* x;      // [D]
@@ -192,8 +284,8 @@ __global__ void __launch_bounds__(THREADS) ffn_block_kernel(FfnArgs a) {
 
 int attn_blocks_for(int kind, size_t smem) {
   switch (kind) {
-    case 0: return coop_blocks(attn_block_kernel<float>, smem);
-    case 1: return coop_blocks(attn_block_kernel<__nv_bfloat16>, smem);
+    case 0: return coop_blocks(attn_block_kernel<float>, smem, THREADS, MAX_BLOCKS_PER_SM);
+    case 1: return coop_blocks(attn_block_kernel<__nv_bfloat16>, smem, THREADS, MAX_BLOCKS_PER_SM);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -260,7 +352,7 @@ extern "C" int fused_ffn_block_scratch_bytes(int D, int F) {
 
 // Blocks that fused_ffn_block launches, or a negative cudaError code.
 extern "C" int fused_ffn_block_blocks(int D, int F) {
-  return coop_blocks(ffn_block_kernel, smem_bytes(D > F ? D : F));
+  return coop_blocks(ffn_block_kernel, smem_bytes(D > F ? D : F), THREADS, MAX_BLOCKS_PER_SM);
 }
 
 // Layer il's FFN block of one decode token: delta [D] out.  w13 holds g1 in
@@ -272,7 +364,7 @@ extern "C" int fused_ffn_block(const void* x, const void* norm, const void* w13_
   if (D % QK || F % QK || D < QK || F < QK || il < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int max_in = D > F ? D : F;
   const size_t smem = smem_bytes(max_in);
-  const int blocks = coop_blocks(ffn_block_kernel, smem);
+  const int blocks = coop_blocks(ffn_block_kernel, smem, THREADS, MAX_BLOCKS_PER_SM);
   if (blocks < 0) return -blocks;
   const Staged st = staged_at(scratch, max_in);
   FfnArgs a{static_cast<const float*>(x),

@@ -22,7 +22,8 @@ The batched and paged entry points take the per-slot positions as a device
 int32 tensor ``n_pasts [B]`` and their largest value ``max_n_past`` as a
 host int (the engine keeps both), so a step reads nothing back from the
 card.  The note at the top of the CUDA source says what bounds the kernels
-on the H100.
+on the H100: batch 1 is one launch a call (a cluster of blocks a head),
+batched and paged two (a split pass and a combine).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 
 from . import build
 
-#: keys per split of the kernel's first pass (``CHUNK`` in the CUDA source)
+#: keys per split of the batched and paged kernels' first pass (``CHUNK``
+#: in the CUDA source); batch 1 cuts its keys on the card (``split_plan``)
 SPLIT = 64
 
 #: cache element type -> the CUDA source's ``kind`` argument
@@ -193,12 +195,12 @@ def _launch_stacked(what, q, k_cache, v_cache, scales, il: int, n_past: int) -> 
     _check_q(what, q, (H, dh))
     if not (0 <= il < L and 0 <= n_past < n_ctx):
         raise ValueError(f"{what}: il={il}, n_past={n_past} out of range")
-    n_keys = n_past + 1
-    part = torch.empty(H * -(-n_keys // SPLIT) * (dh + 2), dtype=torch.float32, device=q.device)
+    if any(t[il].data_ptr() % 16 for t in (k_cache, v_cache)):
+        raise ValueError(f"{what}: the caches' layer planes must be 16-byte aligned (bulk copies)")
     out = torch.empty((H, dh), dtype=torch.float32, device=q.device)
     code = build.lib("flash_decode").flash_decode(
         q.data_ptr(), k_cache[il].data_ptr(), v_cache[il].data_ptr(), *_scale_ptrs(scales, il),
-        part.data_ptr(), out.data_ptr(), H, n_ctx, dh, n_keys, 1.0 / math.sqrt(float(dh)), kind, _stream(q),
+        out.data_ptr(), H, n_ctx, dh, n_past + 1, 1.0 / math.sqrt(float(dh)), kind, _stream(q),
     )
     build.check(code, what)
     return out

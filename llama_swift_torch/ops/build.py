@@ -40,7 +40,7 @@ SOURCES = {
         "q4_0_matmul_multi_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
     "flash_decode": {
-        "flash_decode": [ctypes.c_void_p] * 7
+        "flash_decode": [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "flash_decode_batched": [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],

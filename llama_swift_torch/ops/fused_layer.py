@@ -188,8 +188,9 @@ fused_layers_block.launches = 0
 
 
 def grid_blocks(n_head: int, n_ff: int, dtype=torch.float32) -> int:
-    """Blocks of the kernel's cooperative launch on the current card (the
-    occupancy limit, at most four a multiprocessor); raises if none fits."""
+    """Blocks of the kernel's cooperative launch on the current card: one
+    block a multiprocessor (132 on the H100), where the occupancy
+    calculator says it is resident; raises if none fits."""
     n = build.lib("fused_layer").fused_layers_blocks(n_head, n_ff, _KIND[dtype])
     build.check(max(0, -n), "fused_layers_block grid")
     return n

@@ -6,10 +6,12 @@ the kernel as it stands, on one card, at 7B width and 32 layers.
 Each variant is the current source with a few lines replaced (``VARIANTS``),
 built with the package's nvcc flags into ``llama_swift_torch/_build/
 variants/`` and launched through the same wrapper.  Variants run in turns,
-the current kernel first and last (a, b, ..., b, a), at n_past 7 and 127;
-each line reports the device time per token and the largest difference of
+the current kernel first and last (a, b, ..., b, a), at n_past 7, 127 and
+511 (f32 caches); each line reports the device time per token and the largest difference of
 its output from the current kernel's.  Variants that drop work
-(``no_products``) compute wrong results on purpose: they attribute time.
+(``no_products``, ``no_attention``, ``barriers_only``) compute wrong results
+on purpose: they attribute time; ``no_prefetch`` drops the L2 prefetch of
+the next product's first rows and ``blocks_per_sm_2`` changes the launch.
 """
 
 from __future__ import annotations
@@ -27,25 +29,43 @@ from ..ops import build
 from ..ops import fused_layer as fl
 from ..ops.q4_matvec import Q4_0Weight
 
-_ROWS_LOOP = "  for (int row = blockIdx.x * WARPS + (threadIdx.x >> 5); row < out; row += gridDim.x * WARPS) {"
+_ROWS_LOOP = "  for (int r0 = blockIdx.x * NW + (threadIdx.x >> 5); r0 < out; r0 += 2 * stride) {"
+_PREFETCH = '  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\\n" ::"l"(p), "r"(bytes) : "memory");'
+_LAYER_LOOP = "  for (int il = 0; il < a.L; ++il) {"
+_ATTENTION = "    attention<T>(a, il, cs, sn, sm, tr ? tr + D : nullptr);\n"
+_ATTENTION_BEGIN = "    attention_begin<T>(a, il, sm);  // x and the norm weights are done with the pass's memory\n"
 
 #: name -> [(text of csrc/fused_layer.cu, its replacement)]
 VARIANTS = {
     # every phase but the weight products: norms, quantization, staging
-    # copies, attention and the grid barriers
+    # copies, attention, the gate blocks' arrivals and the grid barriers
+    # (no product row is written: the results are wrong on purpose)
     "no_products": [(_ROWS_LOOP, "  if (out > 0) return;\n" + _ROWS_LOOP)],
-    "blocks_per_sm_2": [("constexpr int MAX_BLOCKS_PER_SM = 4;", "constexpr int MAX_BLOCKS_PER_SM = 2;")],
-    "blocks_per_sm_8": [("constexpr int MAX_BLOCKS_PER_SM = 4;", "constexpr int MAX_BLOCKS_PER_SM = 8;")],
+    # the products without the L2 prefetch issued before each barrier
+    "no_prefetch": [(_PREFETCH, "  (void)p, (void)bytes;")],
+    # every phase but attention (phase B: its bulk copies, splits and combine)
+    "no_attention": [(_ATTENTION, ""), (_ATTENTION_BEGIN, "")],
+    # the five grid barriers of each layer and nothing else
+    "barriers_only": [(_LAYER_LOOP, "  for (int il = 0; il < 5 * a.L; ++il) grid.sync();\n  if (a.L > 0) return;\n"
+                       + _LAYER_LOOP)],
+    "blocks_per_sm_2": [("constexpr int BLOCKS_PER_SM = 1;", "constexpr int BLOCKS_PER_SM = 2;")],
 }
 
 
-def build_variant(name: str) -> ctypes.CDLL:
-    with open(os.path.join(build.CSRC_DIR, "fused_layer.cu")) as f:
+def variant_source(name: str, csrc_dir: str = build.CSRC_DIR) -> str:
+    """``csrc/fused_layer.cu`` with variant ``name``'s replacements; raises
+    unless each replaced text occurs exactly once."""
+    with open(os.path.join(csrc_dir, "fused_layer.cu")) as f:
         src = f.read()
     for old, new in VARIANTS[name]:
         if src.count(old) != 1:
             raise RuntimeError(f"variant {name}: its text is not found once in fused_layer.cu")
         src = src.replace(old, new)
+    return src
+
+
+def build_variant(name: str) -> ctypes.CDLL:
+    src = variant_source(name)
     out_dir = os.path.join(build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     cu, so = os.path.join(out_dir, name + ".cu"), os.path.join(out_dir, name + ".so")
@@ -99,7 +119,7 @@ def main(argv=None) -> int:
     vc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g)
     order = list(libs) + list(reversed(libs))
     try:
-        for n_past in (7, 127):
+        for n_past in (7, 127, 511):
             ref = None
             for name in order:
                 build._libs["fused_layer"] = libs[name]
