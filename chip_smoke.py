@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only tp       # build + kernel checks + the TP phases (4e)
     python3 chip_smoke.py --only int      # build + kernel checks + paths A and B (4f, 4g)
     python3 chip_smoke.py --only bench    # build + kernel checks + the kernelbench path (2b)
+    python3 chip_smoke.py --only tiny     # build + kernel checks + the tiny model (2c)
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -24,8 +25,10 @@ Phases:
    n_past 0, 127 and 511 on f32 and bf16 caches, then all 32 layers of one
    token on both caches at n_past 127 and 511 (see
    ``check_fused_kernel`` for how 4-bit activation flips are counted); the
-   Q4_1 matvec at the four matvec shapes and the Q4_1 dequant (bf16, f32,
-   bit-exact) at 11008x4096, on weights whose mins centre them near zero;
+   multi-row product (row 6) at B = 2, 8, 16, 32 on the four matvec shapes
+   beside row 12 on the same inputs; both dequants (rows 3, 3b: bf16, f32,
+   bit-exact) at the four matvec shapes; the Q4_1 matvec at the four
+   matvec shapes, on weights whose mins centre them near zero;
    the three f32-activation kernels (Q4_0 and Q4_1 matvec, Q4_0 multi-row
    at B = 2, 8, 32) at the four matvec shapes and the fused 12288x4096 and
    22016x4096, beside the dequant + matmul pair they replace; the T
@@ -36,6 +39,9 @@ Phases:
 2b. the kernelbench path (``tools/kernelbench.main``, every variant at its
    five shapes; see ``run_kernelbench``): the stream probe's launches come
    from here, with each product's GB/s against the probe's on its shape;
+2c. the tiny model (``ModelConfig.tiny``: 16-dim heads) on
+   the card: a runner request on an f32 and one on an int8 cache, and a
+   paged bf16 engine wave (``serve_tiny``);
 3. whole-path parity at full 7B width and 2 layers: card vs CPU (the
    kernels' plain versions), decode logits within 2e-3 relative (the repo's
    hardware parity bar, bench.py's ``--check``) with f32 prefill, and bf16
@@ -160,6 +166,7 @@ F32_SHAPES = MATVEC_SHAPES + [(12288, 4096), (22016, 4096)]  # and fused wqkv, w
 F32_MULTI_ROWS = [2, 8, 32]
 FLASH_NPAST = [0, 63, 64, 127, 128, 511]  # 63/64: a split edge of the batched kernels
 MULTI_ROWS = 8  # the engine's slots
+MULTI_ROWS_TIMED = [2, 8, 16, 32]  # row 6, each beside row 12 on the same inputs
 BATCHED_NPASTS = [0, 63, 64, 127, 200, 311, 511, 5]  # per slot, at n_ctx 512
 BATCHED_NPASTS_16 = BATCHED_NPASTS + [31, 400, 256, 1, 450, 99, 64, 383]  # wave C's 16 slots
 STALE_CODE, STALE_SCALE = 127, 1e3  # int8 rows beyond n_past: never to be attended
@@ -315,10 +322,9 @@ def rand_q4_1(torch, g, n, out, in_dim):
 def check_q4_1_kernels(torch, g, summary) -> list:
     """The Q4_1 matvec against its plain version at the four matvec shapes
     (≤ 1e-5 of max |y|: the kernel sums integer block dots, the plain version
-    f32 products of rounded x̂), and the Q4_1 dequant bit-exact at 11008x4096
-    in bf16 and f32.  Returns the cases that disagree.  No single PyTorch
-    call computes either function, so ``library_ms`` is None."""
-    from llama_swift_torch.ops import q4_dequant as dq
+    f32 products of rounded x̂), and the Q4_1 dequant (``check_dequant``).
+    Returns the cases that disagree.  No single PyTorch call computes
+    either function, so ``library_ms`` is None."""
     from llama_swift_torch.ops import q4_matvec as mv
 
     failed = []
@@ -343,26 +349,107 @@ def check_q4_1_kernels(torch, g, summary) -> list:
         if (out, in_dim) == (11008, 4096):
             summary["q4_1_matvec"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
         del w
-    out, in_dim = 11008, 4096
-    w = rand_q4_1(torch, g, 4, out, in_dim)
-    for dtype in (torch.bfloat16, torch.float32):
-        dense = dq.q4_1_dequant(w.layer(0), dtype)
-        ref = dq.dequantize_q4_1(w.layer(0), dtype)
-        exact = bool(torch.equal(dense, ref))
-        nbytes = out * in_dim // 2 + out * (in_dim // 32) * 8 + out * in_dim * dense.element_size()
-        case = {"case": "q4_1_dequant", "dtype": str(dtype).split(".")[-1], "out": out, "in": in_dim,
-                "exact": exact, "max_abs_err": float((dense.float() - ref.float()).abs().max()),
-                "kernel_ms": time_ms(torch, lambda i: dq.q4_1_dequant(w.layer(i % 4), dtype), 50),
-                "plain_ms": time_ms(torch, lambda i: dq.dequantize_q4_1(w.layer(i % 4), dtype), 5),
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S, 2 * out * in_dim / F32_FLOPS) * 1e3,
-                "library_ms": None, "ok": exact}
-        log(case)
-        if not exact:
-            failed.append(case)
-        if dtype == torch.bfloat16:
-            summary["q4_1_dequant"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim} bf16")
-    del w
+    failed += check_dequant(torch, g, summary, "q4_1")
     torch.cuda.empty_cache()
+    return failed
+
+
+def check_dequant(torch, g, summary, kind: str) -> list:
+    """Row 3 (``kind`` "q4_0") or 3b ("q4_1"), bf16 and f32, bit-exact
+    against the plain version at the four matvec shapes, on a round robin of
+    weight copies (> 200 MB of nibbles and scales, so L2 holds none).  The
+    bound is bytes: the nibbles and scales read once, the dense matrix
+    written once.  No single PyTorch call decodes Q4 blocks, so
+    ``library_ms`` is None.  Returns the cases that disagree."""
+    from llama_swift_torch.ops import q4_dequant as dq
+
+    fn, plain, make, sbytes = ((dq.q4_0_dequant, dq.dequantize_q4_0, rand_q4, 4) if kind == "q4_0"
+                               else (dq.q4_1_dequant, dq.dequantize_q4_1, rand_q4_1, 8))
+    failed = []
+    for out, in_dim in MATVEC_SHAPES:
+        wbytes = out * in_dim // 2 + out * (in_dim // 32) * sbytes
+        n = max(2, math.ceil(2e8 / wbytes))
+        w = make(torch, g, n, out, in_dim)
+        for dtype in (torch.bfloat16, torch.float32):
+            dense = fn(w.layer(1), dtype)
+            ref = plain(w.layer(1), dtype)
+            exact = bool(torch.equal(dense, ref))
+            nbytes = wbytes + out * in_dim * dense.element_size()
+            case = {"case": f"{kind}_dequant", "dtype": str(dtype).split(".")[-1], "out": out, "in": in_dim,
+                    "exact": exact, "max_abs_err": float((dense.float() - ref.float()).abs().max()),
+                    "kernel_ms": time_ms(torch, lambda i: fn(w.layer(i % n), dtype), 50),
+                    "plain_ms": time_ms(torch, lambda i: plain(w.layer(i % n), dtype), 3),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library_ms": None, "ok": exact}
+            log(case)
+            del dense, ref
+            if not exact:
+                failed.append(case)
+            if (out, in_dim, dtype) == (11008, 4096, torch.bfloat16):
+                summary[f"{kind}_dequant"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim} bf16")
+        del w
+        torch.cuda.empty_cache()
+    return failed
+
+
+def kernel_us(torch, fn, calls: int = 20) -> dict:
+    """Device microseconds a call of each kernel that ``fn(i)`` launches,
+    from a ``torch.profiler`` window of ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(1, calls + 1):
+            fn(i)
+        torch.cuda.synchronize()
+    return {ev.key: getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / calls
+            for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def check_multi_kernel(torch, g, summary) -> list:
+    """Row 6, ``q4_0_matmul_multi``, at B in ``MULTI_ROWS_TIMED`` on the four
+    matvec shapes, within 1e-5 of max |y| of its plain version.  Row 12
+    (``q4_0_int_matmul``: the same function on the int8 tensor cores, the
+    T layout's product) is timed beside it on the same inputs as the
+    in-repo yardstick (``row12_ms``); no PyTorch call applies per-block
+    scales to an int8 product, so ``library_ms`` is None.  At 11008x4096
+    the pre-pass and the product are also timed apart (profiler).  The
+    bound is the larger of the bytes (the packed weight, x and y in f32)
+    and 2·B operations a weight at the int8 rate.  Returns the cases that
+    disagree."""
+    from llama_swift_torch.ops import q4_matmul as qm
+    from llama_swift_torch.ops import q4_matvec as mv
+
+    failed = []
+    for out, in_dim in MATVEC_SHAPES:
+        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
+        n = max(2, math.ceil(2e8 / wbytes))
+        w = rand_q4(torch, g, n, out, in_dim)
+        for rows in MULTI_ROWS_TIMED:
+            x = torch.randn((rows, in_dim), device="cuda", generator=g)
+            y = mv.q4_0_matmul_multi(x, w.layer(1))
+            ref = mv.q4_0_matmul_multi_plain(x, w.layer(1))
+            err = rel_err(y, ref)
+            t_bytes = (wbytes + rows * in_dim * 4 + rows * out * 4) / HBM_BYTES_PER_S
+            t_ops = 2 * rows * out * in_dim / INT8_OPS
+            plan = mv.multi_plan(out, in_dim, rows, torch.cuda.get_device_properties(0).multi_processor_count)
+            case = {"case": "q4_0_matmul_multi", "rows": rows, "out": out, "in": in_dim, "splits": plan.splits,
+                    "max_rel_err": err, "max_abs_err": float((y - ref).abs().max()),
+                    "kernel_ms": time_ms(torch, lambda i: mv.q4_0_matmul_multi(x, w.layer(i % n)), 200),
+                    "plain_ms": time_ms(torch, lambda i: mv.q4_0_matmul_multi_plain(x, w.layer(i % n)), 3),
+                    "row12_ms": time_ms(torch, lambda i: qm.q4_0_int_matmul(x, w.layer(i % n)), 200),
+                    "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": None, "ok": err <= 1e-5}
+            case["faster_than_row12"] = case["kernel_ms"] < case["row12_ms"]
+            if (out, in_dim) == (11008, 4096) and rows in (8, 32):
+                case["kernel_us"] = kernel_us(torch, lambda i: mv.q4_0_matmul_multi(x, w.layer(i % n)))
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
+            if (rows, out, in_dim) == (MULTI_ROWS, 11008, 4096):
+                summary["q4_0_matmul_multi"] = dict(case, shape=f"B{rows} {out}x{in_dim}")
+        del w
+        torch.cuda.empty_cache()
     return failed
 
 
@@ -800,28 +887,7 @@ def check_kernels(torch) -> dict:
                 failed.append(case)
         del kc, vc
 
-    # multi-row matmul: B=8 at the matvec shapes, B=32 at 11008x4096
-    for rows, (out, in_dim) in [(MULTI_ROWS, sh) for sh in MATVEC_SHAPES] + [(32, (11008, 4096))]:
-        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
-        n = max(2, math.ceil(2e8 / wbytes))
-        w = rand_q4(torch, g, n, out, in_dim)
-        x = torch.randn((rows, in_dim), device=dev, generator=g)
-        y = mv.q4_0_matmul_multi(x, w.layer(0))
-        ref = mv.q4_0_matmul_multi_plain(x, w.layer(0))
-        err = rel_err(y, ref)
-        ms = time_ms(torch, lambda i: mv.q4_0_matmul_multi(x, w.layer(i % n)), 200)
-        plain_ms = time_ms(torch, lambda i: mv.q4_0_matmul_multi_plain(x, w.layer(i % n)), 3)
-        nbytes = wbytes + rows * in_dim * 4 + rows * out * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, 2 * rows * out * in_dim / INT8_OPS) * 1e3
-        case = {"case": "q4_0_matmul_multi", "rows": rows, "out": out, "in": in_dim, "max_rel_err": err,
-                "max_abs_err": float((y - ref).abs().max()), "kernel_ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "library_ms": None, "ok": err <= 1e-5}
-        log(case)
-        if not case["ok"]:
-            failed.append(case)
-        if (rows, out, in_dim) == (MULTI_ROWS, 11008, 4096):
-            summary["q4_0_matmul_multi"] = dict(case, bound_by="bytes", shape=f"B{rows} {out}x{in_dim}")
-        del w
+    failed += check_multi_kernel(torch, g, summary)
 
     # batched and paged flash decode: B=8 slots, per-slot n_past, stale data
     # beyond each; the paged pool holds the same keys through a shuffled table
@@ -890,30 +956,13 @@ def check_kernels(torch) -> dict:
     failed += check_int_t_kernels(torch, g, summary)
     failed += check_fused_blocks(torch, g, summary)
     failed += check_stream_probe(torch, g, summary)
-
-    # dequant 11008x4096 to bf16 and f32: bit-exact
-    out, in_dim = 11008, 4096
-    w = rand_q4(torch, g, 4, out, in_dim)
-    for dtype in (torch.bfloat16, torch.float32):
-        dense = dq.q4_0_dequant(w.layer(0), dtype)
-        ref = dq.dequantize_q4_0(w.layer(0), dtype)
-        exact = bool(torch.equal(dense, ref))
-        ms = time_ms(torch, lambda i: dq.q4_0_dequant(w.layer(i % 4), dtype), 50)
-        plain_ms = time_ms(torch, lambda i: dq.dequantize_q4_0(w.layer(i % 4), dtype), 5)
-        nbytes = out * in_dim // 2 + out * (in_dim // 32) * 4 + out * in_dim * dense.element_size()
-        case = {"case": "q4_0_dequant", "dtype": str(dtype).split(".")[-1], "out": out, "in": in_dim,
-                "exact": exact, "max_abs_err": float((dense.float() - ref.float()).abs().max()),
-                "kernel_ms": ms, "plain_ms": plain_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "library_ms": None, "ok": exact}
-        log(case)
-        if not exact:
-            failed.append(case)
-        if dtype == torch.bfloat16:
-            summary["q4_0_dequant"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim} bf16")
+    failed += check_dequant(torch, g, summary, "q4_0")
     # the prefill product on the dequant kernel's bf16 output: linear() on
     # the card vs the same bf16-rounded operands multiplied in f32
     from llama_swift_torch.ops import quantized_matmul as qmm
 
+    out, in_dim = 11008, 4096
+    w = rand_q4(torch, g, 2, out, in_dim)
     x = torch.randn((64, in_dim), device=dev, generator=g)
     y = qmm.linear(x, w.layer(1), dense_matmul_dtype=torch.bfloat16)
     xq = qmm.fake_quantize_q4_0(x).to(torch.bfloat16).float()
@@ -1930,6 +1979,36 @@ ENGINE_PROMPTS = PROMPTS + [
 ]
 
 
+def serve_tiny(torch, workdir: str) -> list:
+    """Phase 2c: ``ModelConfig.tiny`` (2 layers, 16-dim heads: a head dim
+    that is no multiple of 32) written from a seed: a greedy request
+    on the f32 cache and a sampled one on int8 through ``LlamaRunner`` (each
+    its exact launches, ``run_requests``), then a paged bf16 engine wave (6
+    requests through 3 slots, pages of 16, 16 tokens each, ``serve_engine``'s
+    checks).  Returns the launch counts of both runs."""
+    from llama_swift_torch import ops
+    from llama_swift_torch.config import GGMLType, ModelConfig, RunnerConfig, SamplingConfig
+    from llama_swift_torch.runtime.runner import LlamaRunner
+
+    cfg = ModelConfig.tiny(n_vocab=512, n_ctx=128, ftype=GGMLType.Q4_0)
+    path = os.path.join(workdir, "synthetic-tiny-q4_0.bin")
+    write_model(path, cfg, seed=16)
+    runner = LlamaRunner(path)
+    runner.ensure_loaded()
+    requests = [
+        ("tiny_greedy_f32", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=1, top_k=1)), "float32"),
+        ("tiny_sampled_int8", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=2)), "int8"),
+    ]
+    ops.reset_launch_counts()  # this phase's runner requests start here
+    run_requests(torch, runner, requests, PROMPTS, composed(cfg.n_layer))
+    counts = ops.launch_counts()  # read just after them
+    wave = ("T_tiny_paged_bf16", 3, dict(cache_dtype=torch.bfloat16, paged_pages=17, page=16), ENGINE_PROMPTS[:6],
+            [None, 5, None, 6, None, 7], "flash_decode_attention_paged")
+    engine_counts = serve_engine(torch, runner, [wave], n_predict=16)
+    os.remove(path)
+    return [counts, engine_counts]
+
+
 def engine_waves(torch) -> list:
     """Phase 4b's waves on the unfused params: (name, slots, cache,
     prompts, per-request seeds, the flash kernel of the wave)."""
@@ -2721,15 +2800,18 @@ ONLY_KERNELS = {
            "q4_0_t_matmul_multi"),
     "int": ("flash_decode_attention", "q4_0_matmul_t", "q4_0_int_matmul", "q4_0_t_matmul_multi", "fused_attn_block",
             "fused_ffn_block"),
+    "tiny": ("q4_0_matvec", "flash_decode_attention", "flash_decode_attention_stacked_int8", "q4_0_dequant",
+             "q4_0_matmul_multi", "flash_decode_attention_paged"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench"], default=None,
+    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench", "tiny"], default=None,
                     help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases; "
                          "tp: those and the TP phases; int: those, the T integer paths' parity, "
-                         "path B and path A; bench: those and the kernelbench path")
+                         "path B and path A; bench: those and the kernelbench path; tiny: those and "
+                         "the tiny model's requests and paged wave")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -2770,6 +2852,8 @@ def main(argv=None) -> int:
     try:
         if args.only in (None, "bench"):
             runs.append(run_kernelbench(torch))
+        if args.only in (None, "tiny"):
+            runs += serve_tiny(torch, workdir)
         if args.only is None:
             check_parity(torch)
             check_parity_int8(torch)

@@ -18,7 +18,10 @@
 //    by cp.async), in a ring of NST tiles (the caller sizes a tile), NST -
 //    1 tiles in flight before the first is used, so a block waits on
 //    memory twice a tile (its K rows, then its V rows, which land while
-//    the scores are taken), not once a key;
+//    the scores are taken), not once a key; rows that are no whole
+//    number of 16-byte units (head dims that are not a multiple of 4, 8
+//    or 16 on f32, bf16 or int8) are copied by every thread with plain
+//    loads instead (BULK = false), each into a 16-byte padded row;
 //  * takes every key of a tile at once from shared memory: 8 lanes a key
 //    of f32, 4 of bf16 or int8 (a lane reads 16-byte vectors, a key's
 //    lanes 128 or 64 contiguous bytes of its row; measured faster than 8
@@ -35,6 +38,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -105,10 +110,24 @@ struct PagedRows {
   __device__ float row_scale(int j) const { return __ldg(scale + row_index(j)); }
 };
 
+// lane_dot for any even dh: int8 rows a code a lane where they are not
+// 4-byte aligned whole words (dh % 4 == 2, or an unaligned plane).
+template <typename T>
+__device__ __forceinline__ float lane_dot_any(const float* qs, const T* row, int dh, int lane) {
+  if (std::is_same<T, int8_t>::value && ((dh & 3) || (reinterpret_cast<uintptr_t>(row) & 3))) {
+    float s = 0.0f;
+    for (int d = lane; d < dh; d += 32) s += qs[d] * to_f32(row[d]);
+    return s;
+  }
+  return lane_dot(qs, row, dh, lane);
+}
+
 // Keys [j0, j0 + jn) of one (slot, head), keys and values read through
-// the accessors: writes (acc[0..dh), m, l) to out.  Block of dh threads;
-// dynamic shared memory (dh + 2 * CHUNK) floats.
-template <typename T, typename Rows>
+// the accessors: writes (acc[0..dh), m, l) to out.  Block of dh threads
+// (dh % 32 == 0); ANY_DH: any even dh, the block dh threads rounded up to
+// whole warps (thread d < dh owns dim d; all warps take the scores).
+// Dynamic shared memory (dh + 2 * CHUNK) floats.
+template <typename T, typename Rows, bool ANY_DH = false>
 __device__ void split_chunk_kv(const float* __restrict__ qrow, const Rows& krows, const Rows& vrows,
                                int j0, int jn, float scale, float* __restrict__ out) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
@@ -118,10 +137,11 @@ __device__ void split_chunk_kv(const float* __restrict__ qrow, const Rows& krows
   float* sc = smem + dh;           // [CHUNK] scores, then exp(s - m)
   float* pv = smem + dh + CHUNK;   // [CHUNK] value weights (int8: exp(s - m) * vs)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  qs[tid] = qrow[tid];
+  if (!ANY_DH || tid < dh) qs[tid] = qrow[tid];
   __syncthreads();
   for (int j = warp; j < jn; j += nwarps) {
-    const float s = warp_sum(lane_dot(qs, krows.row(j0 + j), dh, lane));
+    const float s = warp_sum(ANY_DH ? lane_dot_any(qs, krows.row(j0 + j), dh, lane)
+                                    : lane_dot(qs, krows.row(j0 + j), dh, lane));
     if (lane == 0) sc[j] = (kScaled ? s * krows.row_scale(j0 + j) : s) * scale;
   }
   __syncthreads();
@@ -134,6 +154,7 @@ __device__ void split_chunk_kv(const float* __restrict__ qrow, const Rows& krows
     pv[j] = kScaled ? e * vrows.row_scale(j0 + j) : e;
   }
   __syncthreads();
+  if (ANY_DH && tid >= dh) return;  // threads past dh (rounding the block to whole warps) own no dim
   float l = 0.0f, acc = 0.0f;
   for (int j = 0; j < jn; ++j) {
     l += sc[j];
@@ -171,15 +192,27 @@ __device__ __forceinline__ float combine_splits(const float* __restrict__ ph, in
 constexpr int PASS_MIN_KEYS = 16;       // the least keys a split takes
 constexpr int PASS_BARRIER_BYTES = 128;  // the ring's mbarriers: a K and a V one a stage, up to 8 stages
 
+// A cache row's bytes in a ring stage: its `row_bytes` rounded up to 16,
+// so that every staged row starts 16-byte aligned whatever the head dim.
+__host__ __device__ inline int pass_row_stride(int row_bytes) { return static_cast<int>(round16(row_bytes)); }
+
 // Rows of a tile when a ring stage holds `stage_bytes` of K and V rows.
 __host__ __device__ inline int pass_tile_rows(int row_bytes, int stage_bytes) {
-  const int t = (stage_bytes / 2) / row_bytes;
+  const int t = (stage_bytes / 2) / pass_row_stride(row_bytes);
   return t < 1 ? 1 : t;
 }
 
 // Bytes of one ring stage: K and V rows, then K and V row scales (int8).
 __host__ __device__ inline size_t pass_stage_bytes(int tile, int row_bytes, bool scaled) {
-  return round16(2 * static_cast<size_t>(tile) * row_bytes + (scaled ? 8 * static_cast<size_t>(tile) : 0));
+  return round16(2 * static_cast<size_t>(tile) * pass_row_stride(row_bytes) +
+                 (scaled ? 8 * static_cast<size_t>(tile) : 0));
+}
+
+// Whether the chunk pass may stage rows of `row_bytes` by the bulk copy:
+// a whole number of 16-byte units a row, both planes 16-byte aligned.
+// Otherwise it stages them with plain loads (any even head dim).
+__host__ __device__ inline bool pass_bulk_rows(int row_bytes, const void* k, const void* v) {
+  return row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
 }
 
 // Shared memory of the pass over tiles of `tile` rows: the ring's
@@ -208,54 +241,6 @@ __host__ __device__ inline SplitPlan split_plan(int n_keys, int max_splits) {
   int len = (n_keys + s - 1) / s;
   len = (len + PASS_MIN_KEYS - 1) / PASS_MIN_KEYS * PASS_MIN_KEYS;
   return {(n_keys + len - 1) / len, len};
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(b)) : "memory");
-}
-__device__ __forceinline__ void mbar_inval(uint64_t* b) {
-  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-// One arrival that also expects `bytes` of bulk copies to complete on b.
-__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done)
-                 : "r"(smem_u32(b)), "r"(parity)
-                 : "memory");
-  } while (!done);
-}
-// The 1-D bulk form of TMA: `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global to this block's shared memory, completing on b.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* b) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(b))
-               : "memory");
 }
 
 // q . (one 16-byte chunk of a row), q the chunk's dims in shared memory.
@@ -297,8 +282,11 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
 }
 
 // The pass's shared memory: the ring's mbarriers (a K and a V one a
-// stage), scores and weights of a tile, 4 NT floats, the ring.
-template <typename T, int NT, int NST>
+// stage), scores and weights of a tile, 4 NT floats, the ring.  A staged
+// row takes `srow` bytes (row_bytes rounded up to 16).  BULK: rows arrive
+// by the bulk copy on the mbarriers; else every thread copies its share
+// with plain loads (4- or 2-byte units) when the tile is loaded.
+template <typename T, int NT, int NST, bool BULK>
 struct PassLayout {
   static constexpr bool kScaled = std::is_same<T, int8_t>::value;
   uint64_t* bar;
@@ -307,9 +295,10 @@ struct PassLayout {
   float* red;
   unsigned char* ring;
   size_t stage;
-  int row_bytes;
+  int row_bytes, srow;
   __device__ PassLayout(unsigned char* smem, int dh, int tile) {
     row_bytes = dh * static_cast<int>(sizeof(T));
+    srow = pass_row_stride(row_bytes);
     stage = pass_stage_bytes(tile, row_bytes, kScaled);
     bar = reinterpret_cast<uint64_t*>(smem);
     sc = reinterpret_cast<float*>(smem + PASS_BARRIER_BYTES);
@@ -333,16 +322,34 @@ struct PassLayout {
     const int s = t % NST, r0 = j0 + t * tile, n = min(tile, j0 + jn - r0);
     const int rows = own >= r0 && own < r0 + n ? n - 1 : n;
     unsigned char* st = ring + s * stage;
-    if (threadIdx.x == 0) {
+    if constexpr (BULK) {
+      if (threadIdx.x == 0) {
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t bytes = static_cast<uint32_t>(rows) * row_bytes;
+          mbar_expect(bar + 2 * s + half, bytes);
+          if (bytes) bulk_load(st + half * static_cast<size_t>(tile) * srow,
+                               (half ? v : k) + static_cast<size_t>(r0) * dh, bytes, bar + 2 * s + half);
+        }
+      }
+    } else {  // rows of any even dh: 4-byte units where row and planes allow, else 2-byte ones
+      const bool w4 = ((row_bytes | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 3) == 0;
+      const int unit = w4 ? 4 : 2, upr = row_bytes / unit;
       for (int half = 0; half < 2; ++half) {
-        const uint32_t bytes = static_cast<uint32_t>(rows) * row_bytes;
-        mbar_expect(bar + 2 * s + half, bytes);
-        if (bytes) bulk_load(st + half * static_cast<size_t>(tile) * row_bytes,
-                             (half ? v : k) + static_cast<size_t>(r0) * dh, bytes, bar + 2 * s + half);
+        const unsigned char* src = reinterpret_cast<const unsigned char*>((half ? v : k) + static_cast<size_t>(r0) * dh);
+        unsigned char* dst = st + half * static_cast<size_t>(tile) * srow;
+        for (int i = threadIdx.x; i < rows * upr; i += NT) {
+          const int r = i / upr, off = (i - r * upr) * unit;
+          if (w4)
+            *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r) * srow + off) =
+                __ldg(reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(r) * row_bytes + off));
+          else
+            *reinterpret_cast<uint16_t*>(dst + static_cast<size_t>(r) * srow + off) =
+                __ldg(reinterpret_cast<const unsigned short*>(src + static_cast<size_t>(r) * row_bytes + off));
+        }
       }
     }
     if (kScaled) {
-      float* ssc = reinterpret_cast<float*>(st + 2 * static_cast<size_t>(tile) * row_bytes);
+      float* ssc = reinterpret_cast<float*>(st + 2 * static_cast<size_t>(tile) * srow);
       for (int half = 0; half < 2; ++half) {
         const float* gsc = half ? vs : ks;
         for (int i = threadIdx.x; i < n; i += NT) cp_async4(ssc + half * tile + i, gsc + r0 + i);
@@ -356,11 +363,11 @@ struct PassLayout {
 // first NST - 1 tiles on their way.  A block of NT threads calls it
 // together; chunk_pass(..., begun = true) then takes them.  Nothing the
 // pass reads may depend on work after this call but the own row.
-template <typename T, int NT, int NST>
+template <typename T, int NT, int NST, bool BULK = true>
 __device__ void chunk_begin(const T* k, const T* v, const float* ks, const float* vs, int dh, int j0, int jn,
                             int tile, unsigned char* smem, int own = -1) {
   static_assert(NT % 32 == 0 && NST >= 2 && 2 * NST * 8 <= PASS_BARRIER_BYTES, "chunk_pass: NT, NST");
-  const PassLayout<T, NT, NST> lay(smem, dh, tile);
+  const PassLayout<T, NT, NST, BULK> lay(smem, dh, tile);
   const int ntiles = (jn + tile - 1) / tile;
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // earlier uses of this memory before the bulk copies
   if (threadIdx.x == 0) {
@@ -381,13 +388,13 @@ __device__ void chunk_begin(const T* k, const T* v, const float* ks, const float
 // `own_k`/`own_v` in shared memory (its row as the cache stores it), which
 // `stage_q()` may fill: the whole-stack kernel's new row, stored to the
 // cache by the same block.  A block of NT threads (NT a multiple of 32,
-// dh <= 4 NT) calls it together, over tiles of `tile` rows; `smem` holds
-// pass_smem_bytes(tile, dh * sizeof(T), int8, NT, pass_stages(jn, tile,
-// NST)) bytes, 16-byte aligned.  dh * sizeof(T) must be a multiple of 16
-// and the rows 16-byte aligned.  `begun`: chunk_begin was called with the
-// same arguments.  Reads no row outside the run.  Ends with a
-// __syncthreads.
-template <typename T, int NT, int NST, typename StageQ>
+// dh even and <= 4 NT) calls it together, over tiles of `tile` rows;
+// `smem` holds pass_smem_bytes(tile, dh * sizeof(T), int8, NT,
+// pass_stages(jn, tile, NST)) bytes, 16-byte aligned.  BULK (the bulk
+// copy) needs pass_bulk_rows(dh * sizeof(T), k, v); without it rows are
+// staged by plain loads.  `begun`: chunk_begin was called with the same
+// arguments.  Reads no row outside the run.  Ends with a __syncthreads.
+template <typename T, int NT, int NST, bool BULK = true, typename StageQ>
 __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, const T* __restrict__ v,
                            const float* __restrict__ ks, const float* __restrict__ vs, int dh, int j0, int jn,
                            int tile, float scale, unsigned char* smem, float* out, int own = -1,
@@ -397,8 +404,8 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
   constexpr int GROUPS = NT / KEY_LANES;             // keys scored at once
   constexpr int EPC = 16 / sizeof(T);                // elements a chunk
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const PassLayout<T, NT, NST> lay(smem, dh, tile);
-  const int row_bytes = lay.row_bytes, cpr = row_bytes / 16;
+  const PassLayout<T, NT, NST, BULK> lay(smem, dh, tile);
+  const int row_bytes = lay.row_bytes, srow = lay.srow, cpr = row_bytes / 16;
   uint64_t* bar = lay.bar;
   float* sc = lay.sc;
   float* pv = lay.pv;
@@ -406,35 +413,39 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
   unsigned char* ring = lay.ring;
   const size_t stage = lay.stage;
   const int ntiles = (jn + tile - 1) / tile;
-  if (!begun) chunk_begin<T, NT, NST>(k, v, ks, vs, dh, j0, jn, tile, smem, own);
+  if (!begun) chunk_begin<T, NT, NST, BULK>(k, v, ks, vs, dh, j0, jn, tile, smem, own);
   auto load = [&](int t) { lay.load(t, k, v, ks, vs, dh, j0, jn, tile, own); };
 
-  // the value pass: a thread takes 4 consecutive dims of a row (dh / 4
-  // threads a row, dh <= 4 NT), and the rows of its key group kg
-  const int tpr = dh / 4, kgroups = NT / tpr, kg = tid / tpr, d0 = 4 * (tid - kg * tpr);
+  // the value pass: a thread takes 4 consecutive dims of a row (ceil(dh / 4)
+  // threads a row, dh <= 4 NT; at dh % 4 == 2 a row's last thread keeps
+  // 2), and the rows of its key group kg
+  const int tpr = (dh + 3) / 4, kgroups = NT / tpr, kg = tid / tpr, d0 = 4 * (tid - kg * tpr);
+  const int nd = BULK ? 4 : min(4, dh - d0);  // BULK rows hold whole 16-byte units: dh % 4 == 0
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float m_run = -INFINITY, l_run = 0.0f;
 
   stage_q();
   for (int t = 0; t < ntiles; ++t) {
     const uint32_t parity = (t / NST) & 1;
-    mbar_wait(bar + 2 * (t % NST), parity);  // tile t's K rows have landed
+    if constexpr (BULK) mbar_wait(bar + 2 * (t % NST), parity);  // tile t's K rows have landed
     if (kScaled) cp_async_wait<2 * NST - 3>();
     // our reads of stage (t - 1) % NST before its refill by the bulk copies
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // for every thread; stage (t - 1) % NST is free
     load(t + NST - 1 < ntiles ? t + NST - 1 : -1);
     unsigned char* st = ring + (t % NST) * stage;
-    const T* kt = reinterpret_cast<const T*>(st);
-    const T* vt = reinterpret_cast<const T*>(st + static_cast<size_t>(tile) * row_bytes);
-    const float* sks = reinterpret_cast<const float*>(st + 2 * static_cast<size_t>(tile) * row_bytes);
+    const unsigned char* kt = st;
+    const unsigned char* vt = st + static_cast<size_t>(tile) * srow;
+    const float* sks = reinterpret_cast<const float*>(st + 2 * static_cast<size_t>(tile) * srow);
     const int n = min(tile, jn - t * tile);
     const int mine = own - (j0 + t * tile);
     const bool has_own = mine >= 0 && mine < n;
     if (has_own) {  // the own K row, from shared memory
-      for (int i = tid; i < cpr; i += NT)
-        reinterpret_cast<uint4*>(st + static_cast<size_t>(mine) * row_bytes)[i] =
-            reinterpret_cast<const uint4*>(own_k)[i];
+      if constexpr (BULK)
+        for (int i = tid; i < cpr; i += NT)
+          reinterpret_cast<uint4*>(st + static_cast<size_t>(mine) * srow)[i] = reinterpret_cast<const uint4*>(own_k)[i];
+      else
+        for (int i = tid; i < dh; i += NT) reinterpret_cast<T*>(st + static_cast<size_t>(mine) * srow)[i] = own_k[i];
       __syncthreads();
     }
     // scores: KEY_LANES lanes a key
@@ -443,8 +454,10 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
       const int r = r0 + grp;
       float s = 0.0f;
       if (r < n) {
-        const uint4* row = reinterpret_cast<const uint4*>(kt + static_cast<size_t>(r) * dh);
+        const uint4* row = reinterpret_cast<const uint4*>(kt + static_cast<size_t>(r) * srow);
         for (int c = sub; c < cpr; c += KEY_LANES) s += chunk_dot(qs + c * EPC, row[c], T());
+        if constexpr (!BULK)  // the row's last row_bytes % 16 bytes, an element a lane
+          for (int e = cpr * EPC + sub; e < dh; e += KEY_LANES) s += qs[e] * to_f32(reinterpret_cast<const T*>(row)[e]);
       }
 #pragma unroll
       for (int o = 1; o < KEY_LANES; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -465,22 +478,29 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
     }
     l_run = l_run * alpha + warp_sum(psum);
     m_run = m_new;
-    mbar_wait(bar + 2 * (t % NST) + 1, parity);  // tile t's V rows have landed
+    if constexpr (BULK) mbar_wait(bar + 2 * (t % NST) + 1, parity);  // tile t's V rows have landed
     if (kScaled) cp_async_wait<2 * NST - 2>();
-    if (has_own)                   // the own V row, from shared memory
-      for (int i = tid; i < cpr; i += NT)
-        reinterpret_cast<uint4*>(st + static_cast<size_t>(tile + mine) * row_bytes)[i] =
-            reinterpret_cast<const uint4*>(own_v)[i];
+    if (has_own) {  // the own V row, from shared memory
+      if constexpr (BULK)
+        for (int i = tid; i < cpr; i += NT)
+          reinterpret_cast<uint4*>(st + static_cast<size_t>(tile + mine) * srow)[i] =
+              reinterpret_cast<const uint4*>(own_v)[i];
+      else
+        for (int i = tid; i < dh; i += NT)
+          reinterpret_cast<T*>(st + static_cast<size_t>(tile + mine) * srow)[i] = own_v[i];
+    }
     __syncthreads();
-    // values: 4 dims of the rows of key group kg; int8 V row scales are
-    // read only here, after their wait and the barrier above (each was
-    // copied by another thread)
+    // values: 4 dims of the rows of key group kg (a row's last thread at
+    // dh % 4 == 2 also reads 2 elements of the row's padding, never
+    // summed into the output); int8 V row scales are read only here,
+    // after their wait and the barrier above (each was copied by another
+    // thread)
     if (kg < kgroups) {
       float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
       for (int j = kg; j < n; j += kgroups) {
         const float p = kScaled ? pv[j] * sks[tile + j] : pv[j];
-        const float4 e = load4(vt + static_cast<size_t>(j) * dh + d0);
+        const float4 e = load4(reinterpret_cast<const T*>(vt + static_cast<size_t>(j) * srow) + d0);
         a[0] += p * e.x;
         a[1] += p * e.y;
         a[2] += p * e.z;
@@ -492,7 +512,7 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
   }
   if (kScaled) cp_async_wait<0>();
   if (kg < kgroups)
-    for (int i = 0; i < 4; ++i) red[kg * dh + d0 + i] = acc[i];
+    for (int i = 0; i < nd; ++i) red[kg * dh + d0 + i] = acc[i];
   __syncthreads();
   if (tid == 0)  // every phase is complete: the barriers' memory may serve other uses
     for (int i = 0; i < 2 * NST; ++i) mbar_inval(bar + i);

@@ -71,6 +71,15 @@
 //    exp(m_c - max m) and normalises (online softmax across chunks).
 // Per-slot n_past is read on the device from an int32 tensor, so a step
 // needs no device-to-host read.  All arithmetic is f32.
+//
+// Head dims: every even dh in [2, 1024], on every cache type.  Batch 1
+// stages rows by the bulk copy where a row is a whole number of 16-byte
+// units on 16-byte aligned planes (pass_bulk_rows: dh 128, LLaMA's, on
+// all three types), else by plain 4- or 2-byte loads into rows padded to
+// 16 bytes (a template parameter of the same kernel); its value pass
+// gives a row's last thread 2 dims at dh % 4 == 2.  The split pass runs
+// whole warps (dh rounded up to 32 threads) and reads int8 rows a char4 a
+// lane only where dh % 4 == 0.
 #include <cooperative_groups.h>
 
 #include "flash_common.cuh"
@@ -83,8 +92,8 @@ __device__ __forceinline__ int slot_keys(const int* n_pasts, int b, int n_keys) 
 }
 
 // q [B, H, Dh]; k/v: layer plane [B, H, n_ctx, Dh]; ks/vs: its row scales
-// [B, H, n_ctx] (int8) or null; part [B, H, S, Dh + 2]
-template <typename T>
+// [B, H, n_ctx] (int8) or null; part [B, H, S, Dh + 2]; ANY_DH: dh % 32 != 0
+template <typename T, bool ANY_DH>
 __global__ void flash_split_batched_kernel(const float* __restrict__ q, const T* __restrict__ k,
                                            const T* __restrict__ v, const float* __restrict__ ks,
                                            const float* __restrict__ vs, const int* __restrict__ n_pasts,
@@ -97,14 +106,14 @@ __global__ void flash_split_batched_kernel(const float* __restrict__ q, const T*
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t plane = bh * n_ctx * dh;
   const size_t rows = bh * n_ctx;
-  split_chunk_kv<T>(q + bh * dh, DenseRows<T>{k + plane, ks ? ks + rows : nullptr, dh},
+  split_chunk_kv<T, DenseRows<T>, ANY_DH>(q + bh * dh, DenseRows<T>{k + plane, ks ? ks + rows : nullptr, dh},
                     DenseRows<T>{v + plane, vs ? vs + rows : nullptr, dh}, j0,
                     min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
 }
 
 // q [B, H, Dh]; pools [P, L, H, page, Dh]; scale pools [P, L, H, page]
-// (int8) or null; table [B, MP]; part [B, H, S, Dh + 2]
-template <typename T>
+// (int8) or null; table [B, MP]; part [B, H, S, Dh + 2]; ANY_DH: dh % 32 != 0
+template <typename T, bool ANY_DH>
 __global__ void flash_split_paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
                                          const T* __restrict__ v_pool, const float* __restrict__ ks_pool,
                                          const float* __restrict__ vs_pool, const int* __restrict__ table,
@@ -119,7 +128,7 @@ __global__ void flash_split_paged_kernel(const float* __restrict__ q, const T* _
   const size_t head = (static_cast<size_t>(il) * H + h) * page;  // row offset of page 0
   const size_t stride = static_cast<size_t>(L) * H * page;
   const int* trow = table + static_cast<size_t>(b) * MP;
-  split_chunk_kv<T>(q + bh * dh,
+  split_chunk_kv<T, PagedRows<T>, ANY_DH>(q + bh * dh,
                     PagedRows<T>{k_pool + head * dh, ks_pool ? ks_pool + head : nullptr, trow, stride, page, P, dh},
                     PagedRows<T>{v_pool + head * dh, vs_pool ? vs_pool + head : nullptr, trow, stride, page, P, dh},
                     j0, min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
@@ -146,7 +155,7 @@ constexpr int ONE_MAX_SPLITS = 8;         // blocks of a head: a cluster of the 
 // (S, 1, 1); split c takes keys [c * split, min((c + 1) * split, n_keys)).
 // Shared memory: the cluster's partials [S][dh + 2] (used in block 0
 // only), q [dh], this split's (acc, m, l), the chunk pass.
-template <typename T>
+template <typename T, bool BULK>
 __global__ void __launch_bounds__(ONE_THREADS)
     flash_one_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ ks, const float* __restrict__ vs, float* __restrict__ o,
@@ -163,7 +172,7 @@ __global__ void __launch_bounds__(ONE_THREADS)
   const int j0 = c * split;
   // barrier phase 1 (waited on below): every block of the cluster has started
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  chunk_pass<T, ONE_THREADS, ONE_STAGES>(
+  chunk_pass<T, ONE_THREADS, ONE_STAGES, BULK>(
       qs,
       [&] {  // q, while the first tiles are in flight
         for (int d = tid; d < dh; d += ONE_THREADS) qs[d] = __ldg(q + static_cast<size_t>(h) * dh + d);
@@ -198,17 +207,17 @@ size_t one_smem_bytes(int dh, int elt, bool scaled, int S, int keys, int tile) {
          pass_smem_bytes(tile, dh * elt, scaled, ONE_THREADS, pass_stages(keys, tile, ONE_STAGES));
 }
 
-template <typename T>
+template <typename T, bool BULK>
 int launch_one(cudaStream_t s, const void* q, const void* k, const void* v, const void* ks, const void* vs,
                void* out, int H, int n_ctx, int dh, int n_keys, float scale) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_one_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, ONE_SMEM_LIMIT);
+      flash_one_kernel<T, BULK>, cudaFuncAttributeMaxDynamicSharedMemorySize, ONE_SMEM_LIMIT);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const SplitPlan plan = split_plan(n_keys, ONE_MAX_SPLITS);
   const int tile = pass_tile_rows(dh * static_cast<int>(sizeof(T)), ONE_STAGE_BYTES);
   const size_t smem = one_smem_bytes(dh, sizeof(T), kScaled, plan.splits, plan.keys, tile);
-  if (smem > ONE_SMEM_LIMIT || (dh * sizeof(T)) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > ONE_SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(plan.splits, H, 1);
   cfg.blockDim = dim3(ONE_THREADS, 1, 1);
@@ -221,7 +230,7 @@ int launch_one(cudaStream_t s, const void* q, const void* k, const void* v, cons
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_one_kernel<T>, static_cast<const float*>(q),
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_one_kernel<T, BULK>, static_cast<const float*>(q),
                                            static_cast<const T*>(k), static_cast<const T*>(v),
                                            static_cast<const float*>(ks), static_cast<const float*>(vs),
                                            static_cast<float*>(out), n_ctx, dh, n_keys, plan.keys, tile, scale);
@@ -229,14 +238,30 @@ int launch_one(cudaStream_t s, const void* q, const void* k, const void* v, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// Batch 1 over rows of any even dh: the bulk copy where pass_bulk_rows
+// allows it (every row a whole number of 16-byte units, e.g. dh 128),
+// else the same pass staging rows by plain loads.
+template <typename T>
+int launch_one_rows(cudaStream_t s, const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                    void* out, int H, int n_ctx, int dh, int n_keys, float scale) {
+  if (pass_bulk_rows(dh * static_cast<int>(sizeof(T)), k, v))
+    return launch_one<T, true>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+  return launch_one<T, false>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+}
+
 size_t split_smem(int dh) { return (dh + 2 * CHUNK) * sizeof(float); }
+// threads of a split block: one a dim, whole warps
+int split_threads(int dh) { return (dh + 31) / 32 * 32; }
+// head dims the six kernels take (ops/attention.check_head_dim states the rule)
+bool head_dim_ok(int dh) { return dh >= 2 && dh <= 4 * ONE_THREADS && dh % 2 == 0; }
 int n_splits(int n_keys) { return (n_keys + CHUNK - 1) / CHUNK; }
 
 template <typename T>
 void split_dense(dim3 grid, int dh, cudaStream_t s, const void* q, const void* k, const void* v,
                  const void* ks, const void* vs, const int* np, float* part, int H, int n_ctx,
                  int n_keys, float scale) {
-  flash_split_batched_kernel<T><<<grid, dh, split_smem(dh), s>>>(
+  auto kernel = dh % 32 ? flash_split_batched_kernel<T, true> : flash_split_batched_kernel<T, false>;
+  kernel<<<grid, split_threads(dh), split_smem(dh), s>>>(
       static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), np, part, H, n_ctx, dh, n_keys,
       scale);
@@ -247,7 +272,8 @@ void split_paged(dim3 grid, int dh, cudaStream_t s, const void* q, const void* k
                  const void* v_pool, const void* ks_pool, const void* vs_pool, const void* table,
                  const int* np, float* part, int P, int L, int H, int page, int MP, int il,
                  int n_keys, float scale) {
-  flash_split_paged_kernel<T><<<grid, dh, split_smem(dh), s>>>(
+  auto kernel = dh % 32 ? flash_split_paged_kernel<T, true> : flash_split_paged_kernel<T, false>;
+  kernel<<<grid, split_threads(dh), split_smem(dh), s>>>(
       static_cast<const float*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       static_cast<const float*>(ks_pool), static_cast<const float*>(vs_pool),
       static_cast<const int*>(table), np, part, P, L, H, page, MP, il, dh, n_keys, scale);
@@ -269,17 +295,17 @@ bool split_dense_kind(int kind, dim3 grid, int dh, cudaStream_t s, const void* q
 }  // namespace
 
 // k/v point at layer il of the stacked cache ([H, n_ctx, dh]), ks/vs at
-// its row scales (int8) or are null, all 16-byte aligned; n_keys =
-// n_past + 1.  One launch.
+// its row scales (int8) or are null; n_keys = n_past + 1; dh even, at
+// most 1024.  One launch.
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                             void* out, int H, int n_ctx, int dh, int n_keys, float scale, int kind,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H < 1 || n_keys < 1 || n_keys > n_ctx) return static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || n_keys < 1 || n_keys > n_ctx || !head_dim_ok(dh)) return static_cast<int>(cudaErrorInvalidValue);
   switch (kind) {
-    case 0: return launch_one<float>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
-    case 1: return launch_one<__nv_bfloat16>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
-    case 2: return launch_one<int8_t>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+    case 0: return launch_one_rows<float>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+    case 1: return launch_one_rows<__nv_bfloat16>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
+    case 2: return launch_one_rows<int8_t>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -293,6 +319,7 @@ extern "C" int flash_decode_batched(const void* q, const void* k, const void* v,
                                     int B, int H, int n_ctx, int dh, int n_keys, float scale,
                                     int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_ok(dh)) return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_splits(n_keys);
   const int* np = static_cast<const int*>(n_pasts);
   float* pf = static_cast<float*>(part);
@@ -313,6 +340,7 @@ extern "C" int flash_decode_paged(const void* q, const void* k_pool, const void*
                                   int H, int page, int MP, int il, int dh, int n_keys, float scale,
                                   int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_ok(dh)) return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_splits(n_keys);
   const dim3 grid(H, S, B);
   const int* np = static_cast<const int*>(n_pasts);

@@ -49,7 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "q4_common.cuh"
+#include "q4_mma.cuh"
 
 namespace {
 
@@ -76,18 +76,6 @@ __global__ void quantize_rows_kernel(const float* __restrict__ x, int N, int NP,
       dx[b * NP + n] = 0.0f;
     }
   }
-}
-
-// D (16 x 8 s32) = A (16 x 32 u8, row-major) . B (32 x 8 s8, column-major).
-// Fragments (lane = 4 g + t): a0 row g, k 4t..4t+3; a1 row g+8, k 4t..;
-// a2 row g, k 16+4t..; a3 row g+8, k 16+4t..; b0 column g, k 4t..; b1
-// column g, k 16+4t..; d0, d1 row g, columns 2t, 2t+1; d2, d3 row g+8.
-__device__ __forceinline__ void mma_u8s8(const uint32_t (&a)[4], uint32_t b0, uint32_t b1, int (&d)[4]) {
-  const int z = 0;
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(z), "r"(z), "r"(z), "r"(z));
 }
 
 // qs [out][nb*16] u8, dw [out][nb] f32, xq [>= 8 NT][nb*32] i8 (this
@@ -120,6 +108,7 @@ q4_int_mma_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.0f;
 
+  const int kZeroC[4] = {0, 0, 0, 0};
 #pragma unroll 2
   for (int b = warp; b < nb; b += WARPS) {
     uint32_t w[4];
@@ -129,9 +118,9 @@ q4_int_mma_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
       w[j] = __ldg(wrow[j] + 4 * b);
       sw[j] = __ldg(drow[j] + b);
     }
-    const uint32_t a[2][4] = {
-        {w[0] & 0x0F0F0F0Fu, w[1] & 0x0F0F0F0Fu, (w[0] >> 4) & 0x0F0F0F0Fu, (w[1] >> 4) & 0x0F0F0F0Fu},
-        {w[2] & 0x0F0F0F0Fu, w[3] & 0x0F0F0F0Fu, (w[2] >> 4) & 0x0F0F0F0Fu, (w[3] >> 4) & 0x0F0F0F0Fu}};
+    uint32_t a[2][4];
+    a_fragment(w[0], w[1], a[0]);
+    a_fragment(w[2], w[3], a[1]);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (nt < ntiles) {  // warp-uniform
@@ -143,7 +132,7 @@ q4_int_mma_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           int p[4];
-          mma_u8s8(a[m], b0, b1, p);
+          mma_u8s8(a[m], b0, b1, kZeroC, p);
           const float w_lo = sw[2 * m], w_hi = sw[2 * m + 1];  // rows g and g + 8 of tile m
           acc[m][nt][0] += static_cast<float>(p[0] - 8 * s.x) * __fmul_rn(w_lo, d.x);
           acc[m][nt][1] += static_cast<float>(p[1] - 8 * s.y) * __fmul_rn(w_lo, d.y);

@@ -41,23 +41,62 @@
 //
 //   y[r, o] = sum_b d_w[o,b] * d_x[r,b] * (sum_i n[o,32b+i] q[r,32b+i] - 8 sum_i q[r,32b+i])
 //
-// What bounds it on the H100: still the weight stream at small B (the same
-// 0.625 bytes a weight as the matvec, now shared by B rows); the work grows
-// to 2*B integer operations a weight, which at B = 32 is still far below
-// the dp4a rate.  The activation side is B times larger than for the
-// matvec: 88 KB of int8 at B = 8, in = 11008, and 352 KB at B = 32, more
-// than a block's 227 KB of shared memory.
+// What bounds it on the H100: the weight stream (the same 0.625 bytes a
+// weight as the matvec, now shared by B rows: 8.6 us at 11008x4096), with
+// 2*B integer operations a weight on the int8 tensor cores (0.7 us at
+// B = 32) and per block and row one f32 scaling of the exact dot (the
+// limit of the instruction rate at B = 32).  Each code byte and each weight
+// byte is read from memory once per block of threads, so the bytes do not
+// grow with B.
 //
-// Design: the pre-pass is the matvec's quantize_x_kernel over all B*nb
-// blocks of the row-major [B, in] activation (a row's blocks follow each
-// other, so one launch quantizes every row with the same rounding).  The
-// main kernel keeps the matvec's warp-per-output-row shape: lane l loads
-// weight block b = l, l+32, ... ONCE (16 bytes of nibbles and its scale)
-// and dp4a-dots it against the matching 32 bytes of every row's q, which
-// are read through L1/L2 with __ldg rather than staged in shared memory,
-// so no row count overflows it.  The lane keeps one f32 accumulator per
-// row (a compile-time row count R in {2, 4, 8, 16, 32}; rows >= B are
-// skipped), and a warp reduction per row finishes each output.
+// Design (q4_0_matmul_multi_kernel):
+//  * Pre-pass (quantize_rows_bias_kernel): the quantizer of q4_common.cuh
+//    (bit-identical to the plain version), codes de-interleaved per block,
+//    rows padded with zero codes to NP = 8 * ceil(B / 8), and per (block,
+//    row) the pair {0x4B400000 - 8 S, dx}.
+//  * Block dots on the int8 tensor cores: each 32-element block is one
+//    m16n8k32 u8 x s8 MMA (q4_mma.cuh, shared with the T layout's integer
+//    product) of 16 weight rows (unsigned nibbles) by 8 activation rows
+//    (codes), in the K order the codes already have.  The MMA's
+//    accumulator input carries 0x4B400000 - 8 S, so its result is the bit
+//    pattern of the float 12582912 + (P - 8 S), exact for |P - 8 S| <
+//    2^22: one float subtraction recovers the exact integer without a
+//    conversion instruction, and the block's term is scaled by d_w * d_x
+//    right after its MMA: the product rounded, then added to an f32
+//    accumulator, as the plain version does.
+//  * A block of 8 warps owns 64 output rows (warp w: 16-row tile w % 4,
+//    pairs of blocks 4u + 2 (w / 4), + 1 of each chunk) and walks the
+//    in-dim in chunks of 16 weight blocks through a ring of 3 stages (2 at
+//    NP 32) in shared memory, filled by cp.async: each stage holds the
+//    chunk's nibbles (64 rows x 256 bytes), their scales, the NP rows'
+//    codes and their {bias, dx} pairs, so every byte of the weight and of
+//    the codes is read from memory once per block, and the codes are tiled
+//    with the weight, so no row count or in-dim overflows shared memory
+//    (two blocks an SM; one at 9-16 rows, for the registers below).  Each
+//    thread's copy addresses are computed once; each chunk adds its offset.
+//    Fragments come from shared memory by ldmatrix (two blocks' A or B
+//    fragments an instruction; rows padded by 16 bytes: conflict-free); a
+//    full chunk's loop has no guard, so the compiler interleaves its 8 MMAs.
+//  * The order of the sum over blocks (see the kernel): up to 16 rows, the
+//    order of the warp-a-row kernel this design replaced (a sequential sum
+//    per class of blocks b mod 32 in registers, then a warp's butterfly
+//    tree over the classes), so that its results, and every result built
+//    on them, stay bit for bit what they were; from 17 rows the 128 more
+//    registers do not fit and each warp sums two chains (reassociated).
+//  * Where 64-row tiles fill at most half of the blocks the card holds
+//    (LLaMA's 4096 and 5120 outputs), a thread-block cluster of 2 blocks
+//    takes the even and the odd chunks of each tile
+//    (ops/q4_matvec.multi_plan); at the end block 1 pushes its sums into
+//    block 0's shared memory (distributed shared memory, after a cluster
+//    barrier that frees the rings) and block 0 finishes the sums and
+//    stores y: one launch of the product a call, no global scratch,
+//    deterministic.
+//  * Rows beyond `out` read row out - 1 and are never stored; activation
+//    rows beyond B are zero codes and are never stored.
+// What still holds it back (measured, PERF.md): a call is two launches (the
+// pre-pass and a launch gap), and each block takes chunk after chunk
+// behind a barrier each, so at B = 8 the weight stream is not kept full;
+// from B = 16 the per-block scaling of NT MMAs a block pair sets the pace.
 //
 // Q4_1 matvec (q4_1_matvec, batch 1 against Q4_1 weights).
 //
@@ -139,10 +178,14 @@
 // element, each cost about as much as the products at B = 8).  Each lane's
 // 8-element partial is scaled by its block's d; a warp reduction per output
 // row and x row finishes each output.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "q4_common.cuh"
+#include <type_traits>
+
+#include "async_copy.cuh"
+#include "q4_mma.cuh"
 
 namespace {
 
@@ -230,45 +273,369 @@ q4_0_matvec_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
   if (lane == 0) y[row] = acc;
 }
 
-// qs [out][nb*16] u8, dw [out][nb] f32, xq [B][nb*32] i8, qsum/dx [B][nb]
-//   -> y [B][out] f32; R >= B accumulators per lane
-template <int R>
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-q4_0_matmul_multi_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
-                         const int8_t* __restrict__ xq, const int* __restrict__ qsum,
-                         const float* __restrict__ dx, float* __restrict__ y,
-                         int out, int nb, int B) {
+// ---------------------------------------------------------------------------
+// multi-row Q4_0 product on the int8 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MM_THREADS = 256;              // 8 warps: MM_MT row tiles x MM_KG parts of each chunk
+constexpr int MM_ROWS = 64;                  // output rows a block
+constexpr int MM_MT = 4;                     // 16-row MMA tiles of a block
+constexpr int MM_KG = 2;                     // warps a tile, which split each chunk's blocks
+constexpr int MM_KC = 16;                    // weight blocks a chunk (a ring stage)
+constexpr int MM_MAX_SPLITS = 2;             // blocks of a cluster that split a tile's in-dim
+constexpr int MM_WSTRIDE = MM_KC * 16 + 16;  // bytes of a row's nibbles in a stage (16 of padding)
+constexpr int MM_DSTRIDE = MM_KC + 4;        // floats of a row's scales in a stage (16 of padding)
+constexpr int MM_XSTRIDE = MM_KC * 32 + 16;  // bytes of an activation row's codes in a stage
+constexpr int MM_MAGIC = 0x4B400000;         // the float 12582912 = 1.5 * 2^23
+
+// Ring stages for NP activation rows: 3 (2 chunks in flight while one is
+// used), 2 at NP 32, so that two blocks fit on an SM (measured: a third
+// stage at NP 8, or at NP 32 a third stage with one block an SM, were no
+// faster).  Byte offsets in a stage:
+// nibbles [MM_ROWS][MM_WSTRIDE], scales [MM_ROWS][MM_DSTRIDE] f32, codes
+// [NP][MM_XSTRIDE], then [MM_KC][NP] pairs {0x4B400000 - 8 S, dx}; all
+// 16-byte aligned.
+__host__ __device__ constexpr int mm_stages(int np) { return np == 32 ? 2 : 3; }
+__host__ __device__ constexpr int mm_off_d() { return MM_ROWS * MM_WSTRIDE; }
+__host__ __device__ constexpr int mm_off_x() { return mm_off_d() + MM_ROWS * MM_DSTRIDE * 4; }
+__host__ __device__ constexpr int mm_off_bd(int np) { return mm_off_x() + np * MM_XSTRIDE; }
+__host__ __device__ constexpr int mm_stage_bytes(int np) { return mm_off_bd(np) + MM_KC * np * 8; }
+__host__ __device__ constexpr int mm_smem_bytes(int np) { return mm_stages(np) * mm_stage_bytes(np); }
+static_assert(MM_KC % 4 == 0 && mm_off_x() % 16 == 0 && MM_XSTRIDE % 16 == 0, "16-byte stage parts");
+// block 0's partial sums of the cluster, [KS][MM_KG][NP][MM_ROWS], reuse the ring
+static_assert(MM_KG * MM_MAX_SPLITS * 8 * MM_ROWS * 4 <= mm_smem_bytes(8) &&
+              MM_KG * MM_MAX_SPLITS * 32 * MM_ROWS * 4 <= mm_smem_bytes(32), "partials fit the ring");
+static_assert(MM_MT * 16 == MM_ROWS && MM_MT * MM_KG * 32 == MM_THREADS, "warps: tiles x parts of a chunk");
+
+// x [N][nb*32] f32 -> xq [NP][nb*32] i8 as quantize_rows_kernel (q4_int_mma.cu)
+// writes it, and bd [nb][NP] {0x4B400000 - 8 S, dx}: the MMA's accumulator
+// input and the block scale of each (block, row), side by side (zero rows:
+// S = 0, dx = 0)
+__global__ void quantize_rows_bias_kernel(const float* __restrict__ x, int N, int NP, int nb,
+                                          int8_t* __restrict__ xq, int2* __restrict__ bd) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= out) return;
-  const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
-  const float* drow = dw + static_cast<size_t>(row) * nb;
-  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
-  float acc[R];
+  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);  // (row n, block b), row-major
+  if (i >= NP * nb) return;
+  const int n = i / nb, b = i - n * nb;
+  int8_t* codes = xq + static_cast<size_t>(i) * QK;
+  int* bias = &bd[b * NP + n].x;
+  float* d = reinterpret_cast<float*>(&bd[b * NP + n].y);
+  if (n < N) {
+    quantize_block_warp(x[static_cast<size_t>(i) * QK + lane], lane, codes, bias, d);
+    if (lane == 0) *bias = MM_MAGIC - 8 * *bias;  // lane 0 stored S just now
+  } else {
+    codes[lane] = 0;
+    if (lane == 0) {
+      *bias = MM_MAGIC;
+      *d = 0.0f;
+    }
+  }
+}
+
+// This thread's cp.async copies of a full chunk (MM_KC blocks) where rows
+// of scales are 16-byte aligned (nb % 4 == 0): the source addresses of
+// chunk 0 and the stage offsets, computed once; chunk c adds c * MM_KC
+// blocks to each source.
+template <int NP>
+struct MmCopies {
+  static constexpr int W = MM_ROWS * MM_KC / MM_THREADS, X = NP * MM_KC * 2 / MM_THREADS;
+  static_assert(W * MM_THREADS == MM_ROWS * MM_KC && X * MM_THREADS == NP * MM_KC * 2 &&
+                    MM_ROWS * MM_KC / 4 <= MM_THREADS && MM_KC * NP / 2 <= MM_THREADS,
+                "every copy of a chunk has a thread");
+  const uint8_t* w[W];
+  const int8_t* x[X];
+  const float* d;
+  const int2* bd;
+  int wdst[W], xdst[X], ddst, bddst;
+  __device__ MmCopies(const uint8_t* qs, const float* dw, const int8_t* xq, const int2* bdp, int o0, int out,
+                      int nb) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-  for (int b = lane; b < nb; b += 32) {
-    const uint4 w = __ldg(wrow + b);
-    const float d = __ldg(drow + b);
+    for (int k = 0; k < W; ++k) {  // 16 bytes of nibbles: block kb of row r
+      const int i = threadIdx.x + k * MM_THREADS, r = i / MM_KC, kb = i % MM_KC;
+      w[k] = qs + (static_cast<size_t>(min(o0 + r, out - 1)) * nb + kb) * 16;
+      wdst[k] = r * MM_WSTRIDE + kb * 16;
+    }
+    {  // 4 scales of row r
+      const int r = threadIdx.x / (MM_KC / 4), kb = 4 * (threadIdx.x % (MM_KC / 4));
+      d = dw + static_cast<size_t>(min(o0 + r, out - 1)) * nb + kb;
+      ddst = mm_off_d() + (r * MM_DSTRIDE + kb) * 4;
+    }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < B) {
-        const size_t xb = static_cast<size_t>(r) * nb + b;  // block b of row r
-        const uint4 qe = __ldg(xq4 + 2 * xb);
-        const uint4 qo = __ldg(xq4 + 2 * xb + 1);
-        const int part = block_dot(w, qe, qo, __ldg(qsum + xb));
-        const float scale = __fmul_rn(d, __ldg(dx + xb));
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(static_cast<float>(part), scale));
+    for (int k = 0; k < X; ++k) {  // half of activation row n's codes of block kb
+      const int i = threadIdx.x + k * MM_THREADS, n = i / (2 * MM_KC), kb = (i / 2) % MM_KC, h = i & 1;
+      x[k] = xq + (static_cast<size_t>(n) * nb + kb) * QK + h * 16;
+      xdst[k] = mm_off_x() + n * MM_XSTRIDE + kb * 32 + h * 16;
+    }
+    bd = bdp + 2 * threadIdx.x;  // 16 bytes of the chunk's [MM_KC][NP] pairs
+    bddst = mm_off_bd(NP) + 16 * threadIdx.x;
+  }
+  __device__ __forceinline__ void full(unsigned char* st, int c) const {
+#pragma unroll
+    for (int k = 0; k < W; ++k) cp_async16(st + wdst[k], w[k] + static_cast<size_t>(c) * MM_KC * 16);
+    if (threadIdx.x < MM_ROWS * MM_KC / 4) cp_async16(st + ddst, d + static_cast<size_t>(c) * MM_KC);
+#pragma unroll
+    for (int k = 0; k < X; ++k) cp_async16(st + xdst[k], x[k] + static_cast<size_t>(c) * MM_KC * QK);
+    if (threadIdx.x < MM_KC * NP / 2) cp_async16(st + bddst, bd + static_cast<size_t>(c) * MM_KC * NP);
+  }
+};
+
+// Chunk c (weight blocks [c * MM_KC, + cb)) of tile rows [o0, o0 + 64) and
+// of the NP activation rows into stage `st`, every thread issuing its
+// share of cp.async copies (one commit group by the caller), each copy
+// guarded: the ragged last chunk, or any chunk where rows of scales are
+// not 16-byte aligned (MmCopies::full takes the others).
+template <int NP>
+__device__ void mm_load_chunk(unsigned char* st, const uint8_t* __restrict__ qs, const float* __restrict__ dw,
+                              const int8_t* __restrict__ xq, const int2* __restrict__ bd, int o0, int out, int nb,
+                              int c) {
+  const int kb0 = c * MM_KC, cb = min(MM_KC, nb - kb0);
+  for (int i = threadIdx.x; i < MM_ROWS * MM_KC; i += MM_THREADS) {
+    const int r = i / MM_KC, kb = i % MM_KC;
+    if (kb < cb)
+      cp_async16(st + r * MM_WSTRIDE + kb * 16, qs + (static_cast<size_t>(min(o0 + r, out - 1)) * nb + kb0 + kb) * 16);
+  }
+  for (int i = threadIdx.x; i < MM_ROWS * MM_KC; i += MM_THREADS) {
+    const int r = i / MM_KC, kb = i % MM_KC;
+    if (kb < cb)
+      cp_async4(st + mm_off_d() + (r * MM_DSTRIDE + kb) * 4, dw + static_cast<size_t>(min(o0 + r, out - 1)) * nb + kb0 + kb);
+  }
+  for (int i = threadIdx.x; i < NP * MM_KC * 2; i += MM_THREADS) {
+    const int n = i / (2 * MM_KC), kb = (i / 2) % MM_KC, h = i & 1;
+    if (kb < cb)
+      cp_async16(st + mm_off_x() + n * MM_XSTRIDE + kb * 32 + h * 16,
+                 xq + (static_cast<size_t>(n) * nb + kb0 + kb) * QK + h * 16);
+  }
+  for (int i = threadIdx.x; i < cb * NP / 2; i += MM_THREADS)  // cb rows of NP pairs, contiguous
+    cp_async16(st + mm_off_bd(NP) + i * 16, bd + static_cast<size_t>(kb0) * NP + 2 * i);
+}
+
+// qs [out][nb*16] u8, dw [out][nb] f32, xq [NP][nb*32] i8, bd [nb][NP]
+//   -> y [B][out] f32.  Grid (KS, ceil(out / 64)), cluster (KS, 1, 1):
+// block (r, tile) takes chunks r, r + KS, ... of tile's 64 rows.  NT = NP / 8
+// activation tiles.
+//
+// The sum over blocks.  Every block's term d_w * d_x * (P - 8 S) is
+// rounded as the plain version rounds it.  At NT <= 2 (B <= 16) the terms
+// are summed in the order of the warp-a-row kernel this one replaced: per
+// output, one sequential sum for each class of blocks b = l (mod 32),
+// then those 32 sums by the butterfly tree of a warp reduction (xor 16,
+// 8, 4, 2, 1), so the products, and every result built on them, are bit
+// for bit those of that kernel.  Class l = 16 p + kb of block b = 16 c +
+// kb (p: the parity of chunk c; kb = 4u + 2 kg + h: warp part kg, pair u,
+// block h of the pair) lives in one warp's registers, acc[p][u][h], so
+// each class sum is sequential; a cluster of 2 takes the chunks of one
+// parity each.  At NT >= 3 those registers do not fit, and each warp sums
+// into two chains (h) instead: the sum is reassociated.
+template <int NT>
+__global__ void __launch_bounds__(MM_THREADS, NT == 2 ? 1 : 2)  // NT 2: 128 class sums a lane
+q4_0_matmul_multi_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
+                         const int8_t* __restrict__ xq, const int2* __restrict__ bd, float* __restrict__ y,
+                         int out, int nb, int B) {
+  constexpr int NP = 8 * NT, STAGES = mm_stages(NP), U = MM_KC / (2 * MM_KG);
+  constexpr bool EXACT = NT <= 2;
+  static_assert(MM_KC == 16 && MM_KG == 2, "the class of a block: 16 p + 4 u + 2 kg + h");
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int mt = warp % MM_MT, kg = warp / MM_MT;  // this warp's 16-row tile and part of each chunk
+  const int rank = blockIdx.x, KS = gridDim.x, o0 = blockIdx.y * MM_ROWS;
+  const int nchunks = (nb + MM_KC - 1) / MM_KC, n = (nchunks - rank + KS - 1) / KS;
+
+  // chunk c into stage s; every chunk but the tensor's last is full
+  const MmCopies<NP> copies(qs, dw, xq, bd, o0, out, nb);
+  auto load = [&](int c, int s) {
+    unsigned char* st = mm_smem + s * mm_stage_bytes(NP);
+    if ((c + 1) * MM_KC <= nb && nb % 4 == 0)
+      copies.full(st, c);
+    else
+      mm_load_chunk<NP>(st, qs, dw, xq, bd, o0, out, nb, c);
+  };
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n) load(rank + i * KS, i);
+    cp_async_commit();
+  }
+  // EXACT: the class sums acc[p][u][h]; else two chains acc[0][0][h]
+  float acc[EXACT ? 2 : 1][EXACT ? U : 1][2][NT][4];
+#pragma unroll
+  for (int p = 0; p < (EXACT ? 2 : 1); ++p)
+#pragma unroll
+    for (int u = 0; u < (EXACT ? U : 1); ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][u][h][j][e] = 0.0f;
+
+  const int r_lo = mt * 16 + g;
+  // this lane's ldmatrix rows (lanes 8m..8m+7 address matrix m): weight row
+  // and block of the pair; activation row, block of the pair and 16-byte half
+  const int a_off = (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * MM_WSTRIDE + (lane >> 4) * 16;
+  const int x_off = (lane & 7) * MM_XSTRIDE + (lane >> 4) * 32 + ((lane >> 3) & 1) * 16;
+  // the blocks of a chunk this warp takes, in pairs kb, kb + 1 (kb = 4u + 2 kg);
+  // FULL: all of them are there, so no guard splits the pairs into blocks
+  // of their own and the compiler interleaves their loads and MMAs; P: the
+  // chunk's parity
+  auto compute = [&](const unsigned char* st, int cb, auto full, auto parity) {
+    constexpr bool FULL = decltype(full)::value;
+    constexpr int P = EXACT ? decltype(parity)::value : 0;
+    const uint32_t sw = smem_u32(st), sx = smem_u32(st + mm_off_x());
+    const float* sd = reinterpret_cast<const float*>(st + mm_off_d());
+    const int4* sbd = reinterpret_cast<const int4*>(st + mm_off_bd(NP));
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kb = 2 * MM_KG * u + 2 * kg;
+      if (FULL || kb < cb) {
+        uint32_t w[4];  // word t of rows g, g + 8 of block kb, then of block kb + 1
+        ldsm_x4(sw + a_off + kb * 16, w);
+        const float2 d_lo = *reinterpret_cast<const float2*>(sd + r_lo * MM_DSTRIDE + kb);
+        const float2 d_hi = *reinterpret_cast<const float2*>(sd + (r_lo + 8) * MM_DSTRIDE + kb);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t b[4];  // codes words t and 4 + t of row j * 8 + g, block kb, then kb + 1
+          ldsm_x4(sx + j * 8 * MM_XSTRIDE + x_off + kb * 32, b);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (FULL || h == 0 || kb + 1 < cb) {
+              // {bias, dx} of activation rows 2t and 2t + 1 of this tile, block kb + h
+              const int4 e = sbd[(kb + h) * (NP / 2) + j * 4 + t];
+              uint32_t a[4];
+              a_fragment(w[2 * h], w[2 * h + 1], a);
+              const int c[4] = {e.x, e.z, e.x, e.z};
+              int p[4];
+              mma_u8s8(a, b[2 * h], b[2 * h + 1], c, p);  // 12582912 + P - 8 S, as float bits
+              const float w_lo = h ? d_lo.y : d_lo.x, w_hi = h ? d_hi.y : d_hi.x;
+              const float dx0 = __int_as_float(e.y), dx1 = __int_as_float(e.w);
+              float* ac = acc[P][EXACT ? u : 0][h][j];  // each term rounded, then added (no FMA)
+              ac[0] = __fadd_rn(ac[0], __fmul_rn(__fsub_rn(__int_as_float(p[0]), 12582912.0f), __fmul_rn(w_lo, dx0)));
+              ac[1] = __fadd_rn(ac[1], __fmul_rn(__fsub_rn(__int_as_float(p[1]), 12582912.0f), __fmul_rn(w_lo, dx1)));
+              ac[2] = __fadd_rn(ac[2], __fmul_rn(__fsub_rn(__int_as_float(p[2]), 12582912.0f), __fmul_rn(w_hi, dx0)));
+              ac[3] = __fadd_rn(ac[3], __fmul_rn(__fsub_rn(__int_as_float(p[3]), 12582912.0f), __fmul_rn(w_hi, dx1)));
+            }
+          }
+        }
       }
     }
+  };
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<STAGES - 2>();  // chunk i has landed (this thread's copies)
+    __syncthreads();              // everyone's copies; stage (i - 1) % STAGES is free
+    if (i + STAGES - 1 < n) load(rank + (i + STAGES - 1) * KS, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const unsigned char* st = mm_smem + (i % STAGES) * mm_stage_bytes(NP);
+    const int c = rank + i * KS, cb = min(MM_KC, nb - c * MM_KC);
+    using F = std::true_type;
+    using G = std::false_type;
+    using P0 = std::integral_constant<int, 0>;
+    using P1 = std::integral_constant<int, 1>;
+    if (cb == MM_KC)
+      (c & 1) ? compute(st, cb, F(), P1()) : compute(st, cb, F(), P0());
+    else
+      (c & 1) ? compute(st, cb, G(), P1()) : compute(st, cb, G(), P0());
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  // every block of the cluster is done with its ring: block 0's becomes the
+  // partials that the other block pushes into it
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  float* red = cg::this_cluster().map_shared_rank(reinterpret_cast<float*>(mm_smem), 0);
+  float* part = reinterpret_cast<float*>(mm_smem);
+  if constexpr (EXACT) {
+    constexpr int SLOTS = U * 2 * NT * 4;  // a lane's class sums of one parity
+    if (rank == 1) {  // block 1 holds the odd chunks: classes 16..31, acc[1]
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < B) {
-      const float v = warp_sum_f(acc[r]);
-      if (lane == 0) y[static_cast<size_t>(r) * out + row] = v;
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              red[(warp * SLOTS + ((u * 2 + h) * NT + j) * 4 + e) * 32 + lane] = acc[1][u][h][j][e];
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    if (rank != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    float s4[2][NT][4];  // tree levels 16 (p), 8 (u >> 1) and 4 (u & 1), per h
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s16[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            s16[u] = __fadd_rn(acc[0][u][h][j][e],
+                               KS == 2 ? part[(warp * SLOTS + ((u * 2 + h) * NT + j) * 4 + e) * 32 + lane]
+                                       : acc[1][u][h][j][e]);
+          s4[h][j][e] = __fadd_rn(__fadd_rn(s16[0], s16[2]), __fadd_rn(s16[1], s16[3]));
+        }
+    __syncthreads();  // everyone is done reading the pushed sums
+    float* s4_kg1 = part + 8 * SLOTS * 32;  // the kg = 1 warps' level-4 sums
+    if (kg == 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s4_kg1[((mt * 2 + h) * NT * 4 + j * 4 + e) * 32 + lane] = s4[h][j][e];
+    __syncthreads();
+    if (kg == 1) return;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s2[2];  // level 2 (kg), then level 1 (h)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          s2[h] = __fadd_rn(s4[h][j][e], s4_kg1[((mt * 2 + h) * NT * 4 + j * 4 + e) * 32 + lane]);
+        const int nr = j * 8 + 2 * t + (e & 1), o = o0 + r_lo + (e >> 1) * 8;
+        if (nr < B && o < out) y[static_cast<size_t>(nr) * out + o] = __fadd_rn(s2[0], s2[1]);
+      }
+  } else {
+    // partials [KS][MM_KG][NP][MM_ROWS], which every warp writes its share of
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[((rank * MM_KG + kg) * NP + j * 8 + 2 * t + (e & 1)) * MM_ROWS + r_lo + (e >> 1) * 8] =
+            acc[0][0][0][j][e] + acc[0][0][1][j][e];
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    if (rank != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    for (int idx = threadIdx.x; idx < B * MM_ROWS; idx += MM_THREADS) {
+      const int nr = idx / MM_ROWS, r = idx % MM_ROWS;
+      if (o0 + r >= out) continue;
+      float sum = 0.0f;
+      for (int q = 0; q < MM_KG * KS; ++q) sum += part[(q * NP + nr) * MM_ROWS + r];
+      y[static_cast<size_t>(nr) * out + o0 + r] = sum;
     }
   }
+}
+
+template <int NT>
+cudaError_t launch_multi(const uint8_t* qs, const float* dw, const int8_t* xq, const int2* bd, float* y, int out,
+                         int nb, int B, int ks, cudaStream_t s) {
+  constexpr int smem = mm_smem_bytes(8 * NT);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(q4_0_matmul_multi_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ks, (out + MM_ROWS - 1) / MM_ROWS, 1);
+  cfg.blockDim = dim3(MM_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = ks;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = ks > 1 ? 1 : 0;  // a launch without clusters is one of a block each
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, q4_0_matmul_multi_kernel<NT>, qs, dw, xq, bd, y, out, nb, B);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -562,35 +929,38 @@ extern "C" int q4_0_matvec(const void* qs, const void* dw, const void* x, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// B rows (2..32) of x [B, in] against one weight; scratch xq [B, in] int8,
-// qsum and dx [B, in/32] come from the caller; y is [B, out].
-extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, void* xq,
-                                 void* qsum, void* dx, void* y, int out, int in_dim,
-                                 int B, void* stream) {
-  const int nb = in_dim / QK;
+// Shared memory of a multi-row launch of B rows (ops/q4_matvec.multi_plan
+// computes the same).
+extern "C" int q4_0_matmul_multi_smem_bytes(int B) { return mm_smem_bytes(8 * ((B + 7) / 8)); }
+
+// B rows (1..32) of x [B, in] against one weight, the in-dim split over
+// `ks` (1..2) blocks of a cluster; scratch xq [NP, in] int8 and bd [in/32,
+// NP, 2] int32 (NP = 8 * ceil(B / 8)) come from the caller; y is [B, out].
+// Two launches: the pre-pass and the product.
+extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, void* xq, void* bd, void* y,
+                                 int out, int in_dim, int B, int ks, void* stream) {
+  const int nb = in_dim / QK, NT = (B + 7) / 8, NP = 8 * NT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > 32) return static_cast<int>(cudaErrorInvalidValue);
-  quantize_x_kernel<<<(B * nb + 7) / 8, 256, 0, s>>>(
-      static_cast<const float*>(x), B * nb, static_cast<int8_t*>(xq),
-      static_cast<int*>(qsum), static_cast<float*>(dx));
-  const dim3 grid((out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK), block(ROWS_PER_BLOCK * 32);
+  const int nchunks = (nb + MM_KC - 1) / MM_KC;
+  if (B < 1 || B > 32 || in_dim % QK || nb < 1 || out < 1 || ks < 1 || ks > MM_MAX_SPLITS ||
+      ks > nchunks)  // every block of a cluster has a chunk
+    return static_cast<int>(cudaErrorInvalidValue);
+  quantize_rows_bias_kernel<<<(NP * nb + 7) / 8, 256, 0, s>>>(static_cast<const float*>(x), B, NP, nb,
+                                                             static_cast<int8_t*>(xq), static_cast<int2*>(bd));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   const uint8_t* q = static_cast<const uint8_t*>(qs);
   const float* d = static_cast<const float*>(dw);
   const int8_t* xqp = static_cast<const int8_t*>(xq);
-  const int* qsp = static_cast<const int*>(qsum);
-  const float* dxp = static_cast<const float*>(dx);
+  const int2* bdp = static_cast<const int2*>(bd);
   float* yp = static_cast<float*>(y);
-  if (B <= 2)
-    q4_0_matmul_multi_kernel<2><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
-  else if (B <= 4)
-    q4_0_matmul_multi_kernel<4><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
-  else if (B <= 8)
-    q4_0_matmul_multi_kernel<8><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
-  else if (B <= 16)
-    q4_0_matmul_multi_kernel<16><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
-  else
-    q4_0_matmul_multi_kernel<32><<<grid, block, 0, s>>>(q, d, xqp, qsp, dxp, yp, out, nb, B);
-  return static_cast<int>(cudaGetLastError());
+  switch (NT) {
+    case 1: e = launch_multi<1>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    case 2: e = launch_multi<2>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    case 3: e = launch_multi<3>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    default: e = launch_multi<4>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+  }
+  return static_cast<int>(e);
 }
 
 // Q4_1 weights: qs [out, in/2] u8, dm [out, in/32, 2] f32; scratch xq [in]

@@ -42,6 +42,18 @@ SPLIT = 64
 #: cache element type -> the CUDA source's ``kind`` argument
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+#: the widest head the kernels take (4 dims a thread of a 256-thread block)
+MAX_HEAD_DIM = 1024
+
+
+def check_head_dim(what: str, dh: int) -> None:
+    """Raise unless the kernels take head dim ``dh``: every even dim in [2,
+    1024] (``head_dim_ok`` in the CUDA source).  Rows of a whole number of
+    16-byte units on 16-byte aligned planes (``pass_bulk_rows``, dh 128 on
+    every cache type) are staged by the bulk copy, others by plain loads."""
+    if dh % 2 or not 2 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {dh} must be even and in [2, {MAX_HEAD_DIM}]")
+
 
 def reference_decode_attention(q, keys, values, n_past: int) -> torch.Tensor:
     """Unfused reference: q ``[H, Dh]``, keys/values ``[H, n_ctx, Dh]``;
@@ -145,9 +157,10 @@ def flash_decode_attention_paged_int8_plain(q, k_pool, v_pool, k_scale_pool, v_s
 
 
 def _check_caches(what, q, k, v, scales) -> int:
-    """Raise unless the caches lie on q's CUDA device, are contiguous and of
-    one shape, and are f32/bf16 (``scales == ()``) or int8 with contiguous
-    f32 row scales ``k.shape[:-1] + (1,)``; returns the kernel's ``kind``."""
+    """Raise unless the caches lie on q's CUDA device, are contiguous,
+    aligned and of one shape, with a head dim the kernels take, and are
+    f32/bf16 (``scales == ()``) or int8 with contiguous f32 row scales
+    ``k.shape[:-1] + (1,)``; returns the kernel's ``kind``."""
     if not (q.is_cuda and all(t.device == q.device for t in (k, v, *scales))):
         raise ValueError(f"{what}: q, the caches and their scales must be on the same CUDA device")
     if v.shape != k.shape or not (k.is_contiguous() and v.is_contiguous()):
@@ -160,9 +173,9 @@ def _check_caches(what, q, k, v, scales) -> int:
             raise ValueError(f"{what}: scales must be contiguous float32 {list(want)}")
     elif k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise ValueError(f"{what}: caches must both be float32 or both bfloat16")
-    dh = k.shape[-1]
-    if dh % 32 or not 32 <= dh <= 1024:
-        raise ValueError(f"{what}: head dim {dh} must be a multiple of 32 in [32, 1024]")
+    check_head_dim(what, k.shape[-1])
+    if any(t.data_ptr() % max(2, t.element_size()) for t in (k, v)):
+        raise ValueError(f"{what}: caches must be aligned to their element and to 2 bytes")
     return _KIND[k.dtype]
 
 
@@ -195,8 +208,6 @@ def _launch_stacked(what, q, k_cache, v_cache, scales, il: int, n_past: int) -> 
     _check_q(what, q, (H, dh))
     if not (0 <= il < L and 0 <= n_past < n_ctx):
         raise ValueError(f"{what}: il={il}, n_past={n_past} out of range")
-    if any(t[il].data_ptr() % 16 for t in (k_cache, v_cache)):
-        raise ValueError(f"{what}: the caches' layer planes must be 16-byte aligned (bulk copies)")
     out = torch.empty((H, dh), dtype=torch.float32, device=q.device)
     code = build.lib("flash_decode").flash_decode(
         q.data_ptr(), k_cache[il].data_ptr(), v_cache[il].data_ptr(), *_scale_ptrs(scales, il),

@@ -44,16 +44,18 @@ def _dequant(w, dtype, what: str) -> torch.Tensor:
     """Launch ``csrc/q4_dequant.cu``'s C function ``what`` over every block
     of ``w``."""
     out, in_dim = w.shape
-    scales, name, shape = ((w.dm, "dm", (out, in_dim // QK, 2)) if isinstance(w, Q4_1Weight)
-                           else (w.d, "d", (out, in_dim // QK)))
+    scales, name, shape, align = ((w.dm, "dm", (out, in_dim // QK, 2), 8) if isinstance(w, Q4_1Weight)
+                                  else (w.d, "d", (out, in_dim // QK), 4))
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what}: dtype must be bfloat16 or float32, got {dtype}")
-    if w.qs.dtype != torch.uint8 or w.qs.dim() != 2 or not w.qs.is_contiguous() or w.qs.data_ptr() % 16:
-        raise ValueError(f"{what}: qs must be contiguous 16-byte aligned uint8 [out, in/2]")
+    if w.qs.dtype != torch.uint8 or w.qs.dim() != 2 or not w.qs.is_contiguous():
+        raise ValueError(f"{what}: qs must be contiguous uint8 [out, in/2]")
     if scales.dtype != torch.float32 or scales.shape != shape or not scales.is_contiguous():
         raise ValueError(f"{what}: {name} must be contiguous float32 {list(shape)}")
     if scales.device != w.qs.device or in_dim % QK:
         raise ValueError(f"{what}: qs and {name} must share a device; in dim a multiple of 32")
+    if w.qs.data_ptr() % 4 or scales.data_ptr() % align:  # the kernel's 32-bit nibble loads, its scale loads
+        raise ValueError(f"{what}: qs must be 4-byte and {name} {align}-byte aligned")
     dense = torch.empty((out, in_dim), dtype=dtype, device=w.qs.device)
     code = getattr(build.lib("q4_dequant"), what)(
         w.qs.data_ptr(), scales.data_ptr(), dense.data_ptr(), out * (in_dim // QK),

@@ -321,6 +321,64 @@ def _launch_q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.Tens
 #: rows the multi-row kernel accepts (``MAX_MULTI_ROWS`` of the TPU kernel)
 MAX_MULTI_ROWS = 32
 
+#: the multi-row kernel's tiling (``MM_*`` in ``csrc/q4_matvec.cu``): output
+#: rows a block, weight blocks a ring stage, blocks of a cluster that split
+#: a tile's in-dim, a block's shared memory at most and an SM's (H100)
+MULTI_TILE_ROWS, MULTI_KC, MULTI_MAX_SPLITS = 64, 16, 2
+SMEM_PER_BLOCK, SMEM_PER_SM = 232448, 233472
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiPlan:
+    """How ``q4_0_matmul_multi`` cuts one call: ``tiles`` blocks of
+    ``MULTI_TILE_ROWS`` output rows, each tile's in-dim chunks of
+    ``MULTI_KC`` weight blocks split over a cluster of ``splits`` blocks
+    (block r takes chunks r, r + splits, ...: ``chunk_sets[r]``), ``np``
+    activation rows (B padded to 8), ``smem`` bytes of shared memory a
+    block, ``blocks_per_sm`` of them resident on an SM."""
+
+    np: int
+    splits: int
+    tiles: int
+    chunks: int
+    smem: int
+    blocks_per_sm: int
+
+    @property
+    def chunk_sets(self) -> list:
+        return [list(range(r, self.chunks, self.splits)) for r in range(self.splits)]
+
+    @property
+    def grid(self) -> tuple:
+        return (self.splits, self.tiles)
+
+
+def multi_plan(out: int, in_dim: int, B: int, sms: int = 132) -> MultiPlan:
+    """The launch plan of the multi-row kernel for ``B`` rows against an
+    ``[out, in_dim]`` weight on a card of ``sms`` SMs (the CUDA source
+    computes the same shared memory, ``q4_0_matmul_multi_smem_bytes``).  A
+    tile's in-dim chunks are split over 2 blocks of a cluster (the even
+    and the odd ones) where the tiles alone would leave half the blocks
+    that fit on the SMs unused, so that a small ``out`` still fills the
+    card; no block of a cluster is left without a chunk."""
+    if not 1 <= B <= MAX_MULTI_ROWS or in_dim % QK or in_dim < QK or out < 1:
+        raise ValueError(f"multi_plan: {B} rows of {in_dim} against {out} outputs is no multi-row product")
+    np_ = 8 * -(-B // 8)
+    stage = MULTI_TILE_ROWS * (MULTI_KC * 16 + 16) + MULTI_TILE_ROWS * (MULTI_KC + 4) * 4 \
+        + np_ * (MULTI_KC * 32 + 16) + MULTI_KC * np_ * 8
+    smem = (2 if np_ == 32 else 3) * stage  # ring stages: mm_stages in the CUDA source
+    tiles = -(-out // MULTI_TILE_ROWS)
+    chunks = -(-(in_dim // QK) // MULTI_KC)
+    # two blocks an SM where their shared memory fits (1 KB a block the card
+    # reserves), but one at 9-16 rows: 128 registers of class sums a thread
+    per_sm = 2 if np_ != 16 and 2 * (smem + 1024) <= SMEM_PER_SM else 1
+    splits = MULTI_MAX_SPLITS if chunks >= MULTI_MAX_SPLITS and MULTI_MAX_SPLITS * tiles <= sms * per_sm else 1
+    return MultiPlan(np=np_, splits=splits, tiles=tiles, chunks=chunks, smem=smem, blocks_per_sm=per_sm)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
 
 def q4_0_matmul_multi_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     """``y [B, out] = x [B, in] · Wᵀ`` for 2 ≤ B ≤ 32 unquantized activation
@@ -379,14 +437,13 @@ def _launch_q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, what: str) -> torc
     _check_x(x, (B, in_dim), what)
     if not 1 <= B <= MAX_MULTI_ROWS:
         raise ValueError(f"{what}: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
-    nb = in_dim // QK
-    xq = torch.empty((B, in_dim), dtype=torch.int8, device=x.device)
-    qsum = torch.empty((B, nb), dtype=torch.int32, device=x.device)
-    dx = torch.empty((B, nb), dtype=torch.float32, device=x.device)
+    plan = multi_plan(out, in_dim, B, _sm_count(x.device))
+    xq = torch.empty((plan.np, in_dim), dtype=torch.int8, device=x.device)
+    bd = torch.empty((in_dim // QK, plan.np, 2), dtype=torch.int32, device=x.device)  # {bias, dx bits}
     y = torch.empty((B, out), dtype=torch.float32, device=x.device)
     code = build.lib("q4_matvec").q4_0_matmul_multi(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
-        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x),
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(), bd.data_ptr(), y.data_ptr(),
+        out, in_dim, B, plan.splits, _stream(x),
     )
     build.check(code, what)
     return y

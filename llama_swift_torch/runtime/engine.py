@@ -32,6 +32,7 @@ engine loop can run it in a background thread (``with engine:``).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import queue
@@ -49,6 +50,10 @@ from ..tokenizer import Vocab
 from .device_sampler import sample_tokens_batched
 from .errors import PredictionFailedError
 from .sampler import SamplerState
+
+#: ``stats["ttft_s"]`` keeps the time to first token of the last this many
+#: requests, so a long-lived engine's stats stay bounded
+TTFT_WINDOW = 1024
 
 
 def batched_decode(params, tokens, n_pasts, cache, cfg: ModelConfig):
@@ -327,7 +332,7 @@ class Engine:
             # prompt fully prefilled: sample the first token, go active
             first = slot.sampler.sample(logits[clen - 1].cpu().numpy())
             slot.handle.ttft_s = time.perf_counter() - slot.handle.t_submit
-            self.stats.setdefault("ttft_s", []).append(slot.handle.ttft_s)
+            self.stats.setdefault("ttft_s", collections.deque(maxlen=TTFT_WINDOW)).append(slot.handle.ttft_s)
             slot.ring_dirty = True
             n_predict = min(slot.sampling.n_predict, self.cfg.n_ctx - length)
             slot.active = True

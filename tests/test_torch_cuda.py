@@ -9,7 +9,9 @@ layout's integer products on both sides of the 8-row MMA tiles and of the
 64-key split; batch-1 flash decode at the edges of its splits and at n_ctx
 2048, LLaMA's context; calls repeated bit for bit, since the batch-1 kernel
 combines through a cluster and the whole-stack kernel through arrival
-counters).
+counters; the six flash kernels at head dims that are no multiple of 32;
+both dequants bit-exact and the multi-row product at the 7B, 13B and 65B
+shapes, the latter with exact half-step ties in every row's codes).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -760,3 +762,201 @@ def test_fused_layers_calls_repeat_bit_for_bit(cuda, dtype, n_past):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+# ---------------------------------------------------------------------------
+# head dims, the dequants and the multi-row product at LLaMA shapes
+# ---------------------------------------------------------------------------
+
+
+def _kind_cache(kind, shape, cuda, seed):
+    """(cache, row scales or None) of ``kind``, seeded; int8 by the port's write."""
+    if kind == "int8":
+        return _int8(shape, cuda, seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(shape, device=cuda, generator=g).to(getattr(torch, kind)), None
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("dh", [16, 18, 48, 80, 128])
+def test_six_flash_kernels_at_head_dims(cuda, kind, dh):
+    """Batch 1 (every slot's plane), batched and paged flash decode at head
+    dims that are no multiple of 32 (16: ModelConfig.tiny's; 18: rows of no
+    whole 16-byte unit on any cache type, staged by plain loads, 2 dims for
+    a row's last value thread) and at 128 (the bulk copy), each against its
+    plain version, stale rows beyond every n_past, a shuffled page table."""
+    L, H, n_ctx, page = 2, 4, 256, 16
+    n_pasts = [0, 63, 64, 200, 255]
+    B = len(n_pasts)
+    kc, ks = _kind_cache(kind, (L, B, H, n_ctx, dh), cuda, dh)
+    vc, vs = _kind_cache(kind, (L, B, H, n_ctx, dh), cuda, dh + 1)
+    for b, n in enumerate(n_pasts):
+        if ks is None:
+            kc[:, b, :, n + 1 :] = 1e4
+            vc[:, b, :, n + 1 :] = -1e4
+        else:
+            _stale_int8(kc[:, b], ks[:, b], n)
+            _stale_int8(vc[:, b], vs[:, b], n)
+    dense = (kc, vc) if ks is None else (kc, vc, ks, vs)
+    live = [n // page + 1 for n in n_pasts]
+    P = sum(live) + 1
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(dh)).tolist()
+    table = torch.full((B, n_ctx // page), 10**6, dtype=torch.int32)
+    pools = [torch.zeros((P, L, H, page) + t.shape[-1:], dtype=t.dtype, device=cuda) for t in dense]
+    for b in range(B):
+        for c in range(live[b]):
+            pid = ids.pop()
+            table[b, c] = pid
+            for pool, t in zip(pools, dense):
+                pool[pid] = t[:, b, :, c * page : (c + 1) * page]
+    table = table.to(cuda)
+    q = torch.randn((B, H, dh), device=cuda, generator=torch.Generator(device=cuda).manual_seed(7))
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    s = "" if ks is None else "_int8"
+    one = getattr(att, "flash_decode_attention" if ks is None else "flash_decode_attention_stacked_int8")
+    one_plain = getattr(att, one.__name__ + "_plain")
+    bat = getattr(att, f"flash_decode_attention_batched{s}")
+    bat_plain = getattr(att, f"flash_decode_attention_batched{s}_plain")
+    pag = getattr(att, f"flash_decode_attention_paged{s}")
+    pag_plain = getattr(att, f"flash_decode_attention_paged{s}_plain")
+    for il in range(L):
+        for b, n in enumerate(n_pasts):
+            args = (q[b].contiguous(), *(t[:, b].contiguous() for t in dense), il, n)
+            out = one(*args)
+            assert out.shape == (H, dh) and _rel(out, one_plain(*args)) <= 1e-5, (il, b)
+        args = (q, *dense, il, np_, max(n_pasts))
+        assert _rel(bat(*args), bat_plain(*args)) <= 1e-5
+        args = (q, *pools, table, il, np_, max(n_pasts))
+        assert _rel(pag(*args), pag_plain(*args)) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_unaligned_planes_take_plain_loads(cuda, dtype):
+    """128-dim rows on planes that are not 16-byte aligned (a contiguous view
+    one element into its storage): batch 1 stages them with plain loads, and
+    a dh the kernels refuse raises with the rule."""
+    L, H, n_ctx, dh, n_past = 2, 4, 256, 128, 200
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n = L * H * n_ctx * dh
+    kc = torch.randn(n + 1, device=cuda, generator=g).to(dtype)[1:].view(L, H, n_ctx, dh)
+    vc = torch.randn(n + 1, device=cuda, generator=g).to(dtype)[1:].view(L, H, n_ctx, dh)
+    assert kc.is_contiguous() and kc.data_ptr() % 16
+    q = torch.randn((H, dh), device=cuda, generator=g)
+    out = att.flash_decode_attention(q, kc, vc, 1, n_past)
+    assert _rel(out, att.flash_decode_attention_plain(q, kc, vc, 1, n_past)) <= 1e-5
+    odd = torch.zeros((1, H, 16, 17), device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="must be even"):
+        att.flash_decode_attention(torch.zeros((H, 17), device=cuda), odd, odd, 0, 3)
+
+
+def _stacked_weight(kind, out, in_dim, cuda, seed):
+    """Layer 1 of a 2-layer stack (views at an offset of one layer)."""
+    make = _q4 if kind == "q4_0" else _q41
+    a, _ = make(out, in_dim, cuda, seed)
+    b, g = make(out, in_dim, cuda, seed + 1)
+    if kind == "q4_0":
+        return mv.Q4_0Weight(torch.stack([a.qs, b.qs]), torch.stack([a.d, b.d])).layer(1), g
+    return mv.Q4_1Weight(torch.stack([a.qs, b.qs]), torch.stack([a.dm, b.dm])).layer(1), g
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out,in_dim", [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096), (77, 352),
+                                        (5120, 13824), (22016, 8192)])
+def test_dequant_kernels_bit_exact_at_llama_shapes(cuda, kind, dtype, out, in_dim):
+    """Rows 3 and 3b on a stacked layer's views at the four 7B shapes, at 847
+    blocks (no launch tile divides them) and at 13B and 65B matrices."""
+    w, _ = _stacked_weight(kind, out, in_dim, cuda, seed=out)
+    fn, plain = (dq.q4_0_dequant, dq.dequantize_q4_0) if kind == "q4_0" else (dq.q4_1_dequant, dq.dequantize_q4_1)
+    before = fn.launches
+    dense = fn(w, dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(dense, plain(w, dtype))
+
+
+def test_dequant_refuses_unaligned_views(cuda):
+    """The kernel loads 4 nibble bytes at once: qs two bytes into its storage
+    is refused, not read misaligned."""
+    w, _ = _q4(64, 256, cuda)
+    raw = torch.zeros(w.qs.numel() + 2, dtype=torch.uint8, device=cuda)
+    qs = raw[2:].view(w.qs.shape)
+    assert qs.is_contiguous() and qs.data_ptr() % 4
+    with pytest.raises(ValueError, match="aligned"):
+        dq.q4_0_dequant(mv.Q4_0Weight(qs, w.d), torch.float32)
+
+
+@pytest.mark.parametrize("B", [2, 3, 8, 16, 17, 32])
+@pytest.mark.parametrize("out,in_dim", [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096),
+                                        (1000, 13824), (300, 22016)])
+def test_multi_row_kernel_at_llama_shapes(cuda, B, out, in_dim):
+    """Row 6 on a stacked layer's views at the 7B shapes (4096 outputs: a
+    cluster of 4 splits each tile's in-dim) and at the 13B and 65B in-dims,
+    out not a multiple of the 64-row tile; one counted launch a call."""
+    w, g = _stacked_weight("q4_0", out, in_dim, cuda, seed=B)
+    x = torch.randn((B, in_dim), device=cuda, generator=g)
+    before = mv.q4_0_matmul_multi.launches
+    y = mv.q4_0_matmul_multi(x, w)
+    torch.cuda.synchronize()
+    assert mv.q4_0_matmul_multi.launches == before + 1
+    assert y.shape == (B, out)
+    assert _rel(y, mv.q4_0_matmul_multi_plain(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("B", [2, 8, 17, 32])
+def test_multi_row_kernel_rounds_exact_ties_as_the_plain_version(cuda, B):
+    """Every block of every row scaled so that d = amax / 7 is a power of two
+    and every other element sits exactly on a k + 1/2 step: the codes round
+    half away from zero on the card as in the plain version (a flipped code
+    moves y by percents)."""
+    out, in_dim = 1000, 4096
+    w, g = _q4(out, in_dim, cuda, seed=B)
+    nb = in_dim // 32
+    e = torch.randint(-4, 4, (B, nb, 1), device=cuda, generator=g).float()
+    k = torch.randint(-7, 7, (B, nb, 32), device=cuda, generator=g).float() + 0.5
+    sign = torch.where(torch.rand((B, nb, 1), device=cuda, generator=g) < 0.5, -1.0, 1.0)
+    k[:, :, :1] = 7.0 * sign  # amax = 7 d exactly
+    x = (k * torch.exp2(e)).reshape(B, in_dim).contiguous()
+    q, d = mv.quantize_activations_q4_0_int(x)
+    assert torch.equal(d, torch.exp2(e).reshape(B, nb))
+    y = mv.q4_0_matmul_multi(x, w)
+    assert _rel(y, mv.q4_0_matmul_multi_plain(x, w)) <= 1e-5
+
+
+def _warp_row_order(x, w):
+    """y [B, out] from the plain version's terms (each block's exact dot
+    times d_w * d_x, rounded) summed as the warp-a-row kernel summed them:
+    per class of blocks b = l (mod 32) one sequential sum, then the 32
+    class sums by a warp's butterfly tree (xor 16, 8, 4, 2, 1)."""
+    q, dx = mv.quantize_activations_q4_0_int(x)
+    terms = mv.q4_0_block_partials(q, w).float() * (w.d[None] * dx[:, None, :])  # [B, out, nb]
+    sums = []
+    for lane in range(32):
+        acc = torch.zeros_like(terms[..., 0])
+        for b in range(lane, terms.shape[-1], 32):
+            acc = acc + terms[..., b]
+        sums.append(acc)
+    for o in (16, 8, 4, 2, 1):
+        sums = [sums[lane] + sums[lane ^ o] for lane in range(32)]
+    return sums[0]
+
+
+@pytest.mark.parametrize("B", [2, 8, 11, 16])
+@pytest.mark.parametrize("out,in_dim", [(4096, 4096), (1000, 4096), (300, 11008), (77, 352)])
+def test_multi_row_kernel_sums_in_the_warp_row_order_to_16_rows(cuda, B, out, in_dim):
+    """Up to 16 rows the product is bit for bit the sum in the earlier
+    warp-a-row kernel's order (4096 outputs: a cluster of 2 splits the
+    classes; 352 inputs: 11 blocks, classes with no block), so whole-path
+    results built on it do not move."""
+    w, g = _q4(out, in_dim, cuda, seed=B + out)
+    x = torch.randn((B, in_dim), device=cuda, generator=g)
+    assert torch.equal(mv.q4_0_matmul_multi(x, w), _warp_row_order(x, w))
+
+
+def test_multi_plan_smem_matches_the_kernel(cuda):
+    from llama_swift_torch.ops import build
+
+    lib = build.lib("q4_matvec")
+    for B in range(1, mv.MAX_MULTI_ROWS + 1):
+        assert lib.q4_0_matmul_multi_smem_bytes(B) == mv.multi_plan(4096, 4096, B).smem

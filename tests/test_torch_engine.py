@@ -427,6 +427,22 @@ def test_engine_more_streams_than_slots(tiny):
     assert eng.stats["admitted"] == 5
 
 
+def test_engine_ttft_stat_keeps_the_last_window(tiny):
+    """``stats["ttft_s"]`` is a window of the last ``TTFT_WINDOW`` requests'
+    times to first token: more finished requests than that leave exactly
+    the newest ones, in order, and each is its handle's own value."""
+    _, tcfg, _, params, vocab = tiny
+    eng = Engine(params, tcfg, vocab, max_slots=8, prefill_bucket=8)
+    n = tengine.TTFT_WINDOW + 6
+    handles = [eng.submit("a", SamplingConfig(seed=i, n_predict=1)) for i in range(n)]
+    _drain(eng, handles, max_steps=4 * n)
+    assert eng.stats["admitted"] == n
+    ttft = eng.stats["ttft_s"]
+    assert len(ttft) == tengine.TTFT_WINDOW
+    by_first_token = sorted(handles, key=lambda h: h.t_submit + h.ttft_s)
+    assert list(ttft) == [h.ttft_s for h in by_first_token[-tengine.TTFT_WINDOW:]]
+
+
 def test_engine_isolation_between_streams(tiny):
     _, tcfg, _, params, vocab = tiny
     eng1 = Engine(params, tcfg, vocab, max_slots=4, prefill_bucket=8)

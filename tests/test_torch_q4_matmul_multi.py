@@ -1,8 +1,9 @@
 """Port's multi-row Q4_0 matmul (llama_swift_torch/ops/q4_matvec.py,
 q4_0_matmul_multi) against the JAX package's q4_0_vpu_matmul_multi in
 interpret mode: 2..32 rows, exact integer block partials per row, the
-stacked layer pick, and the row-count dispatch of ops/quantized_matmul.linear.
-On the CPU the wrapper runs the kernel's plain version; the CUDA kernel is
+stacked layer pick, the row-count dispatch of ops/quantized_matmul.linear,
+and the CUDA kernel's launch plan at every LLaMA size and row count.  On
+the CPU the wrapper runs the kernel's plain version; the CUDA kernel is
 held against it by chip_smoke.py and tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import torch
 
 from llama_swift_tpu.formats.quant import Q4_0Tensor
 from llama_swift_tpu.ops.q4_vpu_pallas import Q4_0TensorV, q4_0_vpu_matmul_multi
+from llama_swift_torch.config import ModelConfig as TModelConfig
 from llama_swift_torch.formats.quant import Q4_0Tensor as TQ4_0Tensor
 from llama_swift_torch.ops import q4_matvec as tmv
 from llama_swift_torch.ops import quantized_matmul as tqmm
@@ -114,3 +116,47 @@ def test_wrapper_rejects_non_cpu_inputs(w_np):
     """A tensor that is not on the CPU never reaches the plain version."""
     with pytest.raises(ValueError):
         tmv.q4_0_matmul_multi(torch.zeros((4, IN), device="meta"), _port(w_np))
+
+
+def _llama_shapes(cfg):
+    """(out, in) of every product of a LLaMA config: wq/wk/wv/wo, w1/w3, w2,
+    the output projection, fused wqkv and w13."""
+    d, f = cfg.n_embd, cfg.n_ff
+    return [(d, d), (f, d), (d, f), (cfg.n_vocab, d), (3 * d, d), (2 * f, d)]
+
+
+@pytest.mark.parametrize("size", ["7b", "13b", "30b", "65b"])
+@pytest.mark.parametrize("B", range(2, tmv.MAX_MULTI_ROWS + 1))
+def test_multi_plan_covers_every_block_and_row_once(size, B):
+    """The multi-row kernel's plan: shared memory within a block's 227 KB
+    and the blocks an SM holds, the cluster's partials within the
+    ring, every weight block of the in-dim in exactly one chunk of exactly
+    one block of the cluster (none empty), every output row in exactly one
+    tile, B padded to whole 8-row MMA tiles, the in-dim split where the
+    tiles alone would fill at most half of the blocks the card holds."""
+    cfg = getattr(TModelConfig, f"llama_{size}")()
+    for out, in_dim in _llama_shapes(cfg):
+        plan = tmv.multi_plan(out, in_dim, B)
+        assert plan.smem <= tmv.SMEM_PER_BLOCK and plan.blocks_per_sm * (plan.smem + 1024) <= tmv.SMEM_PER_SM
+        assert plan.blocks_per_sm == (1 if plan.np == 16 else 2)
+        assert plan.np % 8 == 0 and B <= plan.np < B + 8
+        assert 1 <= plan.splits <= tmv.MULTI_MAX_SPLITS
+        assert 2 * plan.splits * plan.np * tmv.MULTI_TILE_ROWS * 4 <= plan.smem
+        nb = in_dim // 32
+        blocks = []
+        for chunks in plan.chunk_sets:
+            assert chunks
+            for c in chunks:
+                blocks += range(c * tmv.MULTI_KC, min((c + 1) * tmv.MULTI_KC, nb))
+        assert sorted(blocks) == list(range(nb))
+        rows = [r for t in range(plan.tiles)
+                for r in range(t * tmv.MULTI_TILE_ROWS, min((t + 1) * tmv.MULTI_TILE_ROWS, out))]
+        assert rows == list(range(out))
+        assert plan.grid == (plan.splits, plan.tiles)
+        assert (plan.splits == 2) == (2 * plan.tiles <= 132 * plan.blocks_per_sm and plan.chunks >= 2)
+
+
+@pytest.mark.parametrize("args", [(4096, 4096, 0), (4096, 4096, 33), (4096, 4016, 8), (0, 4096, 8), (64, 0, 2)])
+def test_multi_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        tmv.multi_plan(*args)
