@@ -89,7 +89,8 @@ Phases:
    request with ``quantize_activations = False`` (225 f32-activation matvec
    launches a token, 225 dequant a prefill) and wave G, wave A's shape
    (225 f32-activation multi-row launches a step), each with a profiled
-   window for its idle share; then a seeded ``rng_impl="mt19937"``
+   window for its idle share (the engine step's with the device time of
+   its f32-activation multi-row products); then a seeded ``rng_impl="mt19937"``
    host-sampled request twice: the same tokens, through the native sampler;
 4d. on the fused params: two requests through ``LlamaRunner`` (greedy on an
    f32 cache, sampled on a bf16 cache), each decoded token exactly one
@@ -158,6 +159,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor rate (dense), published
 INT8_OPS = 1979e12  # H100 SXM int8 tensor rate, published
 
 BF16_PREFILL_BAR = 0.25
@@ -453,6 +455,34 @@ def check_multi_kernel(torch, g, summary) -> list:
     return failed
 
 
+def tensor_bound(rows: int, out: int, in_dim: int, t_bytes: float, t_f32: float) -> dict:
+    """The bound of a Q4_0 product of f32 rows on the bf16 tensor cores
+    (rows 6f and 10: exact bf16 nibbles times three bf16 pieces of x): the
+    larger of the bytes and 3·2·N operations a weight at the bf16 tensor
+    rate, ``bound_by`` "bytes" or "operations" (those tensor operations);
+    ``f32_bound_ms``, in the case's record only, keeps the bound of a
+    product on the CUDA cores (2·N f32 operations a weight), so that shares
+    taken against it stay readable."""
+    t_tensor = 3 * 2 * rows * out * in_dim / BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_tensor) * 1e3, "bound_by": "bytes" if t_bytes >= t_tensor else "operations",
+            "f32_bound_ms": max(t_bytes, t_f32) * 1e3}
+
+
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` (a wrapper's checks, plan and launch):
+    the calls are queued behind a sleep kernel, so the card never holds
+    the host back."""
+    fn(0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
 def check_f32_kernels(torch, g, summary) -> list:
     """The three f32-activation kernels (the Q4_0 and Q4_1 matvecs and the
     Q4_0 multi-row matmul on unquantized rows) against their plain versions
@@ -460,9 +490,9 @@ def check_f32_kernels(torch, g, summary) -> list:
     within 1e-5 of max |y|.  Beside kernel, plain and bound times, the
     dequant + ``torch.matmul`` pair that these kernels replace on this path
     is timed as ``replaced_ms`` (no single PyTorch call computes the
-    function, so ``library_ms`` is None).  The bound is the larger of the
-    bytes and the f32 work (2·B operations a weight); ``bound_by`` says
-    which.  Returns the cases that disagree."""
+    function, so ``library_ms`` is None).  The matvecs' bound is the larger
+    of the bytes and the f32 work (2 operations a weight); the multi-row
+    kernel's is ``tensor_bound``'s.  Returns the cases that disagree."""
     from llama_swift_torch.ops import q4_dequant as dq
     from llama_swift_torch.ops import q4_matvec as mv
 
@@ -491,14 +521,16 @@ def check_f32_kernels(torch, g, summary) -> list:
                 y, ref = fn(0), plain(0)
                 err = rel_err(y, ref)
                 t_bytes = (wbytes + rows * in_dim * 4 + rows * out * 4) / HBM_BYTES_PER_S
-                t_ops = 2 * rows * out * in_dim / F32_FLOPS
+                t_f32 = 2 * rows * out * in_dim / F32_FLOPS
                 case = {"case": name, "rows": rows, "out": out, "in": in_dim, "max_rel_err": err,
                         "max_abs_err": float((y - ref).abs().max()),
                         "kernel_ms": time_ms(torch, fn, 200), "plain_ms": time_ms(torch, plain, 3),
-                        "bound_ms": max(t_bytes, t_ops) * 1e3,
-                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "bound_ms": max(t_bytes, t_f32) * 1e3,
+                        "bound_by": "bytes" if t_bytes >= t_f32 else "operations",
                         "replaced_ms": time_ms(torch, lambda i: xr @ deq(w.layer(i % n), torch.float32).t(), 20),
                         "library_ms": None, "ok": err <= 1e-5}
+                if name == "q4_0_matmul_multi_f32":
+                    case.update(tensor_bound(rows, out, in_dim, t_bytes, t_f32), host_us=host_us(torch, fn))
                 log(case)
                 if not case["ok"]:
                     failed.append(case)
@@ -519,9 +551,9 @@ def check_t_kernel(torch, g, summary) -> list:
     times, the dequant + ``torch.matmul`` pair that the JAX package's
     alternative is (the path above 64 rows) is timed as ``replaced_ms``; no
     single PyTorch call reads Q4_0, so ``library_ms`` is None.  The bound is
-    the larger of the bytes (0.625 a weight, x and y) and the f32 work
-    (2·N operations a weight); ``bound_by`` says which.  Returns the cases
-    that disagree."""
+    ``tensor_bound``'s: the larger of the bytes (0.625 a weight, x and y)
+    and the bf16 tensor work (3·2·N operations a weight).  Returns the
+    cases that disagree."""
     from llama_swift_torch.ops import q4_dequant as dq
     from llama_swift_torch.ops import q4_matmul as qm
 
@@ -538,15 +570,13 @@ def check_t_kernel(torch, g, summary) -> list:
             y, ref = fn(0), plain(0)
             err = rel_err(y, ref)
             t_bytes = (wbytes + rows * in_dim * 4 + rows * out * 4) / HBM_BYTES_PER_S
-            t_ops = 2 * rows * out * in_dim / F32_FLOPS
             case = {"case": "q4_0_matmul_t", "rows": rows, "out": out, "in": in_dim, "max_rel_err": err,
                     "max_abs_err": float((y - ref).abs().max()),
                     "kernel_ms": time_ms(torch, fn, 100), "plain_ms": time_ms(torch, plain, 10),
-                    "bound_ms": max(t_bytes, t_ops) * 1e3,
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    **tensor_bound(rows, out, in_dim, t_bytes, 2 * rows * out * in_dim / F32_FLOPS),
                     "replaced_ms": time_ms(torch, lambda i: x @ dq.q4_0_dequant(w.layer(i % n), torch.float32).t(),
                                            10),
-                    "library_ms": None, "ok": err <= 1e-5}
+                    "host_us": host_us(torch, fn), "library_ms": None, "ok": err <= 1e-5}
             log(case)
             if not case["ok"]:
                 failed.append(case)
@@ -572,7 +602,8 @@ def check_int_t_kernels(torch, g, summary) -> list:
     product (``torch._int_mm`` has none), so ``library_ms`` is None.  The
     bound is the larger of the bytes (0.625 a weight, x and y in f32) and
     the work (2·N operations a weight at the int8 rate, or the f32 rate for
-    f32 rows); ``bound_by`` says which.  Returns the cases that disagree."""
+    one f32 row); ``bound_by`` says which; f32 rows from 2 take
+    ``tensor_bound``'s.  Returns the cases that disagree."""
     from llama_swift_torch.ops import q4_matmul as qm
     from llama_swift_torch.ops import quantized_matmul as qmm
 
@@ -587,6 +618,8 @@ def check_int_t_kernels(torch, g, summary) -> list:
                     kernel_ms=time_ms(torch, fn, iters), plain_ms=time_ms(torch, plain, plain_iters),
                     bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=None, ok=err <= 1e-5)
+        if ops_rate == F32_FLOPS and rows > 1:  # f32 rows from 2: the tensor-core multi-row kernel
+            case.update(tensor_bound(rows, out, in_dim, t_bytes, t_ops))
         return case
 
     for out, in_dim in MATVEC_SHAPES:
@@ -2133,7 +2166,7 @@ def serve_f32_acts(torch, runner) -> list:
     cache = model_lib.init_cache_batched(cfg, 8, device="cuda")
     toks = torch.ones(8, dtype=torch.int64, device="cuda")
     profile_window(torch, "profile_f32_engine_step_8_steps_B8", lambda i: model_lib.forward_batched(
-        runner.params, toks, np.arange(8) * 8 + i, cache, cfg))
+        runner.params, toks, np.arange(8) * 8 + i, cache, cfg), focus=F32_MMA_KERNEL)
     del cache
 
     sampling = SamplingConfig(seed=23, rng_impl="mt19937")
@@ -2416,7 +2449,7 @@ def serve_tp_v(torch, path: str, n_layer: int, n_tok: int) -> dict:
     return counts
 
 
-def serve_tp(torch, path: str, profile: bool, int_only: bool = False) -> list:
+def serve_tp(torch, path: str, int_only: bool = False) -> list:
     """The TP serving paths on the 32-layer 7B Q4_0 file, each with the
     launch counters reset just before and read just after:
 
@@ -2429,7 +2462,8 @@ def serve_tp(torch, path: str, profile: bool, int_only: bool = False) -> list:
       for a TP build) through ``make_tp_forward`` in a NCCL group of one: a
       64-row prefill and 32 greedy tokens, exactly 225 ``q4_0_matmul_t``
       launches a forward (prefill and decode alike) and 32 flash a token,
-      no dequant; with ``--profile`` an 8-step window of its decode;
+      no dequant; then an 8-step profiled window of its decode, with the
+      device time of the T products a token;
     * path A, the same T forward with 16 greedy tokens under raised gates:
       (a) ``MAX_INT_KERNEL_ROWS = 64``, 225 ``q4_0_int_matmul`` launches a
       forward, the 64-row prefill too; (b) ``MAX_MULTI_ROWS_T = 32``, 225
@@ -2457,10 +2491,9 @@ def serve_tp(torch, path: str, profile: bool, int_only: bool = False) -> list:
         log({"case": "tp_t_load", "t_load_s": t_load})
         if not int_only:  # the gates at 0: serving's T path
             runs.append(t_forward_run(torch, fwd, params, cache, device, n_layer, n_tok, (0, 0), "serve_tp_t"))
-            if profile:
-                tok1 = torch.ones(1, dtype=torch.int64, device=device)
-                profile_window(torch, "profile_tp_t_decode_8_steps",
-                               lambda i: fwd(params, tok1, 40 + n_tok + i, cache))
+            tok1 = torch.ones(1, dtype=torch.int64, device=device)
+            profile_window(torch, "profile_tp_t_decode_8_steps", lambda i: fwd(params, tok1, 40 + n_tok + i, cache),
+                           focus=F32_MMA_KERNEL)
         # path A: the same forward with the integer gates raised, 16 tokens each
         for name, gates in (("path_a_int_64", (64, 0)), ("path_a_multi_32", (0, 32))):
             with t_gates(*gates):
@@ -2711,9 +2744,13 @@ def check_aux(torch) -> None:
         raise SystemExit("chip_smoke: an aux op disagrees between the card and the CPU")
 
 
-def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
+F32_MMA_KERNEL = "q4_f32_mma_kernel"  # the device kernel of q4_0_matmul_multi_f32 and q4_0_matmul_t
+
+
+def profile_window(torch, name: str, step, n_steps: int = 8, focus: str = None) -> None:
     """Device busy share and kernel time by name over ``n_steps`` calls of
-    ``step(i)`` after one warm-up call."""
+    ``step(i)`` after one warm-up call; with ``focus``, the device time a
+    step and the launches of the kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     step(0)
@@ -2730,11 +2767,16 @@ def profile_window(torch, name: str, step, n_steps: int = 8) -> None:
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    log({"case": name, "wall_ms_per_step": wall / n_steps * 1e3,
-         "device_busy_ms_per_step": busy_s / n_steps * 1e3 if rows else None,
-         "device_idle_share": 1 - busy_s / wall if rows else None,
-         "launches_per_step": sum(r[2] for r in rows) / n_steps,
-         "top_kernels_us_per_step": [[k, us / n_steps, n // n_steps] for us, k, n in rows[:12]]})
+    rec = {"case": name, "wall_ms_per_step": wall / n_steps * 1e3,
+           "device_busy_ms_per_step": busy_s / n_steps * 1e3 if rows else None,
+           "device_idle_share": 1 - busy_s / wall if rows else None,
+           "launches_per_step": sum(r[2] for r in rows) / n_steps,
+           "top_kernels_us_per_step": [[k, us / n_steps, n // n_steps] for us, k, n in rows[:12]]}
+    if focus:
+        mine = [r for r in rows if focus in r[1]]
+        rec.update({"focus": focus, "focus_ms_per_step": sum(r[0] for r in mine) / n_steps / 1e3,
+                    "focus_launches_per_step": sum(r[2] for r in mine) / n_steps})
+    log(rec)
 
 
 def profile_decode(torch, runner) -> None:
@@ -2782,8 +2824,8 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
     # f32 activations: the same TPU kernels fed unquantized rows (_prep_inputs*, quantize_acts=False)
     "q4_0_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:276"),
     "q4_1_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
-    "q4_0_matmul_multi_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
-    "q4_0_matmul_t": ("llama_swift_torch/csrc/q4_matmul_t.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:424"),
+    "q4_0_matmul_multi_f32": ("llama_swift_torch/csrc/q4_f32_mma.cuh", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
+    "q4_0_matmul_t": ("llama_swift_torch/csrc/q4_f32_mma.cuh", "llama_swift_tpu/ops/q4_matmul_pallas.py:424"),
     "q4_0_int_matmul": ("llama_swift_torch/csrc/q4_int_mma.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:196"),
     # the T multi-row product runs the V layout's multi-row and matvec kernels (one logical layout)
     "q4_0_t_matmul_multi": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:681"),
@@ -2885,7 +2927,7 @@ def main(argv=None) -> int:
                 write_model(path, ModelConfig.llama_7b(ftype=GGMLType.Q4_0), seed=2024)
             if args.only == "int":
                 runs.append(decode_r4_from_file(torch, path))
-            runs += serve_tp(torch, path, args.profile, int_only=args.only == "int")
+            runs += serve_tp(torch, path, int_only=args.only == "int")
             os.remove(path)
         if args.only in (None, "q4_1"):
             check_parity_q4_1(torch)

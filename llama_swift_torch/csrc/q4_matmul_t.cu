@@ -1,5 +1,7 @@
-// Q4_0 product for 1..64 f32 activation rows, the T-layout product of the
-// tensor-parallel path (q4_0_matmul_t).
+// Q4_0 product for 1..64 f32 activation rows: the T-layout product of the
+// tensor-parallel path (q4_0_matmul_t) and, through the same entry, the
+// f32-activation multi-row product (q4_0_matmul_multi_f32, 1..32 rows; the
+// wrappers check their own row counts and count their own launches).
 //
 // Replaces the TPU kernel `_q4_0_phase_kernel` and its stacked form
 // (llama_swift_tpu/ops/q4_matmul_pallas.py, core `_phase_core`, entry points
@@ -9,182 +11,52 @@
 //
 // in f32.  The caller has already fake-quantized x through Q4_0 when the
 // model quantizes activations, as the JAX package does outside its kernel.
-// Each weight is decoded with one f32 rounding (__fmul_rn: nvcc must not
-// contract it into the following FMA), then multiplied into the sums with
-// f32 FMAs: f32-exact products, as the TPU kernel's Precision.HIGHEST dot;
-// only the summation order differs from the plain version.
+// The TPU kernel gets f32-exact products from its bf16 matrix unit
+// (Precision.HIGHEST, the "6-pass bf16" dot); this one from Hopper's bf16
+// tensor cores in three passes: exact bf16 nibbles times an exact
+// three-way bf16 split of x, the device core of q4_f32_mma.cuh, shared
+// with the f32-activation multi-row product (q4_matvec.cu).  It takes each
+// 32-block's dot first and scales it by d, where the plain version rounds
+// each weight (n - 8) * d to f32: the two differ by at most 2^-24 of each
+// term's magnitude (the argument is in q4_f32_mma.cuh).
 //
 // The weight keeps the logical ggml layout of Q4_0Weight: nibbles uint8
 // [out, in/2] (byte j of a block holds elements 2j, low nibble, and 2j+1)
 // and scales f32 [out, in/32].  The TPU's pre-tiled [out/128, in/8, 128]
 // words existed for Mosaic's (8, 128) tiling and for contiguous HBM block
-// reads; here a block's 32 output rows are read as 128-byte row segments.
+// reads.
 //
-// What bounds it on the H100: device-memory bandwidth at few rows (0.625
-// bytes a weight, 3.35 TB/s), the f32 FMA rate at many (2 operations a
-// weight a row, 67 TFLOP/s without tensor cores): the two meet near 16 rows.
+// What bounds it on the H100: the weight stream at few rows (0.625 bytes a
+// weight, 8.4 us at 11008x4096); the tensor work at many, 3 * 2 * N
+// operations a weight at 989 TFLOP/s (17.5 us at N = 64 against 9.6 us of
+// bytes).
 //
-// Design (simple first; the fast forms -- int8 mma on the 4-bit codes with
-// per-block scales, a cp.async ring -- are later work):
-//  * a block of 256 threads owns 32 output rows for all N activation rows
-//    (N padded to a power of two NR <= 64, a template parameter so the
-//    accumulators stay in registers);
-//  * it walks the in axis in chunks of 8 Q4_0 blocks (256 elements): the 32
-//    rows' nibbles (one 16-byte load a thread, eight threads a 128-byte row
-//    segment), their 256 scales and the f32 x chunk [NR, 256] are staged in
-//    shared memory, so each weight byte is read from device memory once per
-//    launch; the next chunk's nibbles and scale (and, for NR <= 8, its x)
-//    are loaded into registers while the current chunk is computed;
-//  * warp w takes block w of the chunk, lane l output row l: it decodes its
-//    32 weights once into registers, then reads x of the block as 16-byte
-//    broadcasts and does 32 FMAs a row into acc[n], rows innermost so that
-//    consecutive FMAs do not wait on each other;
-//  * at the end the eight warps' partial sums meet in shared memory and are
-//    added in a fixed order.
+// Design: q4_f32_mma.cuh's kernel: one or two rows with the three pieces
+// of each row as MMA columns, more rows padded to 8, 16, 32, 48 or 64
+// (ops/q4_matvec.f32_mma_plan); 64 output rows a block, a ring of weight,
+// scale and x chunks filled by producer warps with cp.async behind
+// mbarriers, eight consumer warps on bf16 m16n8k16 MMAs; clusters of 2 or
+// 4 blocks that share 1..4 tiles' units, their sums combined through
+// distributed shared memory in a fixed order; one launch a call.  From 9
+// rows a block holds an SM alone (its registers: the sums of 4 row tiles
+// x 2 to 4 n-tiles a warp; from 33 rows its x chunks too).  What holds it back at one row
+// (PERF.md): the CUDA cores' share (nibbles to bf16, the split of x) takes
+// about as long as the weight stream, and the two do not fully overlap.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "q4_f32_mma.cuh"
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TILE_OUT = 32;           // output rows a block owns (one per lane)
-constexpr int CHUNK_BLOCKS = WARPS;    // Q4_0 blocks a chunk stages (one per warp)
-constexpr int CHUNK = 32 * CHUNK_BLOCKS;
-constexpr int W_STRIDE = CHUNK_BLOCKS + 1;  // uint4 per staged row: the pad spreads the lanes over the banks
-
-// two blocks an SM where the sums leave registers enough (<= 128 a thread);
-// 32 and 64 rows keep theirs
-template <int NR>
-__global__ void __launch_bounds__(THREADS, NR >= 32 ? 1 : 2)
-q4_0_matmul_t_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ d,
-                     const float* __restrict__ x, float* __restrict__ y, int out, int in, int n_rows) {
-  // x is prefetched into registers too when it is a few values a thread
-  constexpr bool PREFETCH_X = NR <= 8;
-  constexpr int XPT = PREFETCH_X ? NR : 1;  // x values a thread stages per chunk
-  extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);                  // [NR][CHUNK]; later [WARPS][NR][32]
-  uint4* w_s = reinterpret_cast<uint4*>(x_s + NR * CHUNK);      // [TILE_OUT][W_STRIDE]
-  float* s_s = reinterpret_cast<float*>(w_s + TILE_OUT * W_STRIDE);  // [TILE_OUT][W_STRIDE]
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int o0 = blockIdx.x * TILE_OUT;
-  const int nb = in / 32;
-  // the staging role of thread t: segment (t % 8) of row (t / 8), and that block's scale
-  const int r = t >> 3, seg = t & 7, row = o0 + r;
-  const uint8_t* w_src = qs + (long long)min(row, out - 1) * (in / 2) + seg * 16;
-  const float* s_src = d + (long long)min(row, out - 1) * nb + seg;
-
-  // registers for the next chunk, loaded while the current one is computed
-  uint4 w_next = make_uint4(0, 0, 0, 0);
-  float s_next = 0.f;
-  float x_next[XPT];
-  auto fetch = [&](int b0) {
-    const bool live = row < out && b0 + seg < nb;
-    w_next = live ? *reinterpret_cast<const uint4*>(w_src + (long long)b0 * 16) : make_uint4(0, 0, 0, 0);
-    s_next = live ? s_src[b0] : 0.f;
-    if constexpr (PREFETCH_X) {
-#pragma unroll
-      for (int i = 0; i < XPT; ++i) {  // element t of row i
-        x_next[i] = (i < n_rows && b0 * 32 + t < in) ? x[(long long)i * in + b0 * 32 + t] : 0.f;
-      }
-    }
-  };
-
-  float acc[NR];
-#pragma unroll
-  for (int n = 0; n < NR; ++n) acc[n] = 0.f;
-
-  fetch(0);
-  for (int b0 = 0; b0 < nb; b0 += CHUNK_BLOCKS) {
-    const int nblk = min(CHUNK_BLOCKS, nb - b0);
-    w_s[r * W_STRIDE + seg] = w_next;
-    s_s[r * W_STRIDE + seg] = s_next;
-    if constexpr (PREFETCH_X) {
-#pragma unroll
-      for (int i = 0; i < XPT; ++i) x_s[i * CHUNK + t] = x_next[i];
-    } else {
-      for (int idx = t; idx < NR * CHUNK; idx += THREADS) {
-        const int n = idx / CHUNK, k = idx % CHUNK;
-        x_s[idx] = (n < n_rows && k < nblk * 32) ? x[(long long)n * in + b0 * 32 + k] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (b0 + CHUNK_BLOCKS < nb) fetch(b0 + CHUNK_BLOCKS);
-    if (warp < nblk) {
-      const uint4 packed = w_s[lane * W_STRIDE + warp];
-      const float s = s_s[lane * W_STRIDE + warp];
-      const uint32_t words[4] = {packed.x, packed.y, packed.z, packed.w};
-      float w[32];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t byte = (words[j / 4] >> (8 * (j % 4))) & 0xFF;
-        w[2 * j] = __fmul_rn(static_cast<float>(static_cast<int>(byte & 0xF) - 8), s);
-        w[2 * j + 1] = __fmul_rn(static_cast<float>(static_cast<int>(byte >> 4) - 8), s);
-      }
-      // rows inner, so that consecutive FMAs feed different sums; each
-      // row's sum still takes the block's 32 terms in order
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-#pragma unroll
-        for (int n = 0; n < NR; ++n) {
-          const float4 xv = reinterpret_cast<const float4*>(x_s + n * CHUNK + warp * 32)[q];  // a broadcast
-          acc[n] = fmaf(w[4 * q], xv.x, acc[n]);
-          acc[n] = fmaf(w[4 * q + 1], xv.y, acc[n]);
-          acc[n] = fmaf(w[4 * q + 2], xv.z, acc[n]);
-          acc[n] = fmaf(w[4 * q + 3], xv.w, acc[n]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // the eight warps' partials, [WARPS][NR][32], summed in warp order
-  float* red = x_s;
-#pragma unroll
-  for (int n = 0; n < NR; ++n) red[(warp * NR + n) * 32 + lane] = acc[n];
-  __syncthreads();
-  for (int idx = t; idx < NR * 32; idx += THREADS) {
-    const int n = idx / 32, l = idx % 32, o = o0 + l;
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < WARPS; ++k) sum += red[(k * NR + n) * 32 + l];
-    if (n < n_rows && o < out) y[(long long)n * out + o] = sum;
-  }
-}
-
-template <int NR>
-cudaError_t launch(const void* qs, const void* d, const void* x, void* y, int out, int in, int n_rows,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * NR * CHUNK + sizeof(uint4) * TILE_OUT * W_STRIDE +
-                      sizeof(float) * TILE_OUT * W_STRIDE;
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(q4_0_matmul_t_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const int grid = (out + TILE_OUT - 1) / TILE_OUT;
-  q4_0_matmul_t_kernel<NR><<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const float*>(d), static_cast<const float*>(x),
-      static_cast<float*>(y), out, in, n_rows);
-  return cudaGetLastError();
-}
-
-}  // namespace
+// Shared memory of a launch for N rows (ops/q4_matvec.f32_mma_plan
+// computes the same).
+extern "C" int q4_0_f32_mma_smem_bytes(int n_rows) { return fm_smem_bytes(fm_np(n_rows)); }
 
 // qs [out][in/2] u8, d [out][in/32] f32, x [n_rows][in] f32 -> y [n_rows][out] f32;
-// 1 <= n_rows <= 64, in % 32 == 0, qs 16-byte aligned
-extern "C" int q4_0_matmul_t(const void* qs, const void* d, const void* x, void* y, int out, int in,
-                             int n_rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rows < 1 || n_rows > 64 || in % 32) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e;
-  if (n_rows == 1) e = launch<1>(qs, d, x, y, out, in, n_rows, s);
-  else if (n_rows <= 2) e = launch<2>(qs, d, x, y, out, in, n_rows, s);
-  else if (n_rows <= 4) e = launch<4>(qs, d, x, y, out, in, n_rows, s);
-  else if (n_rows <= 8) e = launch<8>(qs, d, x, y, out, in, n_rows, s);
-  else if (n_rows <= 16) e = launch<16>(qs, d, x, y, out, in, n_rows, s);
-  else if (n_rows <= 32) e = launch<32>(qs, d, x, y, out, in, n_rows, s);
-  else e = launch<64>(qs, d, x, y, out, in, n_rows, s);
-  return static_cast<int>(e);
+// 1 <= n_rows <= 64, in % 32 == 0, qs 16-byte aligned; clusters of
+// `cluster` blocks sharing `cluster_tiles` tiles of 64 output rows.  One
+// launch.
+extern "C" int q4_0_f32_mma(const void* qs, const void* d, const void* x, void* y, int out, int in, int n_rows,
+                            int cluster, int cluster_tiles, void* stream) {
+  return static_cast<int>(
+      fm_product(qs, d, x, y, out, in, n_rows, cluster, cluster_tiles, static_cast<cudaStream_t>(stream)));
 }

@@ -131,23 +131,32 @@
 // Replace the same TPU kernels fed unquantized rows (_prep_inputs,
 // _prep_inputs_q41 and _prep_inputs_multi with quantize_acts=False in
 // llama_swift_tpu/ops/q4_vpu_pallas.py: d_x = 1, x itself in place of the
-// codes):
+// codes; the multi-row one is `_make_multi_kernel` / `_multi_grid_kernel*`
+// behind q4_0_vpu_matmul_multi):
 //
 //   Q4_0:  y[r, o] = sum_b d[o,b] * sum_i (n[o,32b+i] - 8) * x[r, 32b+i]
 //   Q4_1:  y[o]    = sum_b d[o,b] * sum_i n[o,32b+i] * x[32b+i]  +  m[o,b] * sum_i x[32b+i]
 //
 // The TPU kernel takes sum(n*x) - 8*sum(x) in a phase-major order scaled by
 // 16^-p for Mosaic's lanes; these kernels take the plain sums, equal up to
-// reassociation.  Plain f32 arithmetic: no fast math, no TF32, no bf16.  A
-// nibble becomes a float without a conversion instruction: placed under the
-// exponent of 2^23 (0x4B000000 | n is exactly 2^23 + n), one subtraction
-// leaves n - 8 (Q4_0) or n (Q4_1) exactly.
+// reassociation.
 //
-// What bounds them on the H100: the matvecs, device-memory bandwidth (the
-// bytes of the packed weight, as rows 1 and 5); the multi-row kernel, the
-// weight bytes at small B and the f32 rate at large B (2*B operations a
-// weight: at 11008x4096, 10.8 us of f32 work at B = 8 against 8.6 us of
-// bytes).
+// Matvecs: plain f32 arithmetic on the CUDA cores (no fast math, no TF32,
+// no bf16).  A nibble becomes a float without a conversion instruction:
+// placed under the exponent of 2^23 (0x4B000000 | n is exactly 2^23 + n),
+// one subtraction leaves n - 8 (Q4_0) or n (Q4_1) exactly.  What bounds
+// them on the H100: device-memory bandwidth (the bytes of the packed
+// weight, as rows 1 and 5).
+//
+// Multi-row (q4_0_matmul_multi_f32, 1..32 rows): not in this file.  It is
+// the bf16 tensor-core product of q4_f32_mma.cuh, shared with the T
+// layout's q4_0_matmul_t and launched through q4_matmul_t.cu's one entry:
+// exact bf16 nibbles times an exact three-way bf16 split of x, each
+// block's dot in a fresh f32 accumulator, scaled by d on the CUDA cores;
+// one launch a call, no pre-pass (nothing is quantized).  What bounds it:
+// the weight bytes (8.4 us at 11008x4096, up to 32 rows; the tensor work
+// is 3 * 2 * B operations a weight at 989 TFLOP/s, 2.2 us at B = 8).  The
+// design, the K order and the rounding argument are in q4_f32_mma.cuh.
 //
 // Design, matvecs: the activation row is staged once per block in shared
 // memory (16 KB at in 4096, 44 KB at in 11008), transposed to [8][nb] float4
@@ -159,25 +168,6 @@
 // threads from the staged copy).  The grid is capped at 8 blocks an SM and
 // each warp strides over rows, so the row is staged a bounded number of
 // times whatever the output count.
-//
-// Design, multi-row: B f32 rows do not fit in shared memory (352 KB at
-// B = 8, in = 11008), and reading them through L1/L2 as the int8 kernel
-// does would read 4 bytes of x from L2 per product for every warp.  So the
-// in-dim is tiled through shared memory: the 8 warps of a block (16 output
-// rows) share each staged chunk of 32 weight blocks of every row (B * 4.1 KB,
-// 135 KB at B = 32), laid out so that lane l reads 8-element group l of an
-// 8-block sub-chunk as two conflict-free float4.  Lane l holds word l%4 of
-// block l/4 of the sub-chunk for TWO output rows (a coalesced 128-byte read
-// per row and warp), unpacks them to registers once, and dots them against
-// all B rows (a compile-time row count R in {2, 4, 8, 16, 32}, rows >= B
-// skipped): each x value read from shared memory feeds two products (2
-// bytes a product, against 4 with one output row per lane).  A chunk's
-// weight words are read before its x is staged, so the two sets of reads
-// overlap; the staging reads 16 floats a thread before it stores any, with
-// no integer division (one L2 round trip per element, or a division per
-// element, each cost about as much as the products at B = 8).  Each lane's
-// 8-element partial is scaled by its block's d; a warp reduction per output
-// row and x row finishes each output.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -642,11 +632,6 @@ cudaError_t launch_multi(const uint8_t* qs, const float* dw, const int8_t* xq, c
 // f32 activations
 // ---------------------------------------------------------------------------
 
-constexpr int F32_CHUNK = 32;             // weight blocks of a staged chunk (multi-row)
-constexpr int F32_GROUP_STRIDE = 132;     // 8-element groups of a staged chunk (128) + 4
-constexpr int MULTI_F32_ROWS = 2;         // output rows a lane holds (multi-row)
-constexpr int MULTI_F32_WARPS = 8;        // warps per block (multi-row): 16 output rows
-
 // Byte m of v (a value 0..15 per byte) as a float minus `bias`, exactly:
 // 0x4B0000nn is the float 2^23 + nn.
 __device__ __forceinline__ float nib_f(uint32_t v, int m, float bias) {
@@ -768,126 +753,6 @@ q4_1_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float2* __restrict_
   }
 }
 
-constexpr int STAGE_ROWS = 4;  // x rows a staging step reads at once
-constexpr int STAGE_ELEMS = F32_CHUNK * QK / (MULTI_F32_WARPS * 32);  // a thread's elements of a chunk row
-static_assert(STAGE_ELEMS * MULTI_F32_WARPS * 32 == F32_CHUNK * QK, "a block stages a chunk row in one step");
-
-// Elements [c0*32, (c0+cb)*32) of rows r < B of x [B][in_dim] into the
-// multi-row stage: element e of a row's range (8-element group g = e/8,
-// half h = (e%8)/4) lands in xs[(r*2 + h) * F32_GROUP_STRIDE + g], so that
-// lane l, on group l of an 8-block sub-chunk, reads consecutive float4.
-// Each step reads STAGE_ELEMS elements of STAGE_ROWS rows (16 reads in
-// flight a thread, no integer division) before storing any;
-// F32_GROUP_STRIDE = 16 (mod 32) words keeps the stores conflict-free.
-__device__ __forceinline__ void stage_groups(const float* __restrict__ x, int in_dim, int c0, int cb, int B,
-                                             float4* xs) {
-  float* xf = reinterpret_cast<float*>(xs);
-  const int per = cb * QK;
-  const float* xc = x + c0 * QK;
-  for (int r0 = 0; r0 < B; r0 += STAGE_ROWS) {
-    float v[STAGE_ROWS][STAGE_ELEMS];
-#pragma unroll
-    for (int rr = 0; rr < STAGE_ROWS; ++rr)
-#pragma unroll
-      for (int u = 0; u < STAGE_ELEMS; ++u) {
-        const int e = threadIdx.x + u * blockDim.x;
-        v[rr][u] = r0 + rr < B && e < per ? __ldg(xc + static_cast<size_t>(r0 + rr) * in_dim + e) : 0.0f;
-      }
-#pragma unroll
-    for (int rr = 0; rr < STAGE_ROWS; ++rr)
-#pragma unroll
-      for (int u = 0; u < STAGE_ELEMS; ++u) {
-        const int e = threadIdx.x + u * blockDim.x;
-        if (r0 + rr < B && e < per)
-          xf[(((r0 + rr) * 2 + ((e >> 2) & 1)) * F32_GROUP_STRIDE + (e >> 3)) * 4 + (e & 3)] = v[rr][u];
-      }
-  }
-}
-
-// qs [out][nb*16] u8, dw [out][nb] f32, x [B][nb*32] f32 -> y [B][out] f32;
-// R >= B accumulators per output row per lane
-template <int R>
-__global__ void __launch_bounds__(MULTI_F32_WARPS * 32, 2)
-q4_0_matmul_multi_f32_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
-                             const float* __restrict__ x, float* __restrict__ y, int out, int nb, int B) {
-  extern __shared__ float4 xs[];  // [B][2][F32_GROUP_STRIDE]: the chunk's 8-element groups of every row
-  const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * MULTI_F32_WARPS + (threadIdx.x >> 5)) * MULTI_F32_ROWS;
-  const int sub = lane >> 2, word = lane & 3;  // the lane's block of an 8-block sub-chunk, its word there
-  const uint32_t* wq[MULTI_F32_ROWS];
-  const float* wd[MULTI_F32_ROWS];
-  bool live[MULTI_F32_ROWS];  // rows past `out`: zero weights, nothing stored; the warp still stages
-#pragma unroll
-  for (int o = 0; o < MULTI_F32_ROWS; ++o) {
-    live[o] = row0 + o < out;
-    const size_t row = live[o] ? static_cast<size_t>(row0 + o) : 0;
-    wq[o] = reinterpret_cast<const uint32_t*>(qs + row * nb * 16);
-    wd[o] = dw + row * nb;
-  }
-  float acc[MULTI_F32_ROWS][R];
-#pragma unroll
-  for (int o = 0; o < MULTI_F32_ROWS; ++o)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[o][r] = 0.0f;
-  for (int c0 = 0; c0 < nb; c0 += F32_CHUNK) {
-    const int cb = min(F32_CHUNK, nb - c0);
-    // this chunk's weight words and scales, loaded before the stage so that
-    // both sets of reads are in flight together
-    uint32_t wv[F32_CHUNK / 8][MULTI_F32_ROWS];
-    float dv[F32_CHUNK / 8][MULTI_F32_ROWS];
-#pragma unroll
-    for (int k = 0; k < F32_CHUNK / 8; ++k) {
-      const int b = c0 + 8 * k + sub;
-#pragma unroll
-      for (int o = 0; o < MULTI_F32_ROWS; ++o) {
-        const bool ok = live[o] && b < nb;
-        wv[k][o] = ok ? __ldg(wq[o] + b * 4 + word) : 0u;
-        dv[k][o] = ok ? __ldg(wd[o] + b) : 0.0f;
-      }
-    }
-    __syncthreads();  // every warp is done with the previous chunk
-    stage_groups(x, nb * QK, c0, cb, B, xs);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < F32_CHUNK / 8; ++k) {
-      if (8 * k + sub < cb) {  // the ragged end of the row: staged x ends there
-        float wf[MULTI_F32_ROWS][8];
-#pragma unroll
-        for (int o = 0; o < MULTI_F32_ROWS; ++o) unpack_word(wv[k][o], 8.0f, wf[o]);
-        const float4* xg = xs + 32 * k + lane;  // group 32k + lane of the chunk
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < B) {
-            const float4 a = xg[(2 * r) * F32_GROUP_STRIDE], b = xg[(2 * r + 1) * F32_GROUP_STRIDE];
-#pragma unroll
-            for (int o = 0; o < MULTI_F32_ROWS; ++o) {
-              float t = wf[o][0] * a.x;
-              t = fmaf(wf[o][1], a.y, t);
-              t = fmaf(wf[o][2], a.z, t);
-              t = fmaf(wf[o][3], a.w, t);
-              t = fmaf(wf[o][4], b.x, t);
-              t = fmaf(wf[o][5], b.y, t);
-              t = fmaf(wf[o][6], b.z, t);
-              t = fmaf(wf[o][7], b.w, t);
-              acc[o][r] = fmaf(dv[k][o], t, acc[o][r]);
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < B) {
-#pragma unroll
-      for (int o = 0; o < MULTI_F32_ROWS; ++o) {
-        const float v = warp_sum_f(acc[o][r]);
-        if (live[o] && lane == 0) y[static_cast<size_t>(r) * out + row0 + o] = v;
-      }
-    }
-  }
-}
-
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB the
 // default refuses the launch).
 template <typename K>
@@ -1003,39 +868,4 @@ extern "C" int q4_1_matvec_f32(const void* qs, const void* dm, const void* x, vo
       static_cast<const uint8_t*>(qs), static_cast<const float2*>(dm), static_cast<const float*>(x),
       static_cast<float*>(y), out, nb, stride);
   return static_cast<int>(cudaGetLastError());
-}
-
-namespace {
-template <int R>
-cudaError_t launch_multi_f32(const void* qs, const void* dw, const void* x, void* y, int out, int nb, int B,
-                             cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(B) * 2 * F32_GROUP_STRIDE * sizeof(float4);
-  const int rows = MULTI_F32_WARPS * MULTI_F32_ROWS;  // output rows per block
-  cudaError_t err = allow_smem(q4_0_matmul_multi_f32_kernel<R>, smem);
-  if (err != cudaSuccess) return err;
-  q4_0_matmul_multi_f32_kernel<R><<<(out + rows - 1) / rows, MULTI_F32_WARPS * 32, smem, s>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const float*>(dw), static_cast<const float*>(x),
-      static_cast<float*>(y), out, nb, B);
-  return cudaGetLastError();
-}
-}  // namespace
-
-// f32 activations, B rows (1..32) of x [B, in] against one Q4_0 weight; y is [B, out].
-extern "C" int q4_0_matmul_multi_f32(const void* qs, const void* dw, const void* x, void* y, int out, int in_dim,
-                                     int B, void* stream) {
-  const int nb = in_dim / QK;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (B < 1 || B > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 2)
-    err = launch_multi_f32<2>(qs, dw, x, y, out, nb, B, s);
-  else if (B <= 4)
-    err = launch_multi_f32<4>(qs, dw, x, y, out, nb, B, s);
-  else if (B <= 8)
-    err = launch_multi_f32<8>(qs, dw, x, y, out, nb, B, s);
-  else if (B <= 16)
-    err = launch_multi_f32<16>(qs, dw, x, y, out, nb, B, s);
-  else
-    err = launch_multi_f32<32>(qs, dw, x, y, out, nb, B, s);
-  return static_cast<int>(err);
 }

@@ -38,7 +38,6 @@ SOURCES = {
         "q4_1_matvec": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "q4_0_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "q4_1_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-        "q4_0_matmul_multi_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
     "flash_decode": {
         "flash_decode": [ctypes.c_void_p] * 6
@@ -55,7 +54,8 @@ SOURCES = {
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     },
     "q4_matmul_t": {
-        "q4_0_matmul_t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "q4_0_f32_mma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "q4_0_f32_mma_smem_bytes": [ctypes.c_int],
     },
     "q4_int_mma": {
         "q4_0_int_matmul": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],

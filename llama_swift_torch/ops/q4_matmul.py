@@ -31,8 +31,12 @@ count of its own here (:func:`q4_0_t_matmul_multi`).
 
 **Numerics.**  The phase kernel: ``y = x · deq(W)ᵀ`` in f32, each weight
 ``(n − 8)·d`` with one rounding; activations are fake-quantized by the
-caller when the model quantizes them, as in the JAX package.  The integer
-and multi-row kernels: ``y = Σ_b d_w·d_x·(P − 8·S)`` with exact integer
+caller when the model quantizes them, as in the JAX package.  Its CUDA
+counterpart (``csrc/q4_f32_mma.cuh``, shared with the f32-activation
+multi-row product) takes each 32-block's dot from exact products of the
+bf16 nibbles and an exact three-way bf16 split of x on the tensor cores,
+then scales it by ``d``: within 2^-24 of each term of the plain version.
+The integer and multi-row kernels: ``y = Σ_b d_w·d_x·(P − 8·S)`` with exact integer
 block dots ``P`` of the 4-bit codes (``ggml_vec_dot_q4_0``); with f32 rows
 the multi-row product takes ``Σ_b d_w·Σ_i (n − 8)·x_i``.
 """
@@ -51,6 +55,7 @@ from .q4_matvec import (
     Q4_0Weight,
     _check_weight,
     _check_x,
+    _launch_f32_mma,
     _launch_q4_0_matmul_multi,
     _launch_q4_0_matmul_multi_f32,
     _launch_q4_0_matvec,
@@ -161,10 +166,7 @@ def q4_0_matmul_t(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     _check_x(x, (n, in_dim), "q4_0_matmul_t")
     if not 1 <= n <= MAX_PHASE_KERNEL_ROWS:
         raise ValueError(f"q4_0_matmul_t: {n} rows, the kernel takes 1..{MAX_PHASE_KERNEL_ROWS}")
-    y = torch.empty((n, out), dtype=torch.float32, device=x.device)
-    code = build.lib("q4_matmul_t").q4_0_matmul_t(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, n, _stream(x))
-    build.check(code, "q4_0_matmul_t")
+    y = _launch_f32_mma(x, w, n, "q4_0_matmul_t")
     q4_0_matmul_t.launches += 1
     return y
 

@@ -38,13 +38,17 @@ rows, each with a kernel of its own and a launch counter of its own
 :func:`q4_0_matmul_multi_f32`): Q4_0 ``y = Σ_b d_b·Σ_i (n_i − 8)·x_i``, Q4_1
 ``y = Σ_b d_b·Σ_i n_i·x_i + m_b·Σ_i x_i``.  The TPU kernels compute them with
 ``_prep_inputs*(quantize_acts=False)`` (``d_x = 1``, ``8·Σx`` as the
-correction); the sums are equal up to reassociation.
+correction); the sums are equal up to reassociation.  The multi-row kernel
+takes the block dots on the bf16 tensor cores from exact products (the
+nibbles and three bf16 pieces of x, ``csrc/q4_f32_mma.cuh``), cut by
+:func:`f32_mma_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -376,8 +380,133 @@ def multi_plan(out: int, in_dim: int, B: int, sms: int = 132) -> MultiPlan:
     return MultiPlan(np=np_, splits=splits, tiles=tiles, chunks=chunks, smem=smem, blocks_per_sm=per_sm)
 
 
+#: the f32-activation products' tiling on the bf16 tensor cores
+#: (``FM_*`` in ``csrc/q4_f32_mma.cuh``): output rows a block, consumer
+#: warps, the staged row counts (2: one or two rows, their three pieces as
+#: MMA columns) and the ring's barrier bytes
+F32_MMA_TILE_ROWS, F32_MMA_CONSUMERS = 64, 8
+F32_MMA_NP = (2, 8, 16, 32, 48, 64)
+F32_MMA_BAR_BYTES = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class F32MmaPlan:
+    """How one call of the f32-activation tensor-core product
+    (``q4_0_matmul_multi_f32``, ``q4_0_matmul_t``) is cut: ``rows`` staged
+    as ``np`` rows (2: one or two rows whose three bf16 pieces are MMA
+    columns; else rows padded to 8, 16, 32, 48 or 64); ``cols`` MMA
+    columns, each consumer warp on one block (two at 1 or 2 rows) of every
+    chunk of ``kc`` weight blocks; ``tiles`` tiles of
+    ``F32_MMA_TILE_ROWS`` output rows of
+    ``chunks`` chunks each, and clusters of ``cluster`` blocks that share
+    ``cluster_tiles`` tiles' (tile, chunk) units in contiguous ranges
+    (``unit_ranges``); a ring of ``stages`` stages of ``stage_bytes`` after
+    ``flush_bytes`` that keep a block's first tile's sums; ``smem`` bytes
+    of shared memory a block, ``blocks_per_sm`` of them on an SM."""
+
+    np: int
+    cols: int
+    kc: int
+    stage_bytes: int
+    flush_bytes: int
+    stages: int
+    smem: int
+    blocks_per_sm: int
+    cluster: int
+    cluster_tiles: int
+    tiles: int
+    chunks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * -(-self.tiles // self.cluster_tiles)
+
+    def unit_ranges(self, tiles: int = None) -> list:
+        """The units [u0, u1) of each block of a cluster of ``tiles`` tiles
+        (the last cluster may hold fewer), unit u = tile · chunks + chunk."""
+        tiles = self.cluster_tiles if tiles is None else tiles
+        units = tiles * self.chunks
+        return [(r * units // self.cluster, (r + 1) * units // self.cluster) for r in range(self.cluster)]
+
+    @property
+    def partial_bytes(self) -> int:
+        """Bytes of the partial sums that the ring takes at the end: the
+        consumer warps' [warps of a group][cols][64] and, in a tile's owner,
+        the [cluster][np][64] of the blocks that hold its units."""
+        warps = F32_MMA_CONSUMERS // (1 if self.cols <= 16 else 2)
+        return (warps * self.cols + self.cluster * self.np) * F32_MMA_TILE_ROWS * 4
+
+
+def _f32_mma_clusters(np_: int, tiles: int, chunks: int, sms: int, per_sm: int) -> tuple:
+    """(cluster, cluster_tiles): the shares of the tiles' units that leave
+    the least work on the busiest SM, ``ceil(blocks / sms) · T / C`` tiles'
+    worth, with ties to fewer blocks, then smaller clusters.  Up to 8 rows
+    a cluster of C = 2 or 4 blocks shares T <= C tiles, where the blocks
+    fill at most 90 % of the slots, so that all clusters are resident at
+    once (clusters of 3, or 64 clusters of 4 in 264 slots, measured
+    slower); beyond, a cluster of 2 splits one tile.  A block then owns at
+    most one tile and its units lie in at most two.  Every block has a unit.  Up to 8 rows
+    172 tiles (11008 outputs) take C = 4, T = 3 (232 blocks, 3/4 of a tile
+    each), 64 (4096) C = 2, T = 1; 500 (32000) take one tile a block."""
+    options = []
+    for c in (1, 2, 4) if np_ <= 8 else (1, 2):
+        for t in range(1, (c if np_ <= 8 else 1) + 1):
+            last = tiles - (-(-tiles // t) - 1) * t
+            blocks = c * -(-tiles // t)
+            if last * chunks < c or (np_ <= 8 and c > 1 and blocks > 0.9 * sms * per_sm):
+                continue
+            options.append(((-(-blocks // sms)) * t / c, blocks, c, t))
+    best = min(options)
+    return best[2], best[3]
+
+
+@functools.lru_cache(maxsize=None)
+def f32_mma_plan(out: int, in_dim: int, rows: int, sms: int = 132) -> F32MmaPlan:
+    """The launch plan of the f32-activation tensor-core product for
+    ``rows`` (1..64) rows against an ``[out, in_dim]`` weight on a card of
+    ``sms`` SMs; the CUDA source computes the same shared memory
+    (``q4_0_f32_mma_smem_bytes``).  Up to 8 rows two blocks share an SM,
+    from 9 rows one (its registers); up to 32 rows the ring takes as many
+    stages, at most 8, as half an SM's shared memory holds, beyond as a
+    block's whole.  Cached: a model asks for a few shapes, each hundreds of
+    times a step."""
+    if not 1 <= rows <= F32_MMA_NP[-1] or in_dim % QK or in_dim < QK or out < 1:
+        raise ValueError(f"f32_mma_plan: {rows} rows of {in_dim} against {out} outputs is no such product")
+    np_ = next(p for p in F32_MMA_NP if rows <= p)
+    cols = 8 if np_ == 2 else np_
+    kg = F32_MMA_CONSUMERS // (1 if cols <= 16 else 2)  # consumer warps on a group of n-tiles
+    kc = kg * (2 if np_ == 2 else 1)  # two blocks a warp at 1 or 2 rows
+    per_sm = 2 if np_ <= 8 else 1
+    flush = kg * cols * F32_MMA_TILE_ROWS * 4 if np_ <= 8 else 0
+    dstride = kc + (8 if kc == 4 else 4)
+    stage = F32_MMA_TILE_ROWS * (kc * 16 + 16) + F32_MMA_TILE_ROWS * dstride * 4 + np_ * (kc * 128 + 16)
+    budget = (SMEM_PER_SM // 2 - 1024 if np_ <= 32 else SMEM_PER_BLOCK) - F32_MMA_BAR_BYTES - flush
+    stages = min(8, budget // stage)
+    tiles = -(-out // F32_MMA_TILE_ROWS)
+    chunks = -(-(in_dim // QK) // kc)
+    cluster, cluster_tiles = _f32_mma_clusters(np_, tiles, chunks, sms, per_sm)
+    return F32MmaPlan(np=np_, cols=cols, kc=kc, stage_bytes=stage, flush_bytes=flush, stages=stages,
+                      smem=F32_MMA_BAR_BYTES + flush + stages * stage, blocks_per_sm=per_sm, cluster=cluster,
+                      cluster_tiles=cluster_tiles, tiles=tiles, chunks=chunks)
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_f32_mma(x: torch.Tensor, w: Q4_0Weight, rows: int, what: str) -> torch.Tensor:
+    """Launch the f32-activation tensor-core product (``csrc/q4_f32_mma.cuh``
+    through ``q4_matmul_t.cu``'s entry) for ``rows`` checked rows of x; no
+    count: each wrapper counts its own launches."""
+    out, in_dim = w.shape
+    plan = f32_mma_plan(out, in_dim, rows, _sm_count(x.device))
+    y = torch.empty((rows, out), dtype=torch.float32, device=x.device)
+    code = build.lib("q4_matmul_t").q4_0_f32_mma(
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, rows, plan.cluster,
+        plan.cluster_tiles, _stream(x))
+    build.check(code, what)
+    return y
 
 
 def q4_0_matmul_multi_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
@@ -403,11 +532,7 @@ def _launch_q4_0_matmul_multi_f32(x: torch.Tensor, w: Q4_0Weight, what: str) -> 
     _check_x(x, (B, in_dim), what)
     if not 1 <= B <= MAX_MULTI_ROWS:
         raise ValueError(f"{what}: {B} rows, the kernel takes 1..{MAX_MULTI_ROWS}")
-    y = torch.empty((B, out), dtype=torch.float32, device=x.device)
-    code = build.lib("q4_matvec").q4_0_matmul_multi_f32(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, B, _stream(x))
-    build.check(code, what)
-    return y
+    return _launch_f32_mma(x, w, B, what)
 
 
 def q4_0_matmul_multi(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> torch.Tensor:

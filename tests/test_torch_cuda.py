@@ -11,7 +11,10 @@ layout's integer products on both sides of the 8-row MMA tiles and of the
 combines through a cluster and the whole-stack kernel through arrival
 counters; the six flash kernels at head dims that are no multiple of 32;
 both dequants bit-exact and the multi-row product at the 7B, 13B and 65B
-shapes, the latter with exact half-step ties in every row's codes).
+shapes, the latter with exact half-step ties in every row's codes; the two
+f32-activation products on the bf16 tensor cores at those shapes, at every
+row count, with one-hot x for their K order, repeated bit for bit, with x
+off 16-byte alignment and at every share of tiles over a cluster).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -960,3 +963,179 @@ def test_multi_plan_smem_matches_the_kernel(cuda):
     lib = build.lib("q4_matvec")
     for B in range(1, mv.MAX_MULTI_ROWS + 1):
         assert lib.q4_0_matmul_multi_smem_bytes(B) == mv.multi_plan(4096, 4096, B).smem
+
+
+# The two f32-activation Q4_0 products on the bf16 tensor cores (rows 6f and
+# 10: csrc/q4_f32_mma.cuh), within 1e-5 of max |y| of their plain versions:
+# at the 7B shapes and at 13B and 65B matrices (in-dims 13824 and 22016), at
+# every row count each wrapper takes, with one-hot x that catches a K order
+# of the fragments that differs from the staged x's, a second launch
+# bit-equal to the first, x off 16-byte alignment, and clusters whose blocks
+# have one chunk each.
+
+
+def _f32_product(kind):
+    """(wrapper, plain version, launch counter holder, largest row count)."""
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    if kind == "multi_f32":
+        return mv.q4_0_matmul_multi_f32, mv.q4_0_matmul_multi_f32_plain, mv.q4_0_matmul_multi_f32, 32
+    return qm.q4_0_matmul_t, qm.q4_0_matmul_t_plain, qm.q4_0_matmul_t, 64
+
+
+def _t_weight(kind, w):
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    return qm.Q4_0WeightT(w.qs, w.d) if kind == "t" else w
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 17, 32, 33, 64])
+@pytest.mark.parametrize("out,in_dim", [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096),
+                                        (5120, 13824), (22016, 8192), (8192, 22016)])
+def test_f32_mma_products_at_llama_shapes(cuda, kind, rows, out, in_dim):
+    """Both products on a stacked layer's views at LLaMA shapes (4096 and
+    5120 outputs: a cluster of 2 splits each tile's in-dim; 22016 in: the
+    65B FFN, beyond the f32 matvecs' cap); one counted launch a call."""
+    fn, plain, counter, max_rows = _f32_product(kind)
+    if rows > max_rows:
+        pytest.skip(f"the {kind} product takes 1..{max_rows} rows")
+    w, g = _stacked_weight("q4_0", out, in_dim, cuda, seed=rows)
+    w = _t_weight(kind, w)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    before = counter.launches
+    y = fn(x, w)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert y.shape == (rows, out)
+    assert _rel(y, plain(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+@pytest.mark.parametrize("out,in_dim", [(77, 352), (1000, 4096), (130, 13824)])
+def test_f32_mma_products_at_every_row_count(cuda, kind, out, in_dim):
+    """Every row count the wrapper takes, ragged ones included (B or N not a
+    multiple of 8; 352 inputs: 11 blocks, a ragged last chunk and scale
+    rows off 16-byte alignment; out not a multiple of the 64-row tile)."""
+    fn, plain, _, max_rows = _f32_product(kind)
+    w, g = _q4(out, in_dim, cuda, seed=out)
+    w = _t_weight(kind, w)
+    xs = torch.randn((max_rows, in_dim), device=cuda, generator=g)
+    for rows in range(1, max_rows + 1):
+        x = xs[:rows]
+        assert _rel(fn(x, w), plain(x, w)) <= 1e-5, rows
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+@pytest.mark.parametrize("rows", [1, 2, 0])
+@pytest.mark.parametrize("out,in_dim", [(64, 256), (300, 4096)])
+def test_f32_mma_k_order_one_hot(cuda, kind, rows, out, in_dim):
+    """Row r of x is one-hot at element r % 32 of block r // 32 (with a
+    value that needs all three bf16 pieces): y[r, o] is then d[o, b] * (n -
+    8) * v for one weight, so a fragment whose K order differs from the
+    staged x's gives a wrong weight, not a rounding error; both sides are
+    exact, so the results are equal.  One and two rows take the launch
+    whose MMA columns are the three pieces of each row; 0 stands for the
+    wrapper's largest row count."""
+    fn, plain, _, max_rows = _f32_product(kind)
+    max_rows = rows or max_rows
+    w, _ = _q4(out, in_dim, cuda, seed=7)
+    # scales of 8 significant bits: (n - 8) * d is exact, so the T plain
+    # version's weight rounds nothing and each side rounds d * (n - 8) * v once
+    w = _t_weight(kind, mv.Q4_0Weight(w.qs, w.d.to(torch.bfloat16).float()))
+    v = 1.0 + 2.0**-9 + 2.0**-20  # bits in all three pieces
+    for r0 in range(0, 64, max_rows):
+        x = torch.zeros((max_rows, in_dim), device=cuda)
+        for r in range(max_rows):
+            x[r, (r0 + r) % 64] = v * (-1.0) ** r
+        assert torch.equal(fn(x, w), plain(x, w)), r0
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+@pytest.mark.parametrize("rows", [1, 8, 32, 64])
+def test_f32_mma_second_launch_bit_equal(cuda, kind, rows):
+    """The partial sums of a cluster meet in a fixed order: a second launch
+    gives the same bits (4096 outputs: a cluster of 2)."""
+    fn, _, _, max_rows = _f32_product(kind)
+    rows = min(rows, max_rows)
+    w, g = _q4(4096, 4096, cuda, seed=rows)
+    w = _t_weight(kind, w)
+    x = torch.randn((rows, 4096), device=cuda, generator=g)
+    assert torch.equal(fn(x, w), fn(x, w))
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+@pytest.mark.parametrize("rows,in_dim", [(1, 1024), (2, 544), (8, 512), (8, 288), (32, 256), (64, 160)])
+def test_f32_mma_clusters_with_one_chunk_a_block(cuda, kind, rows, in_dim):
+    """In-dims with exactly as many chunks as the cluster's 2 blocks (16, 8
+    or 4 weight blocks a chunk), the second one ragged in three cases."""
+    fn, plain, _, max_rows = _f32_product(kind)
+    rows = min(rows, max_rows)
+    plan = mv.f32_mma_plan(100, in_dim, rows)
+    assert (plan.cluster, plan.cluster_tiles, plan.chunks) == (2, 1, 2)
+    w, g = _q4(100, in_dim, cuda, seed=in_dim)
+    w = _t_weight(kind, w)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    assert _rel(fn(x, w), plain(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+def test_f32_mma_unaligned_x(cuda, kind):
+    """x whose rows start off 16-byte alignment (a view at one float's
+    offset) takes 4-byte copies and gives the same result."""
+    fn, plain, _, _ = _f32_product(kind)
+    w, g = _q4(300, 4096, cuda, seed=3)
+    w = _t_weight(kind, w)
+    buf = torch.randn(8 * 4096 + 1, device=cuda, generator=g)
+    x = buf[1:].view(8, 4096)
+    assert x.data_ptr() % 16
+    y = fn(x, w)
+    assert torch.equal(y, fn(x.clone(), w))
+    assert _rel(y, plain(x, w)) <= 1e-5
+
+
+def test_f32_mma_plan_smem_matches_the_kernels(cuda):
+    from llama_swift_torch.ops import build
+
+    query = build.lib("q4_matmul_t").q4_0_f32_mma_smem_bytes
+    for rows in range(1, 65):
+        assert query(rows) == mv.f32_mma_plan(4096, 4096, rows).smem, rows
+
+
+@pytest.mark.parametrize("kind", ["multi_f32", "t"])
+@pytest.mark.parametrize("rows", [1, 8, 9])
+def test_f32_mma_every_cluster_share(cuda, kind, rows):
+    """Every share of tiles over a cluster that the launcher takes (C <= 4
+    blocks on T <= C tiles; beyond 8 rows C <= 2 and T = 1), on
+    7 tiles (the last cluster short) of 22 blocks (a ragged last chunk): a
+    block's units end one tile and begin the next; against each wrapper's
+    plain version, the same bits on a second launch, and refused shares."""
+    from llama_swift_torch.ops import build
+
+    fn, plain, _, _ = _f32_product(kind)
+    launch_c = build.lib("q4_matmul_t").q4_0_f32_mma  # the one C entry of both wrappers
+    out, in_dim = 420, 704
+    w, g = _q4(out, in_dim, cuda, seed=rows)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    ref = plain(x, w)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(c, t):
+        y = torch.full((rows, out), float("nan"), device=cuda)
+        code = launch_c(w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, rows, c, t,
+                        stream)
+        return code, y
+
+    chunks, tiles = mv.f32_mma_plan(out, in_dim, rows).chunks, -(-out // 64)
+    shares = [(c, t) for c in range(1, 5) for t in range(1, c + 1)]
+    for c, t in shares:
+        code, y = launch(c, t)
+        last = tiles - (-(-tiles // t) - 1) * t  # the tiles of the last cluster: a unit for each block
+        legal = (t == 1 and c <= 2 if rows > 8 else True) and last * chunks >= c
+        if not legal:
+            assert code != 0, (c, t)
+            continue
+        assert code == 0, (c, t)
+        assert _rel(y, ref) <= 1e-5, (c, t)
+        assert torch.equal(y, launch(c, t)[1]), (c, t)
+    assert launch(5, 1)[0] != 0 and launch(2, 3)[0] != 0 and launch(1, 2)[0] != 0
