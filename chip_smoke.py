@@ -35,7 +35,12 @@ Phases:
    layout's product (``q4_0_matmul_t``) at the four matvec shapes with
    N = 1, 8, 33, 64, beside the same pair; the stream probe
    (``stream_probe``) at kernelbench's five shapes, every row bit-equal,
-   beside ``torch.sum(words, dtype=int32)``;
+   beside ``torch.sum(words, dtype=int32)``; the paged kernels (one
+   launch a call, from a profiler window) also at B = 16 and at n_ctx
+   2048 (pages of 128 and 16); a checksum (``bits``) of the outputs of
+   batch-1 flash decode, the whole-stack kernel, the int8 flash kernels
+   and the f32 Q4_0 matvec on their seeded inputs, so that an A/B call
+   (this script on two trees) shows where two kernels agree bit for bit;
 2b. the kernelbench path (``tools/kernelbench.main``, every variant at its
    five shapes; see ``run_kernelbench``): the stream probe's launches come
    from here, with each product's GB/s against the probe's on its shape;
@@ -84,13 +89,16 @@ Phases:
    and read after each wave, and checked against 225 multi-row matmul and
    32 flash launches of the wave's kernel per engine decode step, 225
    dequant launches per prefill chunk, and no other launch; every stream
-   completes and every page comes back;
+   completes and every page comes back; then profiled 8-step windows of
+   waves B's and D's engine step with the paged kernel's device time a
+   step (``profile_paged_steps``);
 4c. f32 activations on the same params (``serve_f32_acts``): one runner
    request with ``quantize_activations = False`` (225 f32-activation matvec
    launches a token, 225 dequant a prefill) and wave G, wave A's shape
    (225 f32-activation multi-row launches a step), each with a profiled
-   window for its idle share (the engine step's with the device time of
-   its f32-activation multi-row products); then a seeded ``rng_impl="mt19937"``
+   window for its idle share and the device time a step of its
+   f32-activation products (the matvec's, the multi-row ones'); then a
+   seeded ``rng_impl="mt19937"``
    host-sampled request twice: the same tokens, through the native sampler;
 4d. on the fused params: two requests through ``LlamaRunner`` (greedy on an
    f32 cache, sampled on a bf16 cache), each decoded token exactly one
@@ -144,6 +152,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -171,6 +180,8 @@ MULTI_ROWS = 8  # the engine's slots
 MULTI_ROWS_TIMED = [2, 8, 16, 32]  # row 6, each beside row 12 on the same inputs
 BATCHED_NPASTS = [0, 63, 64, 127, 200, 311, 511, 5]  # per slot, at n_ctx 512
 BATCHED_NPASTS_16 = BATCHED_NPASTS + [31, 400, 256, 1, 450, 99, 64, 383]  # wave C's 16 slots
+PAGED_NPASTS_2048 = [0, 255, 256, 511, 800, 1244, 2047, 20]  # B = 8 at LLaMA's context, a slot at its last key
+F32_WIDE = [(5120, 13824), (8192, 22016)]  # row 1f at the in-dims of 13B's and 65B's n_ff
 STALE_CODE, STALE_SCALE = 127, 1e3  # int8 rows beyond n_past: never to be attended
 PROMPTS = [
     "The rain in Spain stays mainly in the plain",
@@ -235,13 +246,35 @@ def launches_per_call(torch, fn, calls: int = 4, windows: int = 3) -> float:
         n = sum(kernels.values())
         per_call = n / calls
         log({"case": "launches_window", "calls": calls, "kernels": kernels})
-        if n % calls == 0:
+        if n and n % calls == 0:  # an empty window lost its records too
             break
     return per_call
 
 
 def rel_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def bits(*tensors) -> str:
+    """A checksum of the tensors' bits: two trees' kernels on the same
+    seeded inputs (an A/B call runs this script on both) agree bit for bit
+    where it agrees."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        a = t.detach().contiguous().cpu()
+        if a.element_size() == 2:  # bf16 has no numpy type
+            a = a.view(torch.int16)
+        h.update(a.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def plan_record(module, name: str, *args):
+    """The launch plan ``module.name(*args)`` as a dict, or None where the
+    package under test has no such plan (an older tree in an A/B call)."""
+    fn = getattr(module, name, None)
+    return dataclasses.asdict(fn(*args)) if fn else None
 
 
 # ---------------------------------------------------------------------------
@@ -486,8 +519,10 @@ def host_us(torch, fn, iters: int = 200) -> float:
 def check_f32_kernels(torch, g, summary) -> list:
     """The three f32-activation kernels (the Q4_0 and Q4_1 matvecs and the
     Q4_0 multi-row matmul on unquantized rows) against their plain versions
-    at ``F32_SHAPES`` (the multi-row kernel at B in ``F32_MULTI_ROWS``),
-    within 1e-5 of max |y|.  Beside kernel, plain and bound times, the
+    at ``F32_SHAPES`` (the multi-row kernel at B in ``F32_MULTI_ROWS``; the
+    Q4_0 matvec also at ``F32_WIDE``, a second launch bit-equal, its
+    output's ``bits`` and its plan logged), within 1e-5 of max |y|.
+    Beside kernel, plain and bound times, the
     dequant + ``torch.matmul`` pair that these kernels replace on this path
     is timed as ``replaced_ms`` (no single PyTorch call computes the
     function, so ``library_ms`` is None).  The matvecs' bound is the larger
@@ -498,12 +533,12 @@ def check_f32_kernels(torch, g, summary) -> list:
 
     failed = []
     for q41 in (False, True):
-        for out, in_dim in F32_SHAPES:
+        for out, in_dim in F32_SHAPES + ([] if q41 else F32_WIDE):
             wbytes = out * in_dim // 2 + out * (in_dim // 32) * (8 if q41 else 4)
             n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
             w = (rand_q4_1 if q41 else rand_q4)(torch, g, n, out, in_dim)
             deq = dq.q4_1_dequant if q41 else dq.q4_0_dequant
-            for rows in [1] if q41 else [1] + F32_MULTI_ROWS:
+            for rows in [1] if q41 or (out, in_dim) in F32_WIDE else [1] + F32_MULTI_ROWS:
                 x = torch.randn((rows, in_dim), device="cuda", generator=g)
                 xr = x[0] if rows == 1 else x
                 if q41:
@@ -531,6 +566,11 @@ def check_f32_kernels(torch, g, summary) -> list:
                         "library_ms": None, "ok": err <= 1e-5}
                 if name == "q4_0_matmul_multi_f32":
                     case.update(tensor_bound(rows, out, in_dim, t_bytes, t_f32), host_us=host_us(torch, fn))
+                if name == "q4_0_matvec_f32":  # the persistent grid: the earlier kernel's sums, bit for bit
+                    case.update(bits=bits(y), repeat_bit_equal=bool(torch.equal(y, fn(0))),
+                                plan=plan_record(mv, "matvec_f32_plan", out, in_dim,
+                                                 torch.cuda.get_device_properties(0).multi_processor_count))
+                    case["ok"] = case["ok"] and case["repeat_bit_equal"]
                 log(case)
                 if not case["ok"]:
                     failed.append(case)
@@ -880,7 +920,7 @@ def check_kernels(torch) -> dict:
             case = {"case": "flash_decode_attention", "cache": str(dtype).split(".")[-1],
                     "n_past": n_past, "max_rel_err": err, "max_abs_err": float((out - ref).abs().max()),
                     "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "library_ms": lib_ms,
-                    "ok": err <= 1e-5}
+                    "bits": bits(out), "ok": err <= 1e-5}
             log(case)
             if not case["ok"]:
                 failed.append(case)
@@ -909,7 +949,7 @@ def check_kernels(torch) -> dict:
             err = rel_err(out, att.flash_decode_attention_plain(q, kc, vc, 1, n_past))
             nbytes = 2 * H * (n_past + 1) * dh * kc.element_size() + 2 * H * dh * 4
             case = {"case": "flash_decode_attention", "cache": str(dtype).split(".")[-1], "n_ctx": n_ctx_l,
-                    "n_past": n_past, "max_rel_err": err,
+                    "n_past": n_past, "max_rel_err": err, "bits": bits(out),
                     "kernel_ms": time_ms(torch, lambda i: att.flash_decode_attention(q, kc, vc, i % L4, n_past), 200),
                     "library_ms": time_ms(torch, lambda i: sdpa(
                         q.to(dtype)[None, :, None, :], kc[i % L4, :, : n_past + 1][None],
@@ -973,6 +1013,11 @@ def check_kernels(torch) -> dict:
                     "kernel_ms": time_ms(torch, fn, 200), "plain_ms": time_ms(torch, plain, 20),
                     "bound_ms": bound, "library_ms": time_ms(torch, lib, 200) if lib else None,
                     "ok": err <= 1e-5}
+            if "paged" in name:  # one launch a call, the same bits on a second call
+                case.update(page=page, launches_per_call=launches_per_call(torch, fn),
+                            repeat_bit_equal=bool(torch.equal(out, fn(3))),
+                            plan=plan_record(att, "paged_plan", B, H, dh, elt, page, max_np + 1))
+                case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
             log(case)
             if not case["ok"]:
                 failed.append(case)
@@ -982,6 +1027,7 @@ def check_kernels(torch) -> dict:
         del kc, vc, kp, vp
 
     failed += check_int8_kernels(torch, g, summary)
+    failed += check_paged_kernels(torch, g)
     failed += check_fused_kernel(torch, g, summary)
     failed += check_q4_1_kernels(torch, g, summary)
     failed += check_f32_kernels(torch, g, summary)
@@ -1075,6 +1121,9 @@ def check_fused_kernel(torch, g, summary) -> list:
             vc[:, :, n_past:] = -1e4
             case = {"case": "fused_layers_block", "layers": L, "cache": str(dtype).split(".")[-1],
                     "n_past": n_past, **fused_case(x, norms, weights, kc, vc, n_past)}
+            # the kernel's run is in kc/vc: a call again writes the same rows
+            out = fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past)
+            case["bits"] = bits(out, kc[:, :, n_past], vc[:, :, n_past])
             case.update(
                 kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 20),
                 plain_ms=time_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past),
@@ -1095,6 +1144,8 @@ def check_fused_kernel(torch, g, summary) -> list:
         vc = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
         case = {"case": "fused_layers_block", "layers": L, "cache": str(dtype).split(".")[-1], "n_past": n_past,
                 **fused_case(x, norms, weights, kc, vc, n_past)}
+        out = fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past)
+        case["bits"] = bits(out, kc[:, :, n_past], vc[:, :, n_past])
         case.update(
             kernel_ms=time_ms(torch, lambda i: fl.fused_layers_block(x, *norms, *weights, kc, vc, n_past), 10),
             plain_ms=events_ms(torch, lambda i: fl.fused_layers_block_plain(x, *norms, *weights, kc, vc, n_past)),
@@ -1162,7 +1213,10 @@ def check_int8_kernels(torch, g, summary) -> list:
         err = rel_err(out, ref)
         case.update(max_rel_err=err, max_abs_err=float((out - ref).abs().max()),
                     kernel_ms=time_ms(torch, fn, 200), plain_ms=time_ms(torch, plain, 20),
-                    bound_ms=bound, library_ms=None, ok=err <= 1e-5)
+                    bound_ms=bound, library_ms=None, bits=bits(out), ok=err <= 1e-5)
+        if case["case"] == "flash_decode_attention_paged_int8":  # one launch a call
+            case.update(launches_per_call=launches_per_call(torch, fn), repeat_bit_equal=bool(torch.equal(out, fn(3))))
+            case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
         log(case)
         if not case["ok"]:
             failed.append(case)
@@ -1243,6 +1297,79 @@ def check_int8_kernels(torch, g, summary) -> list:
                     case, bound_by="bytes", shape=f"B{B} H{H} Dh{dh} n_ctx{n_ctx} int8 page{page}")
             del kp, vp, ksp, vsp
         del k8, ks, v8, vs
+    return failed
+
+
+def paged_pools(torch, g, dtype, n_list, n_ctx: int, page: int, L: int, H: int = 32, dh: int = 128):
+    """(q, pools, table, n_pasts) of slots at ``n_list`` on a pool of only
+    their live pages (and one spare), made from the seeded generator: a
+    shuffled table with garbage ids beyond each slot's live pages, stale
+    rows (f32/bf16: +-1e4; int8: code 127 and scale 1e3, by the port's
+    own write) beyond each n_past."""
+    B = len(n_list)
+    live = [n // page + 1 for n in n_list]
+    P = sum(live) + 1
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(page + B)).tolist()
+    table = torch.full((B, n_ctx // page), 10**6, dtype=torch.int32)
+    stale = torch.ones((P, page), dtype=torch.bool)
+    for b, n in enumerate(n_list):
+        for c in range(live[b]):
+            table[b, c] = perm.pop()
+        j = torch.arange(n + 1)
+        stale[table[b, j // page].long(), j % page] = False
+    stale = stale.to("cuda")
+    shape = (P, L, H, page, dh)
+    if dtype == torch.int8:
+        pools = [*int8_cache(torch, shape, g), *int8_cache(torch, shape, g)]
+        pools = [pools[0], pools[2], pools[1], pools[3]]  # k, v, k scales, v scales
+        for t, stale_value in zip(pools, (STALE_CODE, STALE_CODE, STALE_SCALE, STALE_SCALE)):
+            t.permute(0, 3, 1, 2, 4)[stale] = stale_value
+    else:
+        pools = [torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(2)]
+        for t, stale_value in zip(pools, (1e4, -1e4)):
+            t.permute(0, 3, 1, 2, 4)[stale] = stale_value
+    q = torch.randn((B, H, dh), device="cuda", generator=g)
+    return q, pools, table.to("cuda"), torch.tensor(n_list, dtype=torch.int32, device="cuda")
+
+
+def check_paged_kernels(torch, g) -> list:
+    """The paged kernel (rows 8, 8i) beside the B = 8 cases of
+    ``check_kernels`` and ``check_int8_kernels``: at B = 16
+    (``BATCHED_NPASTS_16``, n_ctx 512) and at n_ctx 2048 (B = 8,
+    ``PAGED_NPASTS_2048``), pages of 128 (and 16 at n_ctx 2048), on f32,
+    bf16 and int8 pools of 4 layers, against the plain version within
+    1e-5, timed round robin over the layers (each layer's live rows are
+    25-170 MB: beyond L2).  Bound: the K and V rows of the live keys (and
+    their f32 scales), q in and the output out.  Returns the cases that
+    disagree."""
+    from llama_swift_torch.ops import attention as att
+
+    failed, L, H, dh = [], 4, 32, 128
+    cases = [(BATCHED_NPASTS_16, 512, 128), (PAGED_NPASTS_2048, 2048, 128), (PAGED_NPASTS_2048, 2048, 16)]
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        s = "_int8" if dtype == torch.int8 else ""
+        fn, plain = (getattr(att, f"flash_decode_attention_paged{s}{p}") for p in ("", "_plain"))
+        for n_list, n_ctx, page in cases:
+            q, pools, table, n_pasts = paged_pools(torch, g, dtype, n_list, n_ctx, page, L)
+            B, max_np, keys = len(n_list), max(n_list), sum(n + 1 for n in n_list)
+            call = lambda i: fn(q, *pools, table, i % L, n_pasts, max_np)  # noqa: E731
+            out, ref = call(1), plain(q, *pools, table, 1, n_pasts, max_np)
+            err = rel_err(out, ref)
+            row = dh * pools[0].element_size() + (4 if dtype == torch.int8 else 0)  # a row and its scale
+            nbytes = 2 * H * keys * row + 2 * B * H * dh * 4 + B * 4
+            case = {"case": f"flash_decode_attention_paged{s}", "cache": str(dtype).split(".")[-1], "B": B,
+                    "n_ctx": n_ctx, "page": page, "keys": keys, "max_rel_err": err,
+                    "max_abs_err": float((out - ref).abs().max()), "kernel_ms": time_ms(torch, call, 200),
+                    "plain_ms": events_ms(torch, lambda i: plain(q, *pools, table, i % L, n_pasts, max_np)),
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, 4 * H * keys * dh / F32_FLOPS) * 1e3,
+                    "library_ms": None, "bits": bits(out), "repeat_bit_equal": bool(torch.equal(out, call(1))),
+                    "plan": plan_record(att, "paged_plan", B, H, dh, pools[0].element_size(), page, max_np + 1)}
+            case["ok"] = err <= 1e-5 and case["repeat_bit_equal"]
+            log(case)
+            if not case["ok"]:
+                failed.append(case)
+            del q, pools, out, ref
+        torch.cuda.empty_cache()
     return failed
 
 
@@ -2134,8 +2261,27 @@ def profile_f32_decode(torch, runner, name: str) -> None:
     cfg = dataclasses.replace(runner.config, quantize_activations=False)
     tok = torch.tensor(1, device="cuda")
     cache = model_lib.init_cache(cfg, device="cuda")
-    profile_window(torch, name, lambda i: model_lib.decode_step(runner.params, tok, i, cache, cfg))
+    profile_window(torch, name, lambda i: model_lib.decode_step(runner.params, tok, i, cache, cfg),
+                   focus="q4_0_matvec_f32_kernel")
     del cache
+
+
+def profile_paged_steps(torch, runner) -> None:
+    """Profiled 8-step windows of waves B's and D's engine step (8 slots of
+    a paged bf16 and int8 cache, pages of 128, slots at different
+    positions), with the device time a step of the paged kernel."""
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg, params = runner.config, runner.params
+    toks = torch.ones(8, dtype=torch.int64, device="cuda")
+    for name, dtype in (("profile_wave_B_paged_bf16_step_8_steps", torch.bfloat16),
+                        ("profile_wave_D_paged_int8_step_8_steps", torch.int8)):
+        cache = model_lib.init_cache_paged(cfg, 17, 8, dtype=dtype, page=128, device="cuda")
+        cache["page_table"][:, 0] = torch.arange(8, dtype=torch.int32, device="cuda")  # a page a slot
+        n_pasts = np.arange(8) * 8  # slots at different positions, all within their first page
+        profile_window(torch, name, lambda i: model_lib.forward_batched(params, toks, n_pasts + i, cache, cfg),
+                       focus=PAGED_KERNEL)
+        del cache
 
 
 def serve_f32_acts(torch, runner) -> list:
@@ -2745,6 +2891,7 @@ def check_aux(torch) -> None:
 
 
 F32_MMA_KERNEL = "q4_f32_mma_kernel"  # the device kernel of q4_0_matmul_multi_f32 and q4_0_matmul_t
+PAGED_KERNEL = "flash_paged_kernel"  # the device kernel of both paged wrappers
 
 
 def profile_window(torch, name: str, step, n_steps: int = 8, focus: str = None) -> None:
@@ -2904,6 +3051,7 @@ def main(argv=None) -> int:
             check_batched_parity(torch, torch.int8)
             served = serve(torch, workdir, args.profile)
             runs += [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
+            profile_paged_steps(torch, served["runner"])
             runs += serve_f32_acts(torch, served["runner"])
             fused, path = served["fused_runner"], served["path"]
             del served

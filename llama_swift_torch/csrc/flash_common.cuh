@@ -1,13 +1,13 @@
 // Device code of single-query (decode) attention shared by flash_decode.cu,
-// fused_layer.cu and fused_blocks.cu: row accessors of a dense or paged
-// cache, the chunk pass over one contiguous run of keys, the older split
-// pass and the combine of a head's splits.
+// fused_layer.cu and fused_blocks.cu: row accessors of a dense cache, the
+// chunk pass over one run of keys (from a contiguous plane or through a
+// page table), the older split pass and the combine of a head's splits.
 //
-// The chunk pass (`chunk_pass`) is what batch-1 decode and the
-// whole-stack kernel's attention phase run.  What bounds it on the H100 is
-// device memory: a split's K and V rows are read once (2.5 us for 8.4 MB
-// at 3.35 TB/s for 32 heads at n_past 511 on a bf16 cache).  The older
-// pass (`split_chunk_kv`, kept for the batched and paged kernels and the
+// The chunk pass (`chunk_pass`) is what batch-1 decode, the paged kernel
+// and the whole-stack kernel's attention phase run.  What bounds it on the
+// H100 is device memory: a split's K and V rows are read once (2.5 us for
+// 8.4 MB at 3.35 TB/s for 32 heads at n_past 511 on a bf16 cache).  The
+// older pass (`split_chunk_kv`, kept for the dense batched kernel and the
 // two-kernels-per-layer blocks) reached it through many dependent
 // loads: a warp read a key row at a time, then a serial max, then thread d
 // walked the 64 value rows, so a block waited on memory some 80 times and
@@ -18,10 +18,13 @@
 //    by cp.async), in a ring of NST tiles (the caller sizes a tile), NST -
 //    1 tiles in flight before the first is used, so a block waits on
 //    memory twice a tile (its K rows, then its V rows, which land while
-//    the scores are taken), not once a key; rows that are no whole
-//    number of 16-byte units (head dims that are not a multiple of 4, 8
-//    or 16 on f32, bf16 or int8) are copied by every thread with plain
-//    loads instead (BULK = false), each into a 16-byte padded row;
+//    the scores are taken), not once a key; through a page table
+//    (`PageRows`) a tile's rows are cut at page edges into runs, one bulk
+//    copy of K and one of V a run, all completing on the tile's two
+//    mbarriers; rows that are no whole number of 16-byte units (head dims
+//    that are not a multiple of 4, 8 or 16 on f32, bf16 or int8) are
+//    copied by every thread with plain loads instead (BULK = false), each
+//    into a 16-byte padded row;
 //  * takes every key of a tile at once from shared memory: 8 lanes a key
 //    of f32, 4 of bf16 or int8 (a lane reads 16-byte vectors, a key's
 //    lanes 128 or 64 contiguous bytes of its row; measured faster than 8
@@ -29,7 +32,8 @@
 //  * takes the tile's max and sum by warp reductions (online softmax from
 //    tile to tile), and the values with four dims a thread (a warp a row
 //    at dh 128; the warps take different keys, summed in order at the end).
-// All arithmetic is f32 and every sum runs in a fixed order.
+// All arithmetic is f32 and every sum runs in a fixed order; where the
+// rows come from changes no arithmetic.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,23 +95,6 @@ struct DenseRows {
   int dh;
   __device__ const T* row(int j) const { return base + static_cast<size_t>(j) * dh; }
   __device__ float row_scale(int j) const { return __ldg(scale + j); }
-};
-
-// Rows of one (slot, head) of a paged pool, through the slot's table row;
-// `scale` is the scale pool at the same (layer, head), page 0 (int8 only).
-template <typename T>
-struct PagedRows {
-  const T* base;        // pool + (il * H + h) * page * dh: page 0 of this (layer, head)
-  const float* scale;   // scale pool + (il * H + h) * page
-  const int* trow;      // page_table + b * MP
-  size_t page_stride;   // L * H * page: rows from one page to the next
-  int page, n_pages, dh;
-  __device__ size_t row_index(int j) const {
-    const int pid = min(max(__ldg(trow + j / page), 0), n_pages - 1);
-    return pid * page_stride + static_cast<size_t>(j % page);
-  }
-  __device__ const T* row(int j) const { return base + row_index(j) * dh; }
-  __device__ float row_scale(int j) const { return __ldg(scale + row_index(j)); }
 };
 
 // lane_dot for any even dh: int8 rows a code a lane where they are not
@@ -281,6 +268,40 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
                      static_cast<int8_t>(w >> 24));
 }
 
+// Where the chunk pass reads its rows.  PlaneRows: a contiguous [n_ctx,
+// dh] plane (k, v; ks, vs its row scales for int8, else null); key j is
+// row j.  PageRows: one (slot, layer, head) of a paged pool [P, L, H,
+// page, dh] through the slot's table row: key j is row j % page of page
+// trow[j / page] (clamped to [0, P - 1], as the TPU kernel's index map
+// does); k, v (ks, vs) point at page 0 of the (layer, head), and a page's
+// rows lie page_stride rows apart.  row(j) is the key's row index from
+// those pointers (codes and scales alike).
+template <typename T>
+struct PlaneRows {
+  static constexpr bool kPaged = false;
+  const T* k;
+  const T* v;
+  const float* ks;
+  const float* vs;
+  __device__ size_t row(int j) const { return static_cast<size_t>(j); }
+};
+
+template <typename T>
+struct PageRows {
+  static constexpr bool kPaged = true;
+  const T* k;
+  const T* v;
+  const float* ks;
+  const float* vs;
+  const int* trow;     // page_table + b * MP
+  size_t page_stride;  // L * H * page
+  int page, n_pages;
+  __device__ size_t row(int j) const {
+    const int pid = min(max(__ldg(trow + j / page), 0), n_pages - 1);
+    return pid * page_stride + static_cast<size_t>(j % page);
+  }
+};
+
 // The pass's shared memory: the ring's mbarriers (a K and a V one a
 // stage), scores and weights of a tile, 4 NT floats, the ring.  A staged
 // row takes `srow` bytes (row_bytes rounded up to 16).  BULK: rows arrive
@@ -308,10 +329,12 @@ struct PassLayout {
   }
   // Tile t of keys [j0, j0 + jn) into stage t % NST: thread 0 starts one
   // bulk copy of its K rows and one of its V rows (the own row, the run's
-  // last, left out); int8 scales by cp.async, a commit group each for K
-  // and V.  t < 0: an empty slot, the same count of commit groups.
-  __device__ void load(int t, const T* k, const T* v, const float* ks, const float* vs, int dh, int j0, int jn,
-                       int tile, int own) const {
+  // last, left out; through a page table, one of each a run of rows within
+  // one page, the tile's bytes expected on its two mbarriers at once);
+  // int8 scales by cp.async, a commit group each for K and V.  t < 0: an
+  // empty slot, the same count of commit groups.
+  template <typename Src>
+  __device__ void load(int t, const Src& src, int dh, int j0, int jn, int tile, int own) const {
     if (t < 0) {
       if (kScaled) {
         cp_async_commit();
@@ -324,48 +347,68 @@ struct PassLayout {
     unsigned char* st = ring + s * stage;
     if constexpr (BULK) {
       if (threadIdx.x == 0) {
-        for (int half = 0; half < 2; ++half) {
+        if constexpr (Src::kPaged) {  // own < 0: rows == n >= 1
           const uint32_t bytes = static_cast<uint32_t>(rows) * row_bytes;
-          mbar_expect(bar + 2 * s + half, bytes);
-          if (bytes) bulk_load(st + half * static_cast<size_t>(tile) * srow,
-                               (half ? v : k) + static_cast<size_t>(r0) * dh, bytes, bar + 2 * s + half);
+          mbar_expect(bar + 2 * s, bytes);
+          mbar_expect(bar + 2 * s + 1, bytes);
+          for (int r = 0; r < rows;) {
+            const int j = r0 + r, len = min(rows - r, src.page - j % src.page);
+            const size_t at = src.row(j) * dh;
+            const uint32_t run = static_cast<uint32_t>(len) * row_bytes;
+            bulk_load(st + static_cast<size_t>(r) * srow, src.k + at, run, bar + 2 * s);
+            bulk_load(st + static_cast<size_t>(tile + r) * srow, src.v + at, run, bar + 2 * s + 1);
+            r += len;
+          }
+        } else {
+          for (int half = 0; half < 2; ++half) {
+            const uint32_t bytes = static_cast<uint32_t>(rows) * row_bytes;
+            mbar_expect(bar + 2 * s + half, bytes);
+            if (bytes) bulk_load(st + half * static_cast<size_t>(tile) * srow,
+                                 (half ? src.v : src.k) + static_cast<size_t>(r0) * dh, bytes, bar + 2 * s + half);
+          }
         }
       }
     } else {  // rows of any even dh: 4-byte units where row and planes allow, else 2-byte ones
-      const bool w4 = ((row_bytes | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 3) == 0;
+      const bool w4 =
+          ((row_bytes | reinterpret_cast<uintptr_t>(src.k) | reinterpret_cast<uintptr_t>(src.v)) & 3) == 0;
       const int unit = w4 ? 4 : 2, upr = row_bytes / unit;
       for (int half = 0; half < 2; ++half) {
-        const unsigned char* src = reinterpret_cast<const unsigned char*>((half ? v : k) + static_cast<size_t>(r0) * dh);
+        const unsigned char* base = reinterpret_cast<const unsigned char*>(half ? src.v : src.k);
+        const unsigned char* plane = reinterpret_cast<const unsigned char*>((half ? src.v : src.k) +
+                                                                            static_cast<size_t>(r0) * dh);
         unsigned char* dst = st + half * static_cast<size_t>(tile) * srow;
         for (int i = threadIdx.x; i < rows * upr; i += NT) {
           const int r = i / upr, off = (i - r * upr) * unit;
+          const unsigned char* from = Src::kPaged ? base + src.row(r0 + r) * row_bytes + off
+                                                  : plane + static_cast<size_t>(r) * row_bytes + off;
           if (w4)
             *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r) * srow + off) =
-                __ldg(reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(r) * row_bytes + off));
+                __ldg(reinterpret_cast<const uint32_t*>(from));
           else
             *reinterpret_cast<uint16_t*>(dst + static_cast<size_t>(r) * srow + off) =
-                __ldg(reinterpret_cast<const unsigned short*>(src + static_cast<size_t>(r) * row_bytes + off));
+                __ldg(reinterpret_cast<const unsigned short*>(from));
         }
       }
     }
     if (kScaled) {
       float* ssc = reinterpret_cast<float*>(st + 2 * static_cast<size_t>(tile) * srow);
       for (int half = 0; half < 2; ++half) {
-        const float* gsc = half ? vs : ks;
-        for (int i = threadIdx.x; i < n; i += NT) cp_async4(ssc + half * tile + i, gsc + r0 + i);
+        const float* gsc = half ? src.vs : src.ks;
+        for (int i = threadIdx.x; i < n; i += NT)
+          cp_async4(ssc + half * tile + i, Src::kPaged ? gsc + src.row(r0 + i) : gsc + r0 + i);
         cp_async_commit();
       }
     }
   }
 };
 
-// Start the chunk pass over keys [j0, j0 + jn): its mbarriers, and its
-// first NST - 1 tiles on their way.  A block of NT threads calls it
-// together; chunk_pass(..., begun = true) then takes them.  Nothing the
+// Start the chunk pass over keys [j0, j0 + jn) of `src`: its mbarriers,
+// and its first NST - 1 tiles on their way.  A block of NT threads calls
+// it together; chunk_pass(..., begun = true) then takes them.  Nothing the
 // pass reads may depend on work after this call but the own row.
-template <typename T, int NT, int NST, bool BULK = true>
-__device__ void chunk_begin(const T* k, const T* v, const float* ks, const float* vs, int dh, int j0, int jn,
-                            int tile, unsigned char* smem, int own = -1) {
+template <typename T, int NT, int NST, bool BULK, typename Src>
+__device__ void chunk_begin_rows(const Src& src, int dh, int j0, int jn, int tile, unsigned char* smem,
+                                 int own = -1) {
   static_assert(NT % 32 == 0 && NST >= 2 && 2 * NST * 8 <= PASS_BARRIER_BYTES, "chunk_pass: NT, NST");
   const PassLayout<T, NT, NST, BULK> lay(smem, dh, tile);
   const int ntiles = (jn + tile - 1) / tile;
@@ -376,29 +419,36 @@ __device__ void chunk_begin(const T* k, const T* v, const float* ks, const float
   }
   __syncthreads();
 #pragma unroll
-  for (int t = 0; t < NST - 1; ++t) lay.load(t < ntiles ? t : -1, k, v, ks, vs, dh, j0, jn, tile, own);
+  for (int t = 0; t < NST - 1; ++t) lay.load(t < ntiles ? t : -1, src, dh, j0, jn, tile, own);
 }
 
-// Keys [j0, j0 + jn) of one head of a contiguous [n_ctx, dh] plane (k, v;
-// ks, vs its row scales for int8, else null), against q (`qs`, dh floats
-// in shared memory, 16-byte aligned, which `stage_q()` fills once the
-// first tiles are on their way): writes (acc[0..dh), m, l) to `out` (dh + 2
-// floats of shared memory).  Key `own` (or none, -1; else the run's last
-// key, f32 or bf16 caches) is not read from the plane but from
+// chunk_begin_rows over a contiguous plane.
+template <typename T, int NT, int NST, bool BULK = true>
+__device__ void chunk_begin(const T* k, const T* v, const float* ks, const float* vs, int dh, int j0, int jn,
+                            int tile, unsigned char* smem, int own = -1) {
+  chunk_begin_rows<T, NT, NST, BULK>(PlaneRows<T>{k, v, ks, vs}, dh, j0, jn, tile, smem, own);
+}
+
+// Keys [j0, j0 + jn) of one head, their rows read from `src` (a
+// PlaneRows or PageRows), against q (`qs`, dh floats in shared memory,
+// 16-byte aligned, which `stage_q()` fills once the first tiles are on
+// their way): writes (acc[0..dh), m, l) to `out` (dh + 2 floats of shared
+// memory).  Key `own` (or none, -1; else the run's last key, f32 or bf16
+// caches, a plane only) is not read from the plane but from
 // `own_k`/`own_v` in shared memory (its row as the cache stores it), which
 // `stage_q()` may fill: the whole-stack kernel's new row, stored to the
 // cache by the same block.  A block of NT threads (NT a multiple of 32,
 // dh even and <= 4 NT) calls it together, over tiles of `tile` rows;
 // `smem` holds pass_smem_bytes(tile, dh * sizeof(T), int8, NT,
 // pass_stages(jn, tile, NST)) bytes, 16-byte aligned.  BULK (the bulk
-// copy) needs pass_bulk_rows(dh * sizeof(T), k, v); without it rows are
-// staged by plain loads.  `begun`: chunk_begin was called with the same
-// arguments.  Reads no row outside the run.  Ends with a __syncthreads.
-template <typename T, int NT, int NST, bool BULK = true, typename StageQ>
-__device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, const T* __restrict__ v,
-                           const float* __restrict__ ks, const float* __restrict__ vs, int dh, int j0, int jn,
-                           int tile, float scale, unsigned char* smem, float* out, int own = -1,
-                           const T* own_k = nullptr, const T* own_v = nullptr, bool begun = false) {
+// copy) needs pass_bulk_rows(dh * sizeof(T), k, v) of the source's
+// pointers; without it rows are staged by plain loads.  `begun`:
+// chunk_begin_rows was called with the same arguments.  Reads no row
+// outside the run.  Ends with a __syncthreads.
+template <typename T, int NT, int NST, bool BULK, typename Src, typename StageQ>
+__device__ void chunk_pass_rows(float* qs, StageQ stage_q, const Src& src, int dh, int j0, int jn, int tile,
+                                float scale, unsigned char* smem, float* out, int own = -1,
+                                const T* own_k = nullptr, const T* own_v = nullptr, bool begun = false) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
   constexpr int KEY_LANES = sizeof(T) == 4 ? 8 : 4;  // lanes a key's score: 64 or 128 bytes of its row at once
   constexpr int GROUPS = NT / KEY_LANES;             // keys scored at once
@@ -413,8 +463,8 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
   unsigned char* ring = lay.ring;
   const size_t stage = lay.stage;
   const int ntiles = (jn + tile - 1) / tile;
-  if (!begun) chunk_begin<T, NT, NST, BULK>(k, v, ks, vs, dh, j0, jn, tile, smem, own);
-  auto load = [&](int t) { lay.load(t, k, v, ks, vs, dh, j0, jn, tile, own); };
+  if (!begun) chunk_begin_rows<T, NT, NST, BULK>(src, dh, j0, jn, tile, smem, own);
+  auto load = [&](int t) { lay.load(t, src, dh, j0, jn, tile, own); };
 
   // the value pass: a thread takes 4 consecutive dims of a row (ceil(dh / 4)
   // threads a row, dh <= 4 NT; at dh % 4 == 2 a row's last thread keeps
@@ -526,6 +576,16 @@ __device__ void chunk_pass(float* qs, StageQ stage_q, const T* __restrict__ k, c
     out[dh + 1] = l_run;
   }
   __syncthreads();
+}
+
+// chunk_pass_rows over a contiguous [n_ctx, dh] plane (k, v; ks, vs its
+// row scales for int8, else null).
+template <typename T, int NT, int NST, bool BULK = true, typename StageQ>
+__device__ void chunk_pass(float* qs, StageQ stage_q, const T* k, const T* v, const float* ks, const float* vs,
+                           int dh, int j0, int jn, int tile, float scale, unsigned char* smem, float* out,
+                           int own = -1, const T* own_k = nullptr, const T* own_v = nullptr, bool begun = false) {
+  chunk_pass_rows<T, NT, NST, BULK>(qs, stage_q, PlaneRows<T>{k, v, ks, vs}, dh, j0, jn, tile, scale, smem, out,
+                                    own, own_k, own_v, begun);
 }
 
 }  // namespace

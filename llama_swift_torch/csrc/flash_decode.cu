@@ -57,8 +57,34 @@
 //    head's output; the other blocks exit right after arriving.  No
 //    global scratch, no counter, nothing that two streams could share.
 //
-// Batched and paged (split-K flash decoding in two launches, on the older
-// split pass):
+// Paged (`flash_decode_paged`): one launch a call, on the same chunk pass.
+//  * Grid (S, H, B), a cluster of the S blocks of one (slot, head); S and
+//    the tile come from the host (ops/attention.paged_plan: S =
+//    split_plan(max keys of the step, 2).splits, tiles of 16 KB of K
+//    rows); slot b cuts its own keys, read on the device, by
+//    split_plan(keys_b, S), so a short slot takes few splits and the
+//    blocks past them hold no keys (they take part in the cluster's
+//    barriers and push nothing).
+//  * The chunk pass reads rows through the slot's table row (PageRows): a
+//    tile's rows are cut at page edges into runs, one bulk copy of K and
+//    one of V a run (at page 128 a tile of 64 or 128 rows is one run, or
+//    two where the split starts off a page edge; at page 16, four to
+//    nine), the tile's bytes expected on its two mbarriers; int8 row
+//    scales by cp.async a row.  The ring holds two stages (one tile in
+//    flight while one is used), so a block takes 72 KB and three fit an
+//    SM (80 registers a thread); a tile is at most the split's length.
+//  * Block 0 of a cluster combines the live splits in split order through
+//    distributed shared memory, as batch 1 does.  No scratch, no second
+//    launch.  Before, a call was a split pass of 64-key blocks (a warp a
+//    key row, a serial max, a thread a dim) and a combine launch, with a
+//    fresh scratch tensor: 47 us at B = 8 on every cache type (H100 80GB
+//    HBM3, 700 W).  Variants timed on the card: 1-8 splits, rings of 2-5
+//    stages, 8-64 KB stages, 1-5 blocks an SM; batch 1's plan (8 splits,
+//    five 32 KB stages) was slower in every case: as many blocks as the
+//    card holds, each with one or two tiles, running in waves.
+//
+// Batched (split-K flash decoding in two launches, on the older split
+// pass):
 //  * split kernel, grid (H, S, B): block (h, c, b) takes keys
 //    [64c, 64c+64) of slot b, head h, one thread per head dim.  Warps compute
 //    the scores (a warp reads a key row as one coalesced line: lanes split
@@ -73,10 +99,10 @@
 // needs no device-to-host read.  All arithmetic is f32.
 //
 // Head dims: every even dh in [2, 1024], on every cache type.  Batch 1
-// stages rows by the bulk copy where a row is a whole number of 16-byte
+// and paged stage rows by the bulk copy where a row is a whole number of 16-byte
 // units on 16-byte aligned planes (pass_bulk_rows: dh 128, LLaMA's, on
 // all three types), else by plain 4- or 2-byte loads into rows padded to
-// 16 bytes (a template parameter of the same kernel); its value pass
+// 16 bytes (a template parameter of the same kernel); the value pass
 // gives a row's last thread 2 dims at dh % 4 == 2.  The split pass runs
 // whole warps (dh rounded up to 32 threads) and reads int8 rows a char4 a
 // lane only where dh % 4 == 0.
@@ -111,29 +137,6 @@ __global__ void flash_split_batched_kernel(const float* __restrict__ q, const T*
                     min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
 }
 
-// q [B, H, Dh]; pools [P, L, H, page, Dh]; scale pools [P, L, H, page]
-// (int8) or null; table [B, MP]; part [B, H, S, Dh + 2]; ANY_DH: dh % 32 != 0
-template <typename T, bool ANY_DH>
-__global__ void flash_split_paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
-                                         const T* __restrict__ v_pool, const float* __restrict__ ks_pool,
-                                         const float* __restrict__ vs_pool, const int* __restrict__ table,
-                                         const int* __restrict__ n_pasts, float* __restrict__ part,
-                                         int P, int L, int H, int page, int MP, int il, int dh,
-                                         int n_keys, float scale) {
-  const int h = blockIdx.x, c = blockIdx.y, S = gridDim.y, b = blockIdx.z;
-  const int j0 = c * CHUNK;
-  const int keys = slot_keys(n_pasts, b, n_keys);
-  if (j0 >= keys) return;
-  const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t head = (static_cast<size_t>(il) * H + h) * page;  // row offset of page 0
-  const size_t stride = static_cast<size_t>(L) * H * page;
-  const int* trow = table + static_cast<size_t>(b) * MP;
-  split_chunk_kv<T, PagedRows<T>, ANY_DH>(q + bh * dh,
-                    PagedRows<T>{k_pool + head * dh, ks_pool ? ks_pool + head : nullptr, trow, stride, page, P, dh},
-                    PagedRows<T>{v_pool + head * dh, vs_pool ? vs_pool + head : nullptr, trow, stride, page, P, dh},
-                    j0, min(CHUNK, keys - j0), scale, part + (bh * S + c) * (dh + 2));
-}
-
 // part [B, H, S, dh + 2] -> o [B, H, dh]; grid (H, B); slot b combines only
 // its live splits (n_pasts == nullptr: all S)
 __global__ void flash_combine_kernel(const float* __restrict__ part, const int* __restrict__ n_pasts,
@@ -149,6 +152,8 @@ constexpr int ONE_STAGES = 5;             // ring tiles of the chunk pass: four 
 constexpr int ONE_STAGE_BYTES = 32768;    // K and V rows of a tile
 constexpr int ONE_SMEM_LIMIT = 232448;    // the most a block may take (227 KB)
 constexpr int ONE_MAX_SPLITS = 8;         // blocks of a head: a cluster of the portable size
+constexpr int PAGED_STAGES = 2;           // ring tiles of the paged kernel's chunk pass: one in flight
+constexpr int PAGED_BLOCKS_PER_SM = 3;    // the paged kernel's registers: at most 80 a thread
 
 // Batch 1: q [H, dh]; k/v: layer plane [H, n_ctx, dh]; ks/vs its row
 // scales [H, n_ctx] (int8) or null; o [H, dh].  Grid (S, H), cluster
@@ -201,10 +206,11 @@ __global__ void __launch_bounds__(ONE_THREADS)
   }
 }
 
-// Dynamic shared memory of a batch-1 launch: S splits of `keys` keys.
-size_t one_smem_bytes(int dh, int elt, bool scaled, int S, int keys, int tile) {
+// Dynamic shared memory of a batch-1 (or, with its ring of `nst` stages,
+// paged) launch: S splits of `keys` keys.
+size_t one_smem_bytes(int dh, int elt, bool scaled, int S, int keys, int tile, int nst = ONE_STAGES) {
   return round16(4 * S * (dh + 2)) + round16(4 * dh) + round16(4 * (dh + 2)) +
-         pass_smem_bytes(tile, dh * elt, scaled, ONE_THREADS, pass_stages(keys, tile, ONE_STAGES));
+         pass_smem_bytes(tile, dh * elt, scaled, ONE_THREADS, pass_stages(keys, tile, nst));
 }
 
 template <typename T, bool BULK>
@@ -249,6 +255,121 @@ int launch_one_rows(cudaStream_t s, const void* q, const void* k, const void* v,
   return launch_one<T, false>(s, q, k, v, ks, vs, out, H, n_ctx, dh, n_keys, scale);
 }
 
+// Paged: q [B, H, dh]; pools [P, L, H, page, dh] (scale pools [P, L, H,
+// page] for int8, else null), read whole; table [B, MP] and n_pasts [B]
+// int32; o [B, H, dh].  Grid (S, H, B), cluster (S, 1, 1); slot b's keys
+// (at most n_keys) cut by split_plan(keys_b, S), split c of them taken by
+// block c; a block past the slot's splits only keeps the cluster's
+// barriers.  Shared memory as batch 1's.
+template <typename T, bool BULK>
+__global__ void __launch_bounds__(ONE_THREADS, PAGED_BLOCKS_PER_SM)
+    flash_paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+                       const float* __restrict__ ks_pool, const float* __restrict__ vs_pool,
+                       const int* __restrict__ table, const int* __restrict__ n_pasts, float* __restrict__ o,
+                       int P, int L, int H, int page, int MP, int il, int dh, int n_keys, int tile, float scale) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char paged_smem[];
+  const int c = blockIdx.x, S = gridDim.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  float* parts = reinterpret_cast<float*>(paged_smem);                            // [S][dh + 2]
+  float* qs = reinterpret_cast<float*>(paged_smem + round16(4 * S * (dh + 2)));    // [dh]
+  float* mine = qs + round16(4 * dh) / 4;                                          // [dh + 2]
+  unsigned char* pass = reinterpret_cast<unsigned char*>(mine) + round16(4 * (dh + 2));
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int keys = slot_keys(n_pasts, b, n_keys);
+  const SplitPlan plan = split_plan(keys, S);
+  const int j0 = c * plan.keys, jn = min(plan.keys, keys - j0);  // jn <= 0: no keys in this split
+  // barrier phase 1 (waited on below): every block of the cluster has started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (jn > 0) {
+    const size_t head = (static_cast<size_t>(il) * H + h) * page;  // row of page 0 of this (layer, head)
+    const PageRows<T> rows{k_pool + head * dh, v_pool + head * dh, ks_pool ? ks_pool + head : nullptr,
+                           vs_pool ? vs_pool + head : nullptr, table + static_cast<size_t>(b) * MP,
+                           static_cast<size_t>(L) * H * page, page, P};
+    chunk_pass_rows<T, ONE_THREADS, PAGED_STAGES, BULK>(
+        qs,
+        [&] {  // q, while the first tiles are in flight
+          for (int d = tid; d < dh; d += ONE_THREADS) qs[d] = __ldg(q + bh * dh + d);
+        },
+        rows, dh, j0, jn, tile, scale, pass, mine);
+  }
+  // every split with keys pushes its (acc, m, l) into block 0's shared
+  // memory, then all arrive; block 0 waits and combines the live splits
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (jn > 0) {
+    float* dst = cluster.map_shared_rank(parts, 0) + c * (dh + 2);
+    for (int d = tid; d < dh + 2; d += ONE_THREADS) dst[d] = mine[d];
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (c != 0) return;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  float mx = -INFINITY;
+  for (int r = 0; r < plan.splits; ++r) mx = fmaxf(mx, parts[r * (dh + 2) + dh]);
+  for (int d = tid; d < dh; d += ONE_THREADS) {
+    float l = 0.0f, acc = 0.0f;
+    for (int r = 0; r < plan.splits; ++r) {
+      const float* pc = parts + r * (dh + 2);
+      const float a = expf(pc[dh] - mx);
+      l += a * pc[dh + 1];
+      acc += a * pc[d];
+    }
+    o[bh * dh + d] = acc / l;
+  }
+}
+
+// Dynamic shared memory of a paged launch of S splits and tiles of `tile`
+// rows over at most n_keys keys a slot (ops/attention.paged_plan chooses
+// S and the tile and computes the same), or 0 where the launcher refuses
+// the plan: S in [1, 8], a tile of 1 to 1024 rows.
+size_t paged_smem_bytes(int dh, int elt, bool scaled, int n_keys, int S, int tile) {
+  if (S < 1 || S > ONE_MAX_SPLITS || tile < 1 || tile > 1024) return 0;
+  return one_smem_bytes(dh, elt, scaled, S, split_plan(n_keys, S).keys, tile, PAGED_STAGES);
+}
+
+template <typename T, bool BULK>
+int launch_paged(cudaStream_t s, const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
+                 const void* vs_pool, const void* table, const void* n_pasts, void* out, int B, int P, int L, int H,
+                 int page, int MP, int il, int dh, int n_keys, int S, int tile, float scale) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_paged_kernel<T, BULK>, cudaFuncAttributeMaxDynamicSharedMemorySize, ONE_SMEM_LIMIT);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t smem = paged_smem_bytes(dh, sizeof(T), kScaled, n_keys, S, tile);
+  if (smem == 0 || smem > ONE_SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, H, B);
+  cfg.blockDim = dim3(ONE_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = S;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, flash_paged_kernel<T, BULK>, static_cast<const float*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const float*>(ks_pool), static_cast<const float*>(vs_pool),
+      static_cast<const int*>(table), static_cast<const int*>(n_pasts), static_cast<float*>(out), P, L, H, page,
+      MP, il, dh, n_keys, tile, scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Paged over rows of any even dh: the bulk copy where pass_bulk_rows
+// allows it, else plain loads (as batch 1).
+template <typename T>
+int launch_paged_rows(cudaStream_t s, const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
+                      const void* vs_pool, const void* table, const void* n_pasts, void* out, int B, int P, int L,
+                      int H, int page, int MP, int il, int dh, int n_keys, int S, int tile, float scale) {
+  if (pass_bulk_rows(dh * static_cast<int>(sizeof(T)), k_pool, v_pool))
+    return launch_paged<T, true>(s, q, k_pool, v_pool, ks_pool, vs_pool, table, n_pasts, out, B, P, L, H, page, MP,
+                                 il, dh, n_keys, S, tile, scale);
+  return launch_paged<T, false>(s, q, k_pool, v_pool, ks_pool, vs_pool, table, n_pasts, out, B, P, L, H, page, MP,
+                                il, dh, n_keys, S, tile, scale);
+}
+
 size_t split_smem(int dh) { return (dh + 2 * CHUNK) * sizeof(float); }
 // threads of a split block: one a dim, whole warps
 int split_threads(int dh) { return (dh + 31) / 32 * 32; }
@@ -265,18 +386,6 @@ void split_dense(dim3 grid, int dh, cudaStream_t s, const void* q, const void* k
       static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), np, part, H, n_ctx, dh, n_keys,
       scale);
-}
-
-template <typename T>
-void split_paged(dim3 grid, int dh, cudaStream_t s, const void* q, const void* k_pool,
-                 const void* v_pool, const void* ks_pool, const void* vs_pool, const void* table,
-                 const int* np, float* part, int P, int L, int H, int page, int MP, int il,
-                 int n_keys, float scale) {
-  auto kernel = dh % 32 ? flash_split_paged_kernel<T, true> : flash_split_paged_kernel<T, false>;
-  kernel<<<grid, split_threads(dh), split_smem(dh), s>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const float*>(ks_pool), static_cast<const float*>(vs_pool),
-      static_cast<const int*>(table), np, part, P, L, H, page, MP, il, dh, n_keys, scale);
 }
 
 // The split pass over a dense plane for cache element `kind` (0 f32,
@@ -333,35 +442,37 @@ extern "C" int flash_decode_batched(const void* q, const void* k, const void* v,
 
 // B slots through a page table: pools [P, L, H, page, Dh] and scale pools
 // [P, L, H, page, 1] (int8) or null (whole, not layer views), table [B, MP]
-// and n_pasts [B] int32 on the device.
+// and n_pasts [B] int32 on the device; n_keys = max_n_past + 1 bounds
+// every slot's keys; S splits a (slot, head) and tiles of `tile` rows
+// (ops/attention.paged_plan).  One launch, no scratch.
 extern "C" int flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
                                   const void* ks_pool, const void* vs_pool, const void* table,
-                                  const void* n_pasts, void* part, void* out, int B, int P, int L,
-                                  int H, int page, int MP, int il, int dh, int n_keys, float scale,
-                                  int kind, void* stream) {
+                                  const void* n_pasts, void* out, int B, int P, int L, int H, int page,
+                                  int MP, int il, int dh, int n_keys, int S, int tile, float scale, int kind,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_ok(dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const int S = n_splits(n_keys);
-  const dim3 grid(H, S, B);
-  const int* np = static_cast<const int*>(n_pasts);
-  float* pf = static_cast<float*>(part);
+  if (B < 1 || H < 1 || P < 1 || page < 1 || il < 0 || il >= L || n_keys < 1 ||
+      static_cast<long long>(n_keys) > static_cast<long long>(MP) * page || !head_dim_ok(dh))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (kind) {
     case 0:
-      split_paged<float>(grid, dh, s, q, k_pool, v_pool, ks_pool, vs_pool, table, np, pf, P, L, H,
-                         page, MP, il, n_keys, scale);
-      break;
+      return launch_paged_rows<float>(s, q, k_pool, v_pool, ks_pool, vs_pool, table, n_pasts, out, B, P, L, H,
+                                      page, MP, il, dh, n_keys, S, tile, scale);
     case 1:
-      split_paged<__nv_bfloat16>(grid, dh, s, q, k_pool, v_pool, ks_pool, vs_pool, table, np, pf, P,
-                                 L, H, page, MP, il, n_keys, scale);
-      break;
+      return launch_paged_rows<__nv_bfloat16>(s, q, k_pool, v_pool, ks_pool, vs_pool, table, n_pasts, out, B, P,
+                                              L, H, page, MP, il, dh, n_keys, S, tile, scale);
     case 2:
-      split_paged<int8_t>(grid, dh, s, q, k_pool, v_pool, ks_pool, vs_pool, table, np, pf, P, L, H,
-                          page, MP, il, n_keys, scale);
-      break;
+      return launch_paged_rows<int8_t>(s, q, k_pool, v_pool, ks_pool, vs_pool, table, n_pasts, out, B, P, L, H,
+                                       page, MP, il, dh, n_keys, S, tile, scale);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_combine_kernel<<<dim3(H, B), dh, 0, s>>>(pf, np, static_cast<float*>(out), H, dh, S,
-                                                  n_keys);
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of a paged launch (ops/attention.paged_plan
+// mirrors it), 0 for a plan the launcher refuses, -1 for bad arguments.
+extern "C" int flash_decode_paged_smem_bytes(int dh, int kind, int n_keys, int S, int tile) {
+  if (kind < 0 || kind > 2 || n_keys < 1 || !head_dim_ok(dh)) return -1;
+  const int elt = kind == 0 ? 4 : kind == 1 ? 2 : 1;
+  return static_cast<int>(paged_smem_bytes(dh, elt, kind == 2, n_keys, S, tile));
 }

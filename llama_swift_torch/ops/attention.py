@@ -22,21 +22,25 @@ The batched and paged entry points take the per-slot positions as a device
 int32 tensor ``n_pasts [B]`` and their largest value ``max_n_past`` as a
 host int (the engine keeps both), so a step reads nothing back from the
 card.  The note at the top of the CUDA source says what bounds the kernels
-on the H100: batch 1 is one launch a call (a cluster of blocks a head),
-batched and paged two (a split pass and a combine).
+on the H100: batch 1 and paged are one launch a call (a cluster of blocks
+a head, or a (slot, head), on the chunk pass of ``csrc/flash_common.cuh``),
+batched two (a split pass and a combine).  :func:`paged_plan` mirrors the
+paged launch's plan (splits, tiles, ring stages, shared memory).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
 from . import build
 
-#: keys per split of the batched and paged kernels' first pass (``CHUNK``
-#: in the CUDA source); batch 1 cuts its keys on the card (``split_plan``)
+#: keys per split of the batched kernel's first pass (``CHUNK`` in the
+#: CUDA source); batch 1 and paged cut their keys by :func:`split_plan`
 SPLIT = 64
 
 #: cache element type -> the CUDA source's ``kind`` argument
@@ -53,6 +57,109 @@ def check_head_dim(what: str, dh: int) -> None:
     every cache type) are staged by the bulk copy, others by plain loads."""
     if dh % 2 or not 2 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"{what}: head dim {dh} must be even and in [2, {MAX_HEAD_DIM}]")
+
+
+# ---------------------------------------------------------------------------
+# the chunk pass's launch plan (csrc/flash_common.cuh, csrc/flash_decode.cu)
+# ---------------------------------------------------------------------------
+
+PASS_MIN_KEYS = 16  # the least keys a split takes
+PASS_BARRIER_BYTES = 128  # the ring's mbarriers
+PASS_THREADS = 256  # threads of a block (ONE_THREADS)
+PAGED_MAX_SPLITS = 2  # splits a (slot, head) of the paged kernel; the launcher takes at most 8
+PAGED_STAGE_BYTES = 32768  # K and V rows of a full tile of the paged kernel
+PAGED_STAGES = 2  # ring stages of the paged kernel (PAGED_STAGES)
+SMEM_LIMIT = 232448  # the most a block may take on the H100 (227 KB)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def split_plan(n_keys: int, max_splits: int) -> tuple[int, int]:
+    """``(splits, keys)``: ``n_keys`` cut into at most ``max_splits`` runs of
+    a multiple of 16 keys (the last may hold fewer), none empty."""
+    s = min(-(-n_keys // PASS_MIN_KEYS), max_splits)
+    length = -(-(-(-n_keys // s)) // PASS_MIN_KEYS) * PASS_MIN_KEYS
+    return -(-n_keys // length), length
+
+
+def pass_tile_rows(row_bytes: int, stage_bytes: int) -> int:
+    """Rows of a tile when a ring stage holds ``stage_bytes`` of K and V
+    rows, each padded to 16 bytes."""
+    return max(1, (stage_bytes // 2) // _round16(row_bytes))
+
+
+def pass_stage_bytes(tile: int, row_bytes: int, scaled: bool) -> int:
+    return _round16(2 * tile * _round16(row_bytes) + (8 * tile if scaled else 0))
+
+
+def pass_smem_bytes(tile: int, row_bytes: int, scaled: bool, stages: int) -> int:
+    """The pass's shared memory: mbarriers, a tile's scores and weights,
+    the key groups' sums, ``stages`` ring stages."""
+    return (PASS_BARRIER_BYTES + _round16(8 * tile) + _round16(16 * PASS_THREADS)
+            + stages * pass_stage_bytes(tile, row_bytes, scaled))
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """The plan of one paged launch (the CUDA source's ``paged_smem_bytes``
+    computes the same shared memory from ``splits`` and ``tile``): grid
+    ``(splits, H, B)`` in clusters of ``splits`` blocks; the longest
+    split holds ``keys`` keys in tiles of ``tile`` rows through a ring of
+    ``stages`` stages; ``smem_bytes`` of dynamic shared memory a block."""
+
+    splits: int
+    keys: int
+    tile: int
+    stages: int
+    smem_bytes: int
+    grid: tuple
+    page: int
+
+    def slot_splits(self, n_keys_b: int) -> list:
+        """``(j0, jn)`` of each split of a slot with ``n_keys_b`` keys (the
+        kernel reads ``n_pasts[b] + 1`` on the card): ``split_plan(n_keys_b,
+        splits)``; blocks past them hold no keys."""
+        n, length = split_plan(n_keys_b, self.splits)
+        return [(c * length, min(length, n_keys_b - c * length)) for c in range(n)]
+
+    def tiles(self, j0: int, jn: int) -> list:
+        """``(r0, n)`` of each tile of a split's keys ``[j0, j0 + jn)``."""
+        return [(r0, min(self.tile, j0 + jn - r0)) for r0 in range(j0, j0 + jn, self.tile)]
+
+    def runs(self, r0: int, n: int) -> list:
+        """``(j, len)`` of each bulk copy of a tile's rows ``[r0, r0 + n)``:
+        cut at page edges, each run within one page."""
+        out, j = [], r0
+        while j < r0 + n:
+            length = min(r0 + n - j, self.page - j % self.page)
+            out.append((j, length))
+            j += length
+        return out
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(B: int, H: int, dh: int, elt: int, page: int, n_keys: int) -> PagedPlan:
+    """The paged kernel's plan for ``B`` slots of ``H`` heads of dim ``dh``
+    on cache elements of ``elt`` bytes (1: int8, with row scales), pages of
+    ``page`` rows, at most ``n_keys = max_n_past + 1`` keys a slot: ``S =
+    split_plan(n_keys, PAGED_MAX_SPLITS)`` splits, tiles of
+    ``PAGED_STAGE_BYTES / 2`` of K rows or the longest split's keys if
+    fewer, a ring of at most ``PAGED_STAGES`` stages; the shared memory
+    adds S partials, q and the block's own.  The constants are the fastest
+    of the variants timed on an H100 (the CUDA source's note)."""
+    if B < 1 or H < 1 or page < 1 or n_keys < 1 or elt not in (1, 2, 4):
+        raise ValueError(f"paged_plan: B={B}, H={H}, page={page}, n_keys={n_keys}, elt={elt} out of range")
+    check_head_dim("paged_plan", dh)
+    row_bytes = dh * elt
+    splits = split_plan(n_keys, PAGED_MAX_SPLITS)[0]
+    keys = split_plan(n_keys, splits)[1]
+    tile = min(pass_tile_rows(row_bytes, PAGED_STAGE_BYTES), keys)
+    stages = min(-(-keys // tile), PAGED_STAGES)
+    smem = (_round16(4 * splits * (dh + 2)) + _round16(4 * dh) + _round16(4 * (dh + 2))
+            + pass_smem_bytes(tile, row_bytes, elt == 1, stages))
+    return PagedPlan(splits, keys, tile, stages, smem, (splits, H, B), page)
 
 
 def reference_decode_attention(q, keys, values, n_past: int) -> torch.Tensor:
@@ -247,13 +354,15 @@ def _launch_paged(what, q, k_pool, v_pool, scales, page_table, il: int, n_pasts,
     if not (0 <= il < L and 0 <= max_n_past < MP * page):
         raise ValueError(f"{what}: il={il}, max_n_past={max_n_past} out of range")
     n_keys = max_n_past + 1
-    part = torch.empty(B * H * -(-n_keys // SPLIT) * (dh + 2), dtype=torch.float32, device=q.device)
+    plan = paged_plan(B, H, dh, k_pool.element_size(), page, n_keys)
+    if plan.smem_bytes > SMEM_LIMIT:  # the launcher refuses it too
+        raise ValueError(f"{what}: {plan.smem_bytes} bytes of shared memory exceed {SMEM_LIMIT}")
     out = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     code = build.lib("flash_decode").flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *_scale_ptrs(scales),
-        page_table.data_ptr(), n_pasts.data_ptr(), part.data_ptr(), out.data_ptr(),
-        B, P, L, H, page, MP, il, dh, n_keys, 1.0 / math.sqrt(float(dh)), kind, _stream(q),
+        page_table.data_ptr(), n_pasts.data_ptr(), out.data_ptr(),
+        B, P, L, H, page, MP, il, dh, n_keys, plan.splits, plan.tile, 1.0 / math.sqrt(float(dh)), kind, _stream(q),
     )
     build.check(code, what)
     return out

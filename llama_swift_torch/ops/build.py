@@ -29,14 +29,14 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: source stem -> {C function: argument types}; every function returns an
 #: int: the ``cudaGetLastError()`` code after its launches (0 = launched),
-#: or for the ``*_blocks``/``*_scratch_bytes`` queries the value asked for
+#: or for the ``*_blocks``/``*_scratch_bytes``/``*_smem_bytes`` queries the value asked for
 SOURCES = {
     "q4_matvec": {
         "q4_0_matvec": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "q4_0_matmul_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "q4_0_matmul_multi_smem_bytes": [ctypes.c_int],
         "q4_1_matvec": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-        "q4_0_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "q4_0_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_1_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     },
     "flash_decode": {
@@ -44,8 +44,9 @@ SOURCES = {
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "flash_decode_batched": [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        "flash_decode_paged": [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "flash_decode_paged": [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "flash_decode_paged_smem_bytes": [ctypes.c_int] * 5,
     },
     "q4_dequant": {
         "q4_0_dequant": [ctypes.c_void_p] * 3

@@ -41,7 +41,8 @@ rows, each with a kernel of its own and a launch counter of its own
 correction); the sums are equal up to reassociation.  The multi-row kernel
 takes the block dots on the bf16 tensor cores from exact products (the
 nibbles and three bf16 pieces of x, ``csrc/q4_f32_mma.cuh``), cut by
-:func:`f32_mma_plan`.
+:func:`f32_mma_plan`; the Q4_0 matvec's persistent grid is
+:func:`matvec_f32_plan`'s.
 """
 
 from __future__ import annotations
@@ -256,6 +257,71 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 #: the largest in-dim the f32 kernels stage in a block's shared memory (227 KB)
 MAX_F32_IN = 55 * 1024
 
+F32_WARPS = 16  # warps of a Q4_0 f32 matvec block (``F32_WARPS`` in the CUDA source)
+F32_RING = 2  # weight blocks a lane keeps in flight (``F32_RING``)
+F32_BLOCKS_PER_SM = 2  # blocks an SM of its persistent grid (``F32_BLOCKS_PER_SM``)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatvecF32Plan:
+    """The Q4_0 f32 matvec's launch: ``blocks`` blocks of ``warps`` warps,
+    warp w of block g on rows ``g·warps + w + k·blocks·warps`` (at most
+    ``rows_per_warp`` each), each lane with ``ring`` weight blocks in
+    flight; x staged transposed in ``smem_bytes`` (``8·stride`` float4,
+    ``stride = (in/32) | 1``)."""
+
+    blocks: int
+    warps: int
+    ring: int
+    stride: int
+    smem_bytes: int
+    rows_per_warp: int
+
+    def warp_rows(self, out: int, block: int, warp: int) -> list:
+        step = self.blocks * self.warps
+        return list(range(block * self.warps + warp, out, step))
+
+
+@functools.lru_cache(maxsize=None)
+def matvec_f32_plan(out: int, in_dim: int, sms: int = 132) -> MatvecF32Plan:
+    """Plan of :func:`q4_0_matvec_f32`'s kernel on a card of ``sms`` SMs: one
+    block an SM (a persistent grid that stages x once a block), fewer when
+    the rows do not fill them."""
+    if out < 1 or in_dim < QK or in_dim % QK:
+        raise ValueError(f"matvec_f32_plan: out {out}, in dim {in_dim}")
+    stride = (in_dim // QK) | 1
+    blocks = min(-(-out // F32_WARPS), F32_BLOCKS_PER_SM * sms)
+    return MatvecF32Plan(blocks=blocks, warps=F32_WARPS, ring=F32_RING, stride=stride, smem_bytes=8 * stride * 16,
+                         rows_per_warp=-(-out // (blocks * F32_WARPS)))
+
+
+def q4_0_matvec_f32_lane_order(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """The f32 matvec kernel's order of sums in PyTorch, for tests: lane l
+    of a row's warp takes blocks ``l, l + 32, …``, each block's dot a chain
+    of 32 fused multiply-adds from 0 in element order, then ``acc =
+    fma(d_b, dot_b, acc)``; the warp's butterfly (xor 16, 8, 4, 2, 1) adds
+    the lanes.  An f32 FMA is taken as the f64 sum of the exact product
+    rounded to f32: the kernel's bits wherever that f64 sum is exact."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    out, in_dim = w.shape
+    nb = in_dim // QK
+    n = (unpack_nibbles(w.qs).float() - 8.0).reshape(out, nb, QK)
+    xb = x.float().reshape(nb, QK)
+    acc = torch.zeros((out, 32))
+    for k in range(-(-nb // 32)):
+        b = torch.arange(32) + 32 * k
+        live, b = b < nb, b.clamp(max=nb - 1)
+        dot = torch.zeros((out, 32))
+        for i in range(QK):
+            dot = fma(n[:, b, i], xb[b, i][None], dot)
+        acc = torch.where(live[None], fma(w.d[:, b], dot, acc), acc)
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lanes ^ o]
+    return acc[:, 0]
+
 
 def q4_0_matvec_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     """``y [out] = W · x`` for one unquantized activation row ``x [in]`` f32
@@ -279,9 +345,10 @@ def _launch_q4_0_matvec_f32(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.
     _check_x(x, (in_dim,), what)
     if in_dim > MAX_F32_IN:
         raise ValueError(f"{what}: in dim {in_dim} exceeds {MAX_F32_IN} (shared memory)")
+    plan = matvec_f32_plan(out, in_dim, _sm_count(x.device))
     y = torch.empty(out, dtype=torch.float32, device=x.device)
     code = build.lib("q4_matvec").q4_0_matvec_f32(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, _stream(x))
+        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, plan.blocks, _stream(x))
     build.check(code, what)
     return y
 

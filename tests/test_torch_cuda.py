@@ -14,7 +14,10 @@ both dequants bit-exact and the multi-row product at the 7B, 13B and 65B
 shapes, the latter with exact half-step ties in every row's codes; the two
 f32-activation products on the bf16 tensor cores at those shapes, at every
 row count, with one-hot x for their K order, repeated bit for bit, with x
-off 16-byte alignment and at every share of tiles over a cluster).
+off 16-byte alignment and at every share of tiles over a cluster; the
+paged kernel at B = 1, 8, 16, pages of 16 and 128 and n_ctx 512 and 2048
+with NaN in every row no live key names, one kernel a call; the f32 Q4_0
+matvec at LLaMA's shapes, bit-equal to its lane order).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -1139,3 +1142,181 @@ def test_f32_mma_every_cluster_share(cuda, kind, rows):
         assert _rel(y, ref) <= 1e-5, (c, t)
         assert torch.equal(y, launch(c, t)[1]), (c, t)
     assert launch(5, 1)[0] != 0 and launch(2, 3)[0] != 0 and launch(1, 2)[0] != 0
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel on the chunk pass (one launch a call) and the Q4_0
+# f32-activation matvec's persistent grid
+# ---------------------------------------------------------------------------
+
+KINDS = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def _paged_pools(kind, B, H, dh, page, n_pasts, n_ctx, cuda, seed, L=2):
+    """(q, poisoned pools, clean pools, table) for slots at ``n_pasts``: a
+    shuffled table, the rows of every live page beyond its slot's n_past,
+    the spare pages and the pages that the table's entries beyond each
+    slot's live ones name all hold NaN (f32/bf16 rows, int8 row scales) in
+    the poisoned pools, finite stale values in the clean ones; the kernel
+    reads the poisoned pools, the plain version the clean ones."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mp = n_ctx // page
+    live = [n // page + 1 for n in n_pasts]
+    spare = 3
+    P = sum(live) + spare
+    ids = torch.randperm(P, generator=torch.Generator().manual_seed(seed)).tolist()
+    table = torch.empty((B, mp), dtype=torch.int32)
+    for b in range(B):
+        for c in range(mp):
+            table[b, c] = ids.pop() if c < live[b] else ids[c % spare]  # beyond live: the spare pages
+    shape = (P, L, H, page, dh)
+    q = torch.randn((B, H, dh), device=cuda, generator=g)
+    if kind == "int8":
+        k8, ks = _int8(shape, cuda, seed + 1)
+        v8, vs = _int8(shape, cuda, seed + 2)
+        clean = [k8, v8, ks, vs]
+    else:
+        clean = [torch.randn(shape, device=cuda, generator=g).to(KINDS[kind]) for _ in range(2)]
+    dead = torch.ones((P, page), dtype=torch.bool)  # rows no live key of any slot reads
+    for b, n in enumerate(n_pasts):
+        for j in range(n + 1):
+            dead[table[b, j // page], j % page] = False
+    poisoned = [t.clone() for t in clean]
+    for t in poisoned:
+        if t.dtype != torch.int8:
+            t.permute(0, 3, 1, 2, 4)[dead.to(cuda)] = float("nan")
+    return q, poisoned, clean, table.to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("n_ctx", [512, 2048])
+def test_paged_chunk_pass_at_engine_shapes(cuda, kind, page, B, n_ctx):
+    """The paged kernel at B = 1, 8 and 16, pages of 16 and 128, contexts of
+    512 and 2048 with one slot at its last position and one at n_past 0,
+    head dims 16, 18, 48, 80 and 128 (the plain-load path and the bulk
+    copy), against its plain version within 1e-5; every row that no live
+    key names is NaN, so a read past a slot's live keys or pages shows; a
+    second launch repeats the first bit for bit."""
+    n_pasts = [n_ctx - 1, 0, 63, 64, 200, 311, n_ctx // 2, 5, 31, 400, 256, 1, 450, 99, 17, 383][:B]
+    H = 4
+    s = "_int8" if kind == "int8" else ""
+    fn = getattr(att, f"flash_decode_attention_paged{s}")
+    plain = getattr(att, f"flash_decode_attention_paged{s}_plain")
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    for dh in (16, 18, 48, 80, 128):
+        q, poisoned, clean, table = _paged_pools(kind, B, H, dh, page, n_pasts, n_ctx, cuda, seed=dh + B)
+        before = fn.launches
+        out = fn(q, *poisoned, table, 1, np_, max(n_pasts))
+        again = fn(q, *poisoned, table, 1, np_, max(n_pasts))
+        ref = plain(q, *clean, table, 1, np_, max(n_pasts))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert bool(torch.isfinite(out).all()), dh
+        assert _rel(out, ref) <= 1e-5, dh
+        assert torch.equal(out, again), dh
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_paged_chunk_pass_is_one_kernel_and_no_scratch(cuda, kind):
+    """One device kernel a call (a profiler window of four calls) and no
+    allocation besides the output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_pasts = [0, 63, 64, 127, 200, 311, 511, 5]
+    q, pools, _, table = _paged_pools(kind, 8, 32, 128, 128, n_pasts, 512, cuda, seed=3)
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    fn = getattr(att, "flash_decode_attention_paged" + ("_int8" if kind == "int8" else ""))
+    fn(q, *pools, table, 1, np_, 511)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fn(q, *pools, table, 1, np_, 511)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(ev.count for ev in kernels) == 4, [(ev.key, ev.count) for ev in kernels]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = fn(q, *pools, table, 1, np_, 511)
+    assert torch.cuda.memory_allocated() - base == out.numel() * 4 + (-out.numel() * 4) % 512
+
+
+def test_paged_plan_smem_matches_the_kernel(cuda):
+    """ops/attention.paged_plan's shared memory is the launcher's, at every
+    cache type and the edges of the split plan."""
+    from llama_swift_torch.ops import build
+
+    query = build.lib("flash_decode").flash_decode_paged_smem_bytes
+    for kind, elt in ((0, 4), (1, 2), (2, 1)):
+        for dh in (2, 16, 18, 48, 80, 128, 256, 1022, 1024):
+            for n_keys in (1, 16, 17, 128, 129, 512, 1289, 2048, 8192):
+                plan = att.paged_plan(8, 32, dh, elt, 16, n_keys)
+                assert query(dh, kind, n_keys, plan.splits, plan.tile) == plan.smem_bytes, (kind, dh, n_keys)
+    assert query(128, 0, 512, 9, 32) == 0 and query(128, 0, 512, 8, 0) == 0  # plans the launcher refuses
+
+
+def test_paged_launcher_refuses_what_it_cannot_run(cuda):
+    """The C entry refuses keys beyond the table's pages, a layer out of
+    range, an odd head dim and a plan of more than 8 splits or an empty
+    tile (the wrapper raises before it for each, or plans none)."""
+    from llama_swift_torch.ops import build
+
+    launch = build.lib("flash_decode").flash_decode_paged
+    q, pools, _, table = _paged_pools("float32", 2, 4, 128, 16, [20, 3], 64, cuda, seed=1)
+    np_ = torch.tensor([20, 3], dtype=torch.int32, device=cuda)
+    out = torch.empty((2, 4, 128), device=cuda)
+    P, L = pools[0].shape[:2]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(il, dh, n_keys, S=2, tile=16):
+        return launch(q.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr(), None, None, table.data_ptr(),
+                      np_.data_ptr(), out.data_ptr(), 2, P, L, 4, 16, 4, il, dh, n_keys, S, tile, 0.1, 0, stream)
+
+    assert call(1, 128, 21) == 0
+    assert call(1, 128, 65) != 0  # 4 pages of 16 rows hold 64 keys
+    assert call(2, 128, 21) != 0
+    assert call(1, 127, 21) != 0
+    assert call(1, 128, 21, S=9) != 0 and call(1, 128, 21, tile=0) != 0
+    with pytest.raises(ValueError):
+        att.flash_decode_attention_paged(q, *pools, table, 1, np_, 64)
+
+
+# in-dims of LLaMA 7B, 13B and 65B (n_ff 11008, 13824, 22016) and the largest taken
+F32_MATVEC_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096), (12288, 4096), (22016, 4096),
+                     (5120, 13824), (8192, 22016), (64, mv.MAX_F32_IN), (77, 352), (8, 32)]
+
+
+@pytest.mark.parametrize("out,in_dim", F32_MATVEC_SHAPES)
+def test_f32_matvec_at_llama_shapes_repeats_bit_for_bit(cuda, out, in_dim):
+    """The Q4_0 f32-activation matvec on its persistent grid within 1e-5 of
+    max |y| of its plain version at LLaMA's shapes, one launch a call, a
+    second launch bit-equal."""
+    w, g = _q4(out, in_dim, cuda, seed=out % 97)
+    x = torch.randn(in_dim, device=cuda, generator=g)
+    before = mv.q4_0_matvec_f32.launches
+    y = mv.q4_0_matvec_f32(x, w)
+    again = mv.q4_0_matvec_f32(x, w)
+    torch.cuda.synchronize()
+    assert mv.q4_0_matvec_f32.launches == before + 2
+    assert _rel(y, mv.q4_0_matvec_f32_plain(x, w)) <= 1e-5
+    assert torch.equal(y, again)
+
+
+def test_f32_matvec_sums_in_the_lane_order(cuda):
+    """The kernel's sums are ops/q4_matvec.q4_0_matvec_f32_lane_order's
+    (lane l's blocks l, l + 32, ... as fused multiply-adds, then the warp
+    butterfly), bit for bit, on a row of 5120 (a ragged last lane step) and
+    signed powers of two in x and the scales: every block dot is exact,
+    and the f64 sums that the order's mirror rounds are exact too, so the
+    mirror's bits are the kernel's while each rounded sum of the lanes
+    depends on the order."""
+    out, in_dim = 300, 4096 + 1024
+    w, g = _q4(out, in_dim, cuda, seed=5)
+    w = mv.Q4_0Weight(w.qs, 2.0 ** torch.randint(-6, 1, w.d.shape, device=cuda, generator=g).float())
+    x = 2.0 ** torch.randint(-8, 8, (in_dim,), device=cuda, generator=g).float()
+    x = x * torch.where(torch.rand(in_dim, device=cuda, generator=g) < 0.5, -1.0, 1.0)
+    y = mv.q4_0_matvec_f32(x, w)
+    torch.cuda.synchronize()
+    want = mv.q4_0_matvec_f32_lane_order(x.cpu(), mv.Q4_0Weight(w.qs.cpu(), w.d.cpu()))
+    assert torch.equal(y.cpu(), want)
