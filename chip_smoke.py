@@ -35,12 +35,14 @@ Phases:
    layout's product (``q4_0_matmul_t``) at the four matvec shapes with
    N = 1, 8, 33, 64, beside the same pair; the stream probe
    (``stream_probe``) at kernelbench's five shapes, every row bit-equal,
-   beside ``torch.sum(words, dtype=int32)``; the paged kernels (one
-   launch a call, from a profiler window) also at B = 16 and at n_ctx
-   2048 (pages of 128 and 16); a checksum (``bits``) of the outputs of
-   batch-1 flash decode, the whole-stack kernel, the int8 flash kernels
-   and the f32 Q4_0 matvec on their seeded inputs, so that an A/B call
-   (this script on two trees) shows where two kernels agree bit for bit;
+   beside ``torch.sum(words, dtype=int32)``; the batched and paged
+   kernels (one launch a call, from a profiler window, a second call
+   bit-equal, their plans logged) also at B = 16 and at n_ctx 2048 (pages
+   of 128 and 16), the batched kernel on dense caches that hold the paged
+   kernel's keys beside it; a checksum (``bits``) of the outputs of every
+   flash kernel, the whole-stack kernel and both f32 matvecs on their
+   seeded inputs, so that an A/B call (this script on two trees) shows
+   where two kernels agree bit for bit;
 2b. the kernelbench path (``tools/kernelbench.main``, every variant at its
    five shapes; see ``run_kernelbench``): the stream probe's launches come
    from here, with each product's GB/s against the probe's on its shape;
@@ -90,8 +92,9 @@ Phases:
    32 flash launches of the wave's kernel per engine decode step, 225
    dequant launches per prefill chunk, and no other launch; every stream
    completes and every page comes back; then profiled 8-step windows of
-   waves B's and D's engine step with the paged kernel's device time a
-   step (``profile_paged_steps``);
+   waves A's and C's engine step with the batched kernel's device time a
+   step (``profile_dense_steps``), and of waves B's and D's with the paged
+   kernel's (``profile_paged_steps``);
 4c. f32 activations on the same params (``serve_f32_acts``): one runner
    request with ``quantize_activations = False`` (225 f32-activation matvec
    launches a token, 225 dequant a prefill) and wave G, wave A's shape
@@ -138,7 +141,7 @@ Phases:
    (8 requests through 4 dense f32 slots, 16 tokens each: 225 Q4_1 dequant
    launches a step and a chunk, no multi-row launch) and one request with
    f32 activations (225 f32-activation Q4_1 matvec launches a token) with
-   its profiled window; ``perplexity_of_text`` against the tokenized call
+   its profiled window (the Q4_1 f32 matvec's device time a step); ``perplexity_of_text`` against the tokenized call
    on the same README text; with ``--profile``
    8-step windows of Q4_1 batch-1 decode and of a Q4_1 engine step (B = 4);
 6. print the kernel table as one JSON line, the card line, and the final
@@ -153,6 +156,7 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -175,7 +179,7 @@ BF16_PREFILL_BAR = 0.25
 MATVEC_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
 F32_SHAPES = MATVEC_SHAPES + [(12288, 4096), (22016, 4096)]  # and fused wqkv, w13
 F32_MULTI_ROWS = [2, 8, 32]
-FLASH_NPAST = [0, 63, 64, 127, 128, 511]  # 63/64: a split edge of the batched kernels
+FLASH_NPAST = [0, 63, 64, 127, 128, 511]  # 63/64, 127/128: both sides of a 16-key split edge of batch 1's plan
 MULTI_ROWS = 8  # the engine's slots
 MULTI_ROWS_TIMED = [2, 8, 16, 32]  # row 6, each beside row 12 on the same inputs
 BATCHED_NPASTS = [0, 63, 64, 127, 200, 311, 511, 5]  # per slot, at n_ctx 512
@@ -225,13 +229,13 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def launches_per_call(torch, fn, calls: int = 4, windows: int = 3) -> float:
+def launches_per_call(torch, fn, calls: int = 4, windows: int = 6) -> float:
     """Kernel launches a call of ``fn(i)``: device kernel events in a
     ``torch.profiler`` window of ``calls`` calls, after a warm-up call.  A
     window that shows fewer than the calls made lost records (the wrapper
-    raises on a launch that fails), so up to ``windows`` windows are taken
-    until one shows a whole number; returns the last window's count, which
-    the caller holds to 1."""
+    raises on a launch that fails; a record is never invented), so up to
+    ``windows`` windows are taken until one shows a whole number; returns
+    the most a window showed, which the caller holds to 1."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -244,7 +248,7 @@ def launches_per_call(torch, fn, calls: int = 4, windows: int = 3) -> float:
             torch.cuda.synchronize()
         kernels = {ev.key: ev.count for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA}
         n = sum(kernels.values())
-        per_call = n / calls
+        per_call = max(per_call, n / calls)
         log({"case": "launches_window", "calls": calls, "kernels": kernels})
         if n and n % calls == 0:  # an empty window lost its records too
             break
@@ -270,11 +274,14 @@ def bits(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def plan_record(module, name: str, *args):
-    """The launch plan ``module.name(*args)`` as a dict, or None where the
-    package under test has no such plan (an older tree in an A/B call)."""
+def plan_record(module, name: str, *args, **kwargs):
+    """The launch plan ``module.name(*args, **kwargs)`` as a dict, or None
+    where the package under test has no such plan or its plan takes no
+    such keyword (an older tree in an A/B call)."""
     fn = getattr(module, name, None)
-    return dataclasses.asdict(fn(*args)) if fn else None
+    if fn is None or not set(kwargs) <= set(inspect.signature(fn).parameters):
+        return None
+    return dataclasses.asdict(fn(*args, **kwargs))
 
 
 # ---------------------------------------------------------------------------
@@ -520,8 +527,8 @@ def check_f32_kernels(torch, g, summary) -> list:
     """The three f32-activation kernels (the Q4_0 and Q4_1 matvecs and the
     Q4_0 multi-row matmul on unquantized rows) against their plain versions
     at ``F32_SHAPES`` (the multi-row kernel at B in ``F32_MULTI_ROWS``; the
-    Q4_0 matvec also at ``F32_WIDE``, a second launch bit-equal, its
-    output's ``bits`` and its plan logged), within 1e-5 of max |y|.
+    matvecs also at ``F32_WIDE``, a second launch bit-equal, their
+    outputs' ``bits`` and their plan logged), within 1e-5 of max |y|.
     Beside kernel, plain and bound times, the
     dequant + ``torch.matmul`` pair that these kernels replace on this path
     is timed as ``replaced_ms`` (no single PyTorch call computes the
@@ -533,7 +540,7 @@ def check_f32_kernels(torch, g, summary) -> list:
 
     failed = []
     for q41 in (False, True):
-        for out, in_dim in F32_SHAPES + ([] if q41 else F32_WIDE):
+        for out, in_dim in F32_SHAPES + F32_WIDE:
             wbytes = out * in_dim // 2 + out * (in_dim // 32) * (8 if q41 else 4)
             n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
             w = (rand_q4_1 if q41 else rand_q4)(torch, g, n, out, in_dim)
@@ -566,10 +573,11 @@ def check_f32_kernels(torch, g, summary) -> list:
                         "library_ms": None, "ok": err <= 1e-5}
                 if name == "q4_0_matmul_multi_f32":
                     case.update(tensor_bound(rows, out, in_dim, t_bytes, t_f32), host_us=host_us(torch, fn))
-                if name == "q4_0_matvec_f32":  # the persistent grid: the earlier kernel's sums, bit for bit
+                if rows == 1:  # the persistent grid: the earlier kernels' sums, bit for bit
                     case.update(bits=bits(y), repeat_bit_equal=bool(torch.equal(y, fn(0))),
                                 plan=plan_record(mv, "matvec_f32_plan", out, in_dim,
-                                                 torch.cuda.get_device_properties(0).multi_processor_count))
+                                                 torch.cuda.get_device_properties(0).multi_processor_count,
+                                                 **({"q4_1": True} if q41 else {})))
                     case["ok"] = case["ok"] and case["repeat_bit_equal"]
                 log(case)
                 if not case["ok"]:
@@ -764,12 +772,33 @@ def run_kernelbench(torch) -> dict:
     return counts
 
 
+def bf16_worst(pairs) -> dict:
+    """The element of new bf16 K/V rows [(kernel, plain)] farthest from the
+    plain's in bf16 steps of its own value (2^-7 of |plain|), with its size
+    against the row's largest |value|: the reading behind the bar that
+    takes the step at no less than 2^-13 of that largest value."""
+    best = None
+    for which, (a, b) in zip("kv", pairs):
+        a, b = a.float().flatten(), b.float().flatten()
+        steps = (a - b).abs() / (b.abs() * 2.0**-7)
+        steps = steps.nan_to_num(0.0, posinf=1e30)  # 0/0: equal zeros; x/0: 1e30
+        i = int(steps.argmax())
+        top = float(b.abs().max())
+        rec = {"kv": which, "index": i, "card": float(a[i]), "plain": float(b[i]), "own_steps": float(steps[i]),
+               "plain_of_max": abs(float(b[i])) / top, "diff_of_max": abs(float(a[i] - b[i])) / top}
+        if best is None or rec["own_steps"] > best["own_steps"]:
+            best = rec
+    return best
+
+
 def check_fused_blocks(torch, g, summary) -> list:
     """Row 11, the attention block and the FFN block, against their plain
     versions at 7B width (32 heads, n_ff 11008) with 2 layers of weights, at
     ``FUSED_NPAST`` on f32 and bf16 caches whose rows at and beyond n_past
     are stale (never read): the cache bytes unchanged by the call; k_new and
-    v_new within 1e-5 (bf16: one bf16 step of their value); each delta
+    v_new within 1e-5 (bf16: ``utils/fused_check.kv_rows_ok``, one bf16 step
+    of their value taken at no less than 2^-13 of the row's largest, with
+    the element farthest in steps of its own value logged); each delta
     within 5e-4 where no 4-bit activation code differs between the two
     (their quantizer inputs are traced), else the flips counted and held
     below ``FUSED_FLIP_LIMIT``.  Times against the bound of one layer's
@@ -778,6 +807,7 @@ def check_fused_blocks(torch, g, summary) -> list:
     ``library_ms`` is None."""
     from llama_swift_torch.ops import fused_layer as fl
     from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
+    from llama_swift_torch.utils import fused_check
 
     H, n_ctx, F, L = 32, 512, 11008, 2
     D = H * fl.HEAD_DIM
@@ -830,8 +860,10 @@ def check_fused_blocks(torch, g, summary) -> list:
                                                           trace=tr_p)
             pairs = ((k_new, k_ref), (v_new, v_ref))
             kv_err = max(rel_err(a, b) for a, b in pairs)
-            if dtype == torch.bfloat16:
-                kv_ok = all(bool(((a - b).abs() <= b.abs() * 2.0**-7).all()) for a, b in pairs)
+            worst = None
+            if dtype == torch.bfloat16:  # the megakernel's bar for the same rows
+                kv_ok = fused_check.kv_rows_ok(pairs)[0]
+                worst = bf16_worst(pairs)
             else:
                 kv_ok = kv_err <= 1e-5
             err, nflip = rel_err(delta, ref), flips(tr_k, tr_p)
@@ -840,7 +872,7 @@ def check_fused_blocks(torch, g, summary) -> list:
             t_ops = 2 * 4 * D * D / INT8_OPS
             case = {"case": "fused_attn_block", "layers": L, "cache": str(dtype).split(".")[-1], "n_past": n_past,
                     "max_rel_err": err, "max_abs_err": float((delta - ref).abs().max()), "kv_new_rel_err": kv_err,
-                    "kv_new_ok": kv_ok, "cache_unchanged": cache_ok, "q4_flips": nflip,
+                    "kv_new_ok": kv_ok, "kv_new_worst": worst, "cache_unchanged": cache_ok, "q4_flips": nflip,
                     "kernel_ms": time_ms(torch, lambda i: fl.fused_attn_block(
                         x, an[i % L], cos, sin, wqkv, wo, kc, vc, i % L, n_past), 50),
                     "plain_ms": time_ms(torch, lambda i: fl.fused_attn_block_plain(
@@ -1013,11 +1045,14 @@ def check_kernels(torch) -> dict:
                     "kernel_ms": time_ms(torch, fn, 200), "plain_ms": time_ms(torch, plain, 20),
                     "bound_ms": bound, "library_ms": time_ms(torch, lib, 200) if lib else None,
                     "ok": err <= 1e-5}
-            if "paged" in name:  # one launch a call, the same bits on a second call
-                case.update(page=page, launches_per_call=launches_per_call(torch, fn),
-                            repeat_bit_equal=bool(torch.equal(out, fn(3))),
-                            plan=plan_record(att, "paged_plan", B, H, dh, elt, page, max_np + 1))
-                case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
+            # one launch a call, the same bits on a second call
+            case.update(launches_per_call=launches_per_call(torch, fn), repeat_bit_equal=bool(torch.equal(out, fn(3))),
+                        bits=bits(out))
+            if "paged" in name:
+                case.update(page=page, plan=plan_record(att, "paged_plan", B, H, dh, elt, page, max_np + 1))
+            else:
+                case["plan"] = plan_record(att, "batched_plan", B, H, dh, elt, max_np + 1)
+            case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
             log(case)
             if not case["ok"]:
                 failed.append(case)
@@ -1214,7 +1249,7 @@ def check_int8_kernels(torch, g, summary) -> list:
         case.update(max_rel_err=err, max_abs_err=float((out - ref).abs().max()),
                     kernel_ms=time_ms(torch, fn, 200), plain_ms=time_ms(torch, plain, 20),
                     bound_ms=bound, library_ms=None, bits=bits(out), ok=err <= 1e-5)
-        if case["case"] == "flash_decode_attention_paged_int8":  # one launch a call
+        if case["case"] != "flash_decode_attention_stacked_int8":  # one launch a call
             case.update(launches_per_call=launches_per_call(torch, fn), repeat_bit_equal=bool(torch.equal(out, fn(3))))
             case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
         log(case)
@@ -1264,7 +1299,8 @@ def check_int8_kernels(torch, g, summary) -> list:
         q = torch.randn((B, H, dh), device="cuda", generator=g)
         ref = att.flash_decode_attention_batched_int8_plain(q, k8, v8, ks, vs, 3, n_pasts, max_np)
         case = measure(
-            {"case": "flash_decode_attention_batched_int8", "B": B, "n_pasts": n_list},
+            {"case": "flash_decode_attention_batched_int8", "B": B, "n_pasts": n_list,
+             "plan": plan_record(att, "batched_plan", B, H, dh, 1, max_np + 1)},
             att.flash_decode_attention_batched_int8(q, k8, v8, ks, vs, 3, n_pasts, max_np), ref,
             lambda i: att.flash_decode_attention_batched_int8(q, k8, v8, ks, vs, i % L, n_pasts, max_np),
             lambda i: att.flash_decode_attention_batched_int8_plain(q, k8, v8, ks, vs, i % L, n_pasts, max_np),
@@ -1332,6 +1368,21 @@ def paged_pools(torch, g, dtype, n_list, n_ctx: int, page: int, L: int, H: int =
     return q, pools, table.to("cuda"), torch.tensor(n_list, dtype=torch.int32, device="cuda")
 
 
+def dense_from_pools(torch, pools, table, n_ctx: int):
+    """The layer-major dense caches ``[L, B, H, n_ctx, X]`` that hold the
+    same rows as the pools ``[P, L, H, page, X]`` through the table (ids
+    clamped to the pool, as the kernels do): the batched kernel's input on
+    the paged kernel's keys."""
+    out = []
+    for t in pools:
+        P, L, H, page, X = t.shape
+        B, MP = table.shape
+        d = t[table.long().clamp(0, P - 1)]  # [B, MP, L, H, page, X]
+        out.append(d.permute(2, 0, 3, 1, 4, 5).reshape(L, B, H, MP * page, X)[:, :, :, :n_ctx].contiguous())
+        del d
+    return out
+
+
 def check_paged_kernels(torch, g) -> list:
     """The paged kernel (rows 8, 8i) beside the B = 8 cases of
     ``check_kernels`` and ``check_int8_kernels``: at B = 16
@@ -1339,7 +1390,9 @@ def check_paged_kernels(torch, g) -> list:
     ``PAGED_NPASTS_2048``), pages of 128 (and 16 at n_ctx 2048), on f32,
     bf16 and int8 pools of 4 layers, against the plain version within
     1e-5, timed round robin over the layers (each layer's live rows are
-    25-170 MB: beyond L2).  Bound: the K and V rows of the live keys (and
+    25-170 MB: beyond L2); at pages of 128 the batched kernel (rows 7, 7i)
+    on dense caches that hold the same rows (``dense_from_pools``), the
+    same keys, beside it.  Bound: the K and V rows of the live keys (and
     their f32 scales), q in and the output out.  Returns the cases that
     disagree."""
     from llama_swift_torch.ops import attention as att
@@ -1368,6 +1421,25 @@ def check_paged_kernels(torch, g) -> list:
             log(case)
             if not case["ok"]:
                 failed.append(case)
+            if page == 128:  # the batched kernel on the same keys
+                dense = dense_from_pools(torch, pools, table, n_ctx)
+                bfn = getattr(att, f"flash_decode_attention_batched{s}")
+                bplain = getattr(att, f"flash_decode_attention_batched{s}_plain")
+                bcall = lambda i: bfn(q, *dense, i % L, n_pasts, max_np)  # noqa: E731
+                bout = bcall(1)
+                berr = rel_err(bout, ref)
+                bcase = dict(case, case=f"flash_decode_attention_batched{s}", max_rel_err=berr,
+                             max_abs_err=float((bout - ref).abs().max()), kernel_ms=time_ms(torch, bcall, 200),
+                             plain_ms=events_ms(torch, lambda i: bplain(q, *dense, i % L, n_pasts, max_np)),
+                             bits=bits(bout), repeat_bit_equal=bool(torch.equal(bout, bcall(1))),
+                             paged_kernel_ms=case["kernel_ms"],
+                             plan=plan_record(att, "batched_plan", B, H, dh, pools[0].element_size(), max_np + 1))
+                del bcase["page"]
+                bcase["ok"] = berr <= 1e-5 and bcase["repeat_bit_equal"]
+                log(bcase)
+                if not bcase["ok"]:
+                    failed.append(bcase)
+                del dense, bout
             del q, pools, out, ref
         torch.cuda.empty_cache()
     return failed
@@ -2097,7 +2169,7 @@ def serve_q4_1(torch, workdir: str, profile: bool) -> list:
         ("greedy_device_q4_1_f32_acts", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=10, top_k=1)),
          "float32")], PROMPTS[2:], composed(n_layer, 7, "q4_1_matvec_f32", "q4_1_dequant"), quantize_activations=False)
     runs.append(ops.launch_counts())  # read just after
-    profile_f32_decode(torch, runner, "profile_q4_1_f32_decode_8_steps")
+    profile_f32_decode(torch, runner, "profile_q4_1_f32_decode_8_steps", focus="F32BlockQ4_1")
     del fused_runner
     torch.cuda.empty_cache()
     runs.append(serve_engine(torch, runner, [("F_q4_1_dense_f32", 4, dict(cache_dtype=torch.float32),
@@ -2253,17 +2325,34 @@ def serve_engine(torch, runner, waves, n_predict: int = 32, **overrides) -> dict
     return counts
 
 
-def profile_f32_decode(torch, runner, name: str) -> None:
+def profile_f32_decode(torch, runner, name: str, focus: str = "F32BlockQ4_0") -> None:
     """A profiled 8-step window of batch-1 decode with f32 activations on
-    the runner's params (the device idle share of that path)."""
+    the runner's params (the device idle share of that path, and the device
+    time a step of its f32 matvec: ``focus`` names its block type)."""
     from llama_swift_torch.models import llama as model_lib
 
     cfg = dataclasses.replace(runner.config, quantize_activations=False)
     tok = torch.tensor(1, device="cuda")
     cache = model_lib.init_cache(cfg, device="cuda")
-    profile_window(torch, name, lambda i: model_lib.decode_step(runner.params, tok, i, cache, cfg),
-                   focus="q4_0_matvec_f32_kernel")
+    profile_window(torch, name, lambda i: model_lib.decode_step(runner.params, tok, i, cache, cfg), focus=focus)
     del cache
+
+
+def profile_dense_steps(torch, runner) -> None:
+    """Profiled 8-step windows of waves A's and C's engine step (8 slots of
+    a dense f32 cache, 16 of a dense int8 one, slots at different
+    positions), with the device time a step of the batched kernel."""
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg, params = runner.config, runner.params
+    for name, slots, dtype in (("profile_wave_A_dense_f32_step_8_steps", 8, torch.float32),
+                               ("profile_wave_C_dense_int8_step_8_steps", 16, torch.int8)):
+        cache = model_lib.init_cache_batched(cfg, slots, dtype=dtype, device="cuda")
+        toks = torch.ones(slots, dtype=torch.int64, device="cuda")
+        n_pasts = np.arange(slots) * 8  # slots at different positions
+        profile_window(torch, name, lambda i: model_lib.forward_batched(params, toks, n_pasts + i, cache, cfg),
+                       focus=BATCHED_KERNEL)
+        del cache
 
 
 def profile_paged_steps(torch, runner) -> None:
@@ -2891,13 +2980,15 @@ def check_aux(torch) -> None:
 
 
 F32_MMA_KERNEL = "q4_f32_mma_kernel"  # the device kernel of q4_0_matmul_multi_f32 and q4_0_matmul_t
-PAGED_KERNEL = "flash_paged_kernel"  # the device kernel of both paged wrappers
+PAGED_KERNEL = r"flash_slots_kernel<[^>]*, false>"  # the device kernel of both paged wrappers
+BATCHED_KERNEL = r"flash_slots_kernel<[^>]*, true>"  # the device kernel of both batched wrappers
 
 
 def profile_window(torch, name: str, step, n_steps: int = 8, focus: str = None) -> None:
     """Device busy share and kernel time by name over ``n_steps`` calls of
-    ``step(i)`` after one warm-up call; with ``focus``, the device time a
-    step and the launches of the kernels whose names hold it."""
+    ``step(i)`` after one warm-up call; with ``focus`` (a regular
+    expression), the device time a step and the launches of the kernels
+    whose names match it."""
     from torch.profiler import ProfilerActivity, profile
 
     step(0)
@@ -2920,7 +3011,7 @@ def profile_window(torch, name: str, step, n_steps: int = 8, focus: str = None) 
            "launches_per_step": sum(r[2] for r in rows) / n_steps,
            "top_kernels_us_per_step": [[k, us / n_steps, n // n_steps] for us, k, n in rows[:12]]}
     if focus:
-        mine = [r for r in rows if focus in r[1]]
+        mine = [r for r in rows if re.search(focus, r[1])]
         rec.update({"focus": focus, "focus_ms_per_step": sum(r[0] for r in mine) / n_steps / 1e3,
                     "focus_launches_per_step": sum(r[2] for r in mine) / n_steps})
     log(rec)
@@ -3051,6 +3142,7 @@ def main(argv=None) -> int:
             check_batched_parity(torch, torch.int8)
             served = serve(torch, workdir, args.profile)
             runs += [served["launches"], serve_engine(torch, served["runner"], engine_waves(torch))]
+            profile_dense_steps(torch, served["runner"])
             profile_paged_steps(torch, served["runner"])
             runs += serve_f32_acts(torch, served["runner"])
             fused, path = served["fused_runner"], served["path"]

@@ -1,17 +1,17 @@
 // Device code of single-query (decode) attention shared by flash_decode.cu,
-// fused_layer.cu and fused_blocks.cu: row accessors of a dense cache, the
-// chunk pass over one run of keys (from a contiguous plane or through a
-// page table), the older split pass and the combine of a head's splits.
+// fused_layer.cu and fused_blocks.cu: the chunk pass over one run of keys
+// (from a contiguous plane or through a page table), the older split pass
+// of the two-kernels-per-layer blocks and the combine of a head's splits.
 //
-// The chunk pass (`chunk_pass`) is what batch-1 decode, the paged kernel
-// and the whole-stack kernel's attention phase run.  What bounds it on the
-// H100 is device memory: a split's K and V rows are read once (2.5 us for
-// 8.4 MB at 3.35 TB/s for 32 heads at n_past 511 on a bf16 cache).  The
-// older pass (`split_chunk_kv`, kept for the dense batched kernel and the
-// two-kernels-per-layer blocks) reached it through many dependent
-// loads: a warp read a key row at a time, then a serial max, then thread d
-// walked the 64 value rows, so a block waited on memory some 80 times and
-// too few bytes were in flight.  The chunk pass instead:
+// The chunk pass (`chunk_pass`) is what batch-1 decode, the batched and
+// paged kernels and the whole-stack kernel's attention phase run.  What
+// bounds it on the H100 is device memory: a split's K and V rows are read
+// once (2.5 us for 8.4 MB at 3.35 TB/s for 32 heads at n_past 511 on a
+// bf16 cache).  The older pass (`split_chunk_kv`, kept only for the
+// two-kernels-per-layer blocks of fused_blocks.cu) reached it through
+// many dependent loads: a warp read a key row at a time, then a serial
+// max, then thread d walked the 64 value rows, so a block waited on memory
+// some 80 times and too few bytes were in flight.  The chunk pass instead:
 //  * copies its run of K and V rows into shared memory with the 1-D bulk
 //    form of TMA (cp.async.bulk: one instruction for a tile's K rows, one
 //    for its V rows, each completing on an mbarrier; the int8 row scales
@@ -32,6 +32,12 @@
 //  * takes the tile's max and sum by warp reductions (online softmax from
 //    tile to tile), and the values with four dims a thread (a warp a row
 //    at dh 128; the warps take different keys, summed in order at the end).
+// The tile's fixed work is kept small without changing a sum: warp 0
+// alone takes the tile's max and exponentials (every warp doing so would
+// take 8x the exponentials) and hands the rescale factor to the others
+// through shared memory, and an int8 code becomes a float by a byte
+// permute under the exponent of 2^23 and one subtraction (exact) instead
+// of a conversion instruction.
 // All arithmetic is f32 and every sum runs in a fixed order; where the
 // rows come from changes no arithmetic.
 #pragma once
@@ -75,77 +81,42 @@ __device__ __forceinline__ float lane_dot(const float* qs, const T* row, int dh,
   return s;
 }
 
-// int8 rows: four codes per lane (a 128-code row is one 128-byte line per
-// warp).  Rows start at multiples of dh % 32 == 0 bytes, so char4 is aligned.
-__device__ __forceinline__ float lane_dot(const float* qs, const int8_t* row, int dh, int lane) {
-  float s = 0.0f;
-  for (int d = 4 * lane; d < dh; d += 128) {
-    const char4 c = *reinterpret_cast<const char4*>(row + d);
-    s += qs[d] * c.x + qs[d + 1] * c.y + qs[d + 2] * c.z + qs[d + 3] * c.w;
-  }
-  return s;
-}
-
-// Rows of one (slot, head) of a contiguous [.., n_ctx, Dh] plane; `scale`
-// points at the plane's [n_ctx] row scales (int8 caches only).
+// Rows of one head of a contiguous [n_ctx, Dh] plane.
 template <typename T>
 struct DenseRows {
   const T* base;
-  const float* scale;
   int dh;
   __device__ const T* row(int j) const { return base + static_cast<size_t>(j) * dh; }
-  __device__ float row_scale(int j) const { return __ldg(scale + j); }
 };
 
-// lane_dot for any even dh: int8 rows a code a lane where they are not
-// 4-byte aligned whole words (dh % 4 == 2, or an unaligned plane).
-template <typename T>
-__device__ __forceinline__ float lane_dot_any(const float* qs, const T* row, int dh, int lane) {
-  if (std::is_same<T, int8_t>::value && ((dh & 3) || (reinterpret_cast<uintptr_t>(row) & 3))) {
-    float s = 0.0f;
-    for (int d = lane; d < dh; d += 32) s += qs[d] * to_f32(row[d]);
-    return s;
-  }
-  return lane_dot(qs, row, dh, lane);
-}
-
-// Keys [j0, j0 + jn) of one (slot, head), keys and values read through
-// the accessors: writes (acc[0..dh), m, l) to out.  Block of dh threads
-// (dh % 32 == 0); ANY_DH: any even dh, the block dh threads rounded up to
-// whole warps (thread d < dh owns dim d; all warps take the scores).
-// Dynamic shared memory (dh + 2 * CHUNK) floats.
-template <typename T, typename Rows, bool ANY_DH = false>
+// Keys [j0, j0 + jn) of one head, keys and values read through the
+// accessors (f32 or bf16 rows): writes (acc[0..dh), m, l) to out.  Block
+// of dh threads (dh % 32 == 0).  Dynamic shared memory (dh + 2 * CHUNK)
+// floats.
+template <typename T, typename Rows>
 __device__ void split_chunk_kv(const float* __restrict__ qrow, const Rows& krows, const Rows& vrows,
                                int j0, int jn, float scale, float* __restrict__ out) {
-  constexpr bool kScaled = std::is_same<T, int8_t>::value;
   extern __shared__ float smem[];
   const int dh = krows.dh;
   float* qs = smem;                // [dh]
   float* sc = smem + dh;           // [CHUNK] scores, then exp(s - m)
-  float* pv = smem + dh + CHUNK;   // [CHUNK] value weights (int8: exp(s - m) * vs)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  if (!ANY_DH || tid < dh) qs[tid] = qrow[tid];
+  qs[tid] = qrow[tid];
   __syncthreads();
   for (int j = warp; j < jn; j += nwarps) {
-    const float s = warp_sum(ANY_DH ? lane_dot_any(qs, krows.row(j0 + j), dh, lane)
-                                    : lane_dot(qs, krows.row(j0 + j), dh, lane));
-    if (lane == 0) sc[j] = (kScaled ? s * krows.row_scale(j0 + j) : s) * scale;
+    const float s = warp_sum(lane_dot(qs, krows.row(j0 + j), dh, lane));
+    if (lane == 0) sc[j] = s * scale;
   }
   __syncthreads();
   float m = -INFINITY;
   for (int j = 0; j < jn; ++j) m = fmaxf(m, sc[j]);
   __syncthreads();
-  for (int j = tid; j < jn; j += blockDim.x) {
-    const float e = expf(sc[j] - m);
-    sc[j] = e;
-    pv[j] = kScaled ? e * vrows.row_scale(j0 + j) : e;
-  }
+  for (int j = tid; j < jn; j += blockDim.x) sc[j] = expf(sc[j] - m);
   __syncthreads();
-  if (ANY_DH && tid >= dh) return;  // threads past dh (rounding the block to whole warps) own no dim
   float l = 0.0f, acc = 0.0f;
   for (int j = 0; j < jn; ++j) {
     l += sc[j];
-    acc += pv[j] * to_f32(vrows.row(j0 + j)[tid]);
+    acc += sc[j] * to_f32(vrows.row(j0 + j)[tid]);
   }
   out[tid] = acc;
   if (tid == 0) {
@@ -244,10 +215,21 @@ __device__ __forceinline__ float chunk_dot(const float* q, uint4 w, __nv_bfloat1
   const float4* q4 = reinterpret_cast<const float4*>(q);
   return bf16_pair_dot(q4[0], w.x, w.y) + bf16_pair_dot(q4[1], w.z, w.w);
 }
+// An int8 code c of a word, biased to c + 128 (one xor a word), placed
+// under the exponent of 2^23 by one byte permute; one subtraction of 2^23
+// + 128 leaves c exactly, with no conversion instruction (which the SM
+// issues at a fraction of the rate of an add).
+template <int K>
+__device__ __forceinline__ float int8_code(uint32_t biased) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 | K)) - 8388736.0f;
+}
+__device__ __forceinline__ float4 int8_word4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  return make_float4(int8_code<0>(u), int8_code<1>(u), int8_code<2>(u), int8_code<3>(u));
+}
 __device__ __forceinline__ float int8_word_dot(float4 a, uint32_t w) {
-  return a.x * static_cast<float>(static_cast<int8_t>(w)) + a.y * static_cast<float>(static_cast<int8_t>(w >> 8)) +
-         a.z * static_cast<float>(static_cast<int8_t>(w >> 16)) +
-         a.w * static_cast<float>(static_cast<int8_t>(w >> 24));
+  const float4 c = int8_word4(w);
+  return a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
 }
 __device__ __forceinline__ float chunk_dot(const float* q, uint4 w, int8_t) {
   const float4* q4 = reinterpret_cast<const float4*>(q);
@@ -262,11 +244,7 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u), __uint_as_float(w.y << 16),
                      __uint_as_float(w.y & 0xffff0000u));
 }
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-  return make_float4(static_cast<int8_t>(w), static_cast<int8_t>(w >> 8), static_cast<int8_t>(w >> 16),
-                     static_cast<int8_t>(w >> 24));
-}
+__device__ __forceinline__ float4 load4(const int8_t* p) { return int8_word4(*reinterpret_cast<const uint32_t*>(p)); }
 
 // Where the chunk pass reads its rows.  PlaneRows: a contiguous [n_ctx,
 // dh] plane (k, v; ks, vs its row scales for int8, else null); key j is
@@ -514,20 +492,26 @@ __device__ void chunk_pass_rows(float* qs, StageQ stage_q, const Src& src, int d
       if (sub == 0 && r < n) sc[r] = (kScaled ? s * sks[r] : s) * scale;
     }
     __syncthreads();
-    // the tile's max and sum: every warp reduces the same scores alike
-    float tmax = -INFINITY;
-    for (int j = lane; j < n; j += 32) tmax = fmaxf(tmax, sc[j]);
-    tmax = warp_max_f(tmax);
-    const float m_new = fmaxf(m_run, tmax);
-    const float alpha = expf(m_run - m_new);  // 0 at the first tile
-    float psum = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(sc[j] - m_new);
-      psum += p;
-      if (warp == 0) pv[j] = p;
+    // the tile's max and sum: warp 0 alone, which leaves alpha in sc[0] for
+    // the others (only thread 0 reads m_run and l_run at the end)
+    float alpha = 0.0f;
+    if (warp == 0) {
+      float tmax = -INFINITY;
+      for (int j = lane; j < n; j += 32) tmax = fmaxf(tmax, sc[j]);
+      tmax = warp_max_f(tmax);
+      const float m_new = fmaxf(m_run, tmax);
+      alpha = expf(m_run - m_new);  // 0 at the first tile
+      float psum = 0.0f;
+      for (int j = lane; j < n; j += 32) {
+        const float p = expf(sc[j] - m_new);
+        psum += p;
+        pv[j] = p;
+      }
+      l_run = l_run * alpha + warp_sum(psum);
+      m_run = m_new;
+      __syncwarp();  // every lane's reads of sc before sc[0] is overwritten
+      if (lane == 0) sc[0] = alpha;
     }
-    l_run = l_run * alpha + warp_sum(psum);
-    m_run = m_new;
     if constexpr (BULK) mbar_wait(bar + 2 * (t % NST) + 1, parity);  // tile t's V rows have landed
     if (kScaled) cp_async_wait<2 * NST - 2>();
     if (has_own) {  // the own V row, from shared memory
@@ -540,6 +524,7 @@ __device__ void chunk_pass_rows(float* qs, StageQ stage_q, const Src& src, int d
           reinterpret_cast<T*>(st + static_cast<size_t>(tile + mine) * srow)[i] = own_v[i];
     }
     __syncthreads();
+    alpha = sc[0];  // read before the next tile's scores, behind its barrier
     // values: 4 dims of the rows of key group kg (a row's last thread at
     // dh % 4 == 2 also reads 2 elements of the row's padding, never
     // summed into the output); int8 V row scales are read only here,

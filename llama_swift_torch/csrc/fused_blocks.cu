@@ -199,7 +199,7 @@ __device__ void history_pass(const AttnArgs& a, float* smem_f) {
     __syncthreads();  // the previous item is done with qrow
     qrow[tid] = rope_cs(a.qkv + h * DH, tid, a);
     __syncthreads();
-    split_chunk_kv<T>(qrow, DenseRows<T>{kc + head, nullptr, DH}, DenseRows<T>{vc + head, nullptr, DH},
+    split_chunk_kv<T>(qrow, DenseRows<T>{kc + head, DH}, DenseRows<T>{vc + head, DH},
                       c * CHUNK, min(CHUNK, a.n_past - c * CHUNK), a.scale,
                       a.part + (static_cast<size_t>(h) * S + c) * (DH + 2));
   }

@@ -158,45 +158,40 @@
 // is 3 * 2 * B operations a weight at 989 TFLOP/s, 2.2 us at B = 8).  The
 // design, the K order and the rounding argument are in q4_f32_mma.cuh.
 //
-// Design, Q4_1 matvec: the activation row is staged once per block in
-// shared memory (16 KB at in 4096, 44 KB at in 11008), transposed to
-// [8][nb] float4 so that lane l, on blocks l, l+32, ..., reads consecutive
-// float4 (no bank conflict; the row stride is odd, so the staging writes do
-// not conflict either).  One warp per output row, 16 bytes of nibbles a
-// block; each block's 32 products go to one f32 sum, scaled by d plus m
-// times the block's sum of x (computed once per block of threads from the
-// staged copy).  The grid is capped at 8 blocks an SM and each warp strides
-// over rows, so the row is staged a bounded number of times whatever the
-// output count.
-//
-// Design, Q4_0 matvec (q4_0_matvec_f32_kernel, redesigned for the H100).
-// The first kernel was the Q4_1 one's shape, and three things held it at
-// 35-49 % of its bound (8.96 us at 4096^2, 17.31 at 11008x4096 on an H100
-// 80GB HBM3 at 700 W): every block staged the whole x row before its first
-// weight load, so each block waited on L2 and then on device memory in
-// turn; up to 1,056 blocks re-read x (8 MB of L2 reads at 4096^2, 22.5 MB
-// at 4096x11008, against 10.5 and 28 MB of weights); a warp had two
-// blocks' loads in flight at a time.  Now:
+// Design, f32 matvecs (q4_matvec_f32_kernel<Block>: Q4_0 and Q4_1 on one
+// kernel, the weight block type its template parameter).  The first kernels staged the whole x row in every block
+// before its first weight load, so each block waited on L2 and then on
+// device memory in turn; up to 1,056 blocks re-read x (8 MB of L2 reads
+// at 4096^2, 22.5 MB at 4096x11008, against 10.5 and 28 MB of Q4_0
+// weights); a warp had two blocks' loads in flight at a time; that held
+// them at 35-55 % of their bound at 7B shapes (Q4_0 8.96 us at 4096^2,
+// Q4_1 9.27; H100 80GB HBM3 at 700 W).  Now:
 //  * a persistent grid of two F32_WARPS-warp blocks an SM (ops/q4_matvec.
 //    matvec_f32_plan): x is staged 264 times (4.3 MB of L2 reads at in
 //    4096), and every warp walks rows r, r + 16 * grid, ...;
 //  * a block first issues the loads of x's first round (L2 hits, so they
 //    return first), then each lane the loads of its first F32_RING weight
-//    blocks (16 bytes of nibbles and the 4-byte scale each), then stages
-//    x while the weights are on their way;
+//    blocks (16 bytes of nibbles and the 4-byte scale, or Q4_1's 8-byte
+//    (d, m), each), then stages x while the weights are on their way;
+//    Q4_1 then sums each 32-block of x from the staged copy (the first
+//    weights still in flight) beside the row;
 //  * then a ring of F32_RING blocks in registers runs across rows: the
 //    lane's blocks of a row and those of its next row form one stream, a
 //    refill issued as soon as a block is taken.
-// Variants timed on the card (throwaway builds, H100 80GB HBM3 at 700 W):
-// rings of 1-8 blocks a lane and 8-32 warps at 1-6 blocks an SM; two
-// blocks in flight a lane and two 16-warp blocks an SM were the fastest
-// at most of LLaMA's shapes (deeper rings take registers and blocks).
-// The arithmetic is the first kernel's, bit for bit: lane l sums its
-// blocks l, l+32, ... in order, each block's dot a fresh chain of 32 FMAs
-// scaled by d into the lane's sum, then the same warp butterfly; a row's
-// lanes step through the same number of ring slots (a lane past the row's
-// blocks skips its slot), so the butterfly meets every lane at the row's
-// end.
+// x is staged transposed to [8][nb] float4, so that lane l, on blocks l,
+// l+32, ..., reads consecutive float4 (no bank conflict; the row stride is
+// odd, so the staging writes do not conflict either).
+// Variants timed on the card for Q4_0 (throwaway builds, H100 80GB HBM3 at
+// 700 W): rings of 1-8 blocks a lane and 8-32 warps at 1-6 blocks an SM;
+// two blocks in flight a lane and two 16-warp blocks an SM were the
+// fastest at most of LLaMA's shapes (deeper rings take registers and
+// blocks).  The arithmetic is the first kernels', bit for bit: lane l sums
+// its blocks l, l+32, ... in order, each block's dot a fresh chain of 32
+// FMAs, into the lane's sum as fma(d, dot, acc) (Q4_1: fma(d, dot, fma(m,
+// xsum, acc)), each block's sum of x four elements at a time), then the
+// same warp butterfly; a row's lanes step through the same number of ring
+// slots (a lane past the row's blocks skips its slot), so the butterfly
+// meets every lane at the row's end.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -725,16 +720,32 @@ __device__ __forceinline__ void stage(const float* __restrict__ x, int n, float4
   }
 }
 
-constexpr int F32_WARPS = 16;  // warps of a Q4_0 f32 block, one row at a time each
+constexpr int F32_WARPS = 16;  // warps of an f32 matvec block, one row at a time each
 constexpr int F32_RING = 2;    // weight blocks a lane keeps in flight
 constexpr int F32_BLOCKS_PER_SM = 2;  // blocks an SM of the persistent grid (ops/q4_matvec.F32_BLOCKS_PER_SM)
 
-// qs [out][nb*16] u8, dw [out][nb] f32, x [nb*32] f32 -> y [out] f32.
-// Warp w of block g takes rows g * F32_WARPS + w + k * gridDim.x * F32_WARPS.
+// The weight block types of the f32 matvec.  Q4_0: a scale d, nibbles
+// n - 8.  Q4_1: (d, m), nibbles n, and each block's sum of x beside the
+// staged row.
+struct F32BlockQ4_0 {
+  using Scale = float;
+  static constexpr bool kMin = false;
+  static constexpr float kOffset = 8.0f;
+};
+struct F32BlockQ4_1 {
+  using Scale = float2;
+  static constexpr bool kMin = true;
+  static constexpr float kOffset = 0.0f;
+};
+
+// qs [out][nb*16] u8, sc [out][nb] (Q4_0: d f32; Q4_1: {d, m} f32),
+// x [nb*32] f32 -> y [out] f32.  Warp w of block g takes rows
+// g * F32_WARPS + w + k * gridDim.x * F32_WARPS.
+template <typename Block>
 __global__ void __launch_bounds__(F32_WARPS * 32, F32_BLOCKS_PER_SM)
-q4_0_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
-                       const float* __restrict__ x, float* __restrict__ y, int out, int nb, int stride) {
-  extern __shared__ float4 xs[];  // [8][stride]: xs[j * stride + b] = x[32b + 4j .. 32b + 4j + 3]
+q4_matvec_f32_kernel(const uint8_t* __restrict__ qs, const typename Block::Scale* __restrict__ sc,
+                     const float* __restrict__ x, float* __restrict__ y, int out, int nb, int stride) {
+  extern __shared__ float4 xs[];  // [8][stride]: xs[j * stride + b] = x[32b + 4j .. 32b + 4j + 3]; Q4_1: then xsum [nb]
   const int lane = threadIdx.x & 31;
   const int kb = (nb + 31) / 32;                           // ring slots a row: lane l's blocks l + 32k, k < kb
   const int klast = lane < nb ? (nb - 1 - lane) / 32 : -1;  // this lane's last slot with a block
@@ -743,13 +754,13 @@ q4_0_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float* __restrict__
   const size_t jump = static_cast<size_t>(rstep) * nb - static_cast<size_t>(32) * kb;  // a row's end to the next row
   // the load cursor (lrow, lk; block lo of the weight) runs F32_RING slots ahead of the sums
   uint4 wq[F32_RING];
-  float wd[F32_RING];
+  typename Block::Scale wd[F32_RING];
   int lrow = first, lk = 0;
   size_t lo = static_cast<size_t>(first) * nb + lane;
   auto fetch = [&](int u) {
     if (lrow < out && lk <= klast) {
       wq[u] = __ldg(reinterpret_cast<const uint4*>(qs) + lo);
-      wd[u] = __ldg(dw + lo);
+      wd[u] = __ldg(sc + lo);
     }
     lo += 32;
     if (++lk == kb) {
@@ -777,6 +788,19 @@ q4_0_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float* __restrict__
   }
   stage(x, n, xs, stride, STAGE_LOADS * blockDim.x);
   __syncthreads();
+  float* xsum = reinterpret_cast<float*>(xs + 8 * stride);  // Q4_1: each block's sum of x
+  if constexpr (Block::kMin) {  // from the staged copy, while the first weights are on their way
+    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 v = xs[j * stride + b];
+        s += v.x + v.y + v.z + v.w;
+      }
+      xsum[b] = s;
+    }
+    __syncthreads();
+  }
   int row = first, k = 0;
   const float4* xp = xs + lane;  // x of block lane + 32k
   float acc = 0.0f;
@@ -786,8 +810,11 @@ q4_0_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float* __restrict__
       if (row < out) {  // the same for the whole warp
         if (k <= klast) {
           float wf[QK];
-          unpack_block(wq[u], 8.0f, wf);
-          acc = fmaf(wd[u], dot_block(wf, xp, stride), acc);
+          unpack_block(wq[u], Block::kOffset, wf);
+          if constexpr (Block::kMin)
+            acc = fmaf(wd[u].x, dot_block(wf, xp, stride), fmaf(wd[u].y, xsum[lane + 32 * k], acc));
+          else
+            acc = fmaf(wd[u], dot_block(wf, xp, stride), acc);
         }
         fetch(u);  // slot u is free: the block F32_RING slots on
         xp += 32;
@@ -804,41 +831,6 @@ q4_0_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float* __restrict__
   }
 }
 
-// qs [out][nb*16] u8, dm [out][nb] {d, m} f32, x [nb*32] f32 -> y [out] f32
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-q4_1_matvec_f32_kernel(const uint8_t* __restrict__ qs, const float2* __restrict__ dm,
-                       const float* __restrict__ x, float* __restrict__ y, int out, int nb, int stride) {
-  extern __shared__ float4 xs[];  // [8][stride] as for Q4_0, then xsum [nb]
-  float* xsum = reinterpret_cast<float*>(xs + 8 * stride);
-  stage(x, nb * QK, xs, stride);
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 v = xs[j * stride + b];
-      s += v.x + v.y + v.z + v.w;
-    }
-    xsum[b] = s;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5); row < out; row += gridDim.x * ROWS_PER_BLOCK) {
-    const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
-    const float2* dmrow = dm + static_cast<size_t>(row) * nb;
-    float acc = 0.0f;
-#pragma unroll 2
-    for (int b = lane; b < nb; b += 32) {
-      float wf[QK];
-      unpack_block(__ldg(wrow + b), 0.0f, wf);
-      const float2 wdm = __ldg(dmrow + b);
-      acc = fmaf(wdm.x, dot_block(wf, xs + b, stride), fmaf(wdm.y, xsum[b], acc));
-    }
-    acc = warp_sum_f(acc);
-    if (lane == 0) y[row] = acc;
-  }
-}
-
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB the
 // default refuses the launch).
 template <typename K>
@@ -847,21 +839,27 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
-// blocks of the Q4_1 f32 matvec: one warp per row, at most 8 blocks an SM
-int matvec_f32_grid(int out) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int rows = (out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, cap = 8 * (sms > 0 ? sms : 1);
-  return rows < cap ? rows : cap;
-}
-
 constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on the H100 (227 KB)
 
+// The f32 matvec of Block's weights on `blocks` blocks of F32_WARPS warps
+// (ops/q4_matvec.matvec_f32_plan: two an SM, fewer for few rows); x staged
+// in shared memory, Q4_1 with each block's sum of x beside it.
+template <typename Block>
+int launch_matvec_f32(const void* qs, const void* sc, const void* x, void* y, int out, int in_dim, int blocks,
+                      void* stream) {
+  const int nb = in_dim / QK, stride = nb | 1;
+  const size_t smem = static_cast<size_t>(8) * stride * sizeof(float4) + (Block::kMin ? nb * sizeof(float) : 0);
+  if (out < 1 || nb < 1 || in_dim % QK || blocks < 1 || smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(q4_matvec_f32_kernel<Block>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  q4_matvec_f32_kernel<Block><<<blocks, F32_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(qs), static_cast<const typename Block::Scale*>(sc), static_cast<const float*>(x),
+      static_cast<float*>(y), out, nb, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
 
 // Launches the pre-pass and the matvec on `stream`; scratch xq [in] int8,
 // qsum [in/32] int32 and dx [in/32] f32 come from the caller.
@@ -929,31 +927,15 @@ extern "C" int q4_1_matvec(const void* qs, const void* dm, const void* x, void* 
 }
 
 // f32 activations, one row: x [in] f32 against Q4_0 qs [out, in/2], d [out,
-// in/32]; `blocks` blocks of F32_WARPS warps (ops/q4_matvec.matvec_f32_plan:
-// one an SM, fewer for few rows).
+// in/32]; `blocks` blocks (ops/q4_matvec.matvec_f32_plan).
 extern "C" int q4_0_matvec_f32(const void* qs, const void* dw, const void* x, void* y, int out, int in_dim,
                                int blocks, void* stream) {
-  const int nb = in_dim / QK, stride = nb | 1;
-  const size_t smem = static_cast<size_t>(8) * stride * sizeof(float4);
-  if (out < 1 || nb < 1 || in_dim % QK || blocks < 1 || smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(q4_0_matvec_f32_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  q4_0_matvec_f32_kernel<<<blocks, F32_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const float*>(dw), static_cast<const float*>(x),
-      static_cast<float*>(y), out, nb, stride);
-  return static_cast<int>(cudaGetLastError());
+  return launch_matvec_f32<F32BlockQ4_0>(qs, dw, x, y, out, in_dim, blocks, stream);
 }
 
-// f32 activations, one row: x [in] f32 against Q4_1 qs [out, in/2], dm [out, in/32, 2].
+// f32 activations, one row: x [in] f32 against Q4_1 qs [out, in/2], dm [out,
+// in/32, 2]; `blocks` blocks (ops/q4_matvec.matvec_f32_plan).
 extern "C" int q4_1_matvec_f32(const void* qs, const void* dm, const void* x, void* y, int out, int in_dim,
-                               void* stream) {
-  const int nb = in_dim / QK, stride = nb | 1;
-  const size_t smem = static_cast<size_t>(8) * stride * sizeof(float4) + nb * sizeof(float);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(q4_1_matvec_f32_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  q4_1_matvec_f32_kernel<<<matvec_f32_grid(out), ROWS_PER_BLOCK * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const float2*>(dm), static_cast<const float*>(x),
-      static_cast<float*>(y), out, nb, stride);
-  return static_cast<int>(cudaGetLastError());
+                               int blocks, void* stream) {
+  return launch_matvec_f32<F32BlockQ4_1>(qs, dm, x, y, out, in_dim, blocks, stream);
 }

@@ -22,10 +22,12 @@ The batched and paged entry points take the per-slot positions as a device
 int32 tensor ``n_pasts [B]`` and their largest value ``max_n_past`` as a
 host int (the engine keeps both), so a step reads nothing back from the
 card.  The note at the top of the CUDA source says what bounds the kernels
-on the H100: batch 1 and paged are one launch a call (a cluster of blocks
-a head, or a (slot, head), on the chunk pass of ``csrc/flash_common.cuh``),
-batched two (a split pass and a combine).  :func:`paged_plan` mirrors the
-paged launch's plan (splits, tiles, ring stages, shared memory).
+on the H100: each call is one launch on the chunk pass of
+``csrc/flash_common.cuh``, a cluster of blocks a head (batch 1) or a
+(slot, head) (batched and paged: one kernel template, the rows read from
+the slot's plane or through its page table).  :func:`batched_plan` and
+:func:`paged_plan` mirror those launches' plans (splits, tiles, ring
+stages, shared memory).
 """
 
 from __future__ import annotations
@@ -38,10 +40,6 @@ import math
 import torch
 
 from . import build
-
-#: keys per split of the batched kernel's first pass (``CHUNK`` in the
-#: CUDA source); batch 1 and paged cut their keys by :func:`split_plan`
-SPLIT = 64
 
 #: cache element type -> the CUDA source's ``kind`` argument
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -69,6 +67,13 @@ PASS_THREADS = 256  # threads of a block (ONE_THREADS)
 PAGED_MAX_SPLITS = 2  # splits a (slot, head) of the paged kernel; the launcher takes at most 8
 PAGED_STAGE_BYTES = 32768  # K and V rows of a full tile of the paged kernel
 PAGED_STAGES = 2  # ring stages of the paged kernel (PAGED_STAGES)
+BATCHED_SPLIT_KEYS = 256  # keys a split of the batched kernel aims at
+BATCHED_MAX_SPLIT_KEYS = 1024  # keys a split of the batched kernel takes at most where 8 splits allow
+BATCHED_BLOCKS_PER_SM = 4  # blocks a batched call aims at, at most, for each SM of the card
+BATCHED_STAGE_BYTES = 32768  # K and V rows of a full tile of the batched kernel
+BATCHED_STAGES = 2  # ring stages of the batched kernel (BATCHED_STAGES)
+MAX_SPLITS = 8  # a cluster of the portable size (ONE_MAX_SPLITS)
+MAX_TILE = 1024  # rows of a tile at most (SLOTS_MAX_TILE)
 SMEM_LIMIT = 232448  # the most a block may take on the H100 (227 KB)
 
 
@@ -102,12 +107,14 @@ def pass_smem_bytes(tile: int, row_bytes: int, scaled: bool, stages: int) -> int
 
 
 @dataclasses.dataclass(frozen=True)
-class PagedPlan:
-    """The plan of one paged launch (the CUDA source's ``paged_smem_bytes``
-    computes the same shared memory from ``splits`` and ``tile``): grid
-    ``(splits, H, B)`` in clusters of ``splits`` blocks; the longest
-    split holds ``keys`` keys in tiles of ``tile`` rows through a ring of
-    ``stages`` stages; ``smem_bytes`` of dynamic shared memory a block."""
+class SlotPlan:
+    """The plan of one batched or paged launch (the CUDA source's
+    ``slots_smem_bytes`` computes the same shared memory from ``splits``
+    and ``tile``): grid ``(splits, H, B)`` in clusters of ``splits``
+    blocks; the longest split holds ``keys`` keys in tiles of ``tile``
+    rows through a ring of two stages, of which it touches ``stages``;
+    ``smem_bytes`` of dynamic shared memory a block.  ``page``: the pool's page rows (paged), or
+    None (a slot's contiguous plane)."""
 
     splits: int
     keys: int
@@ -115,7 +122,7 @@ class PagedPlan:
     stages: int
     smem_bytes: int
     grid: tuple
-    page: int
+    page: int | None
 
     def slot_splits(self, n_keys_b: int) -> list:
         """``(j0, jn)`` of each split of a slot with ``n_keys_b`` keys (the
@@ -130,7 +137,9 @@ class PagedPlan:
 
     def runs(self, r0: int, n: int) -> list:
         """``(j, len)`` of each bulk copy of a tile's rows ``[r0, r0 + n)``:
-        cut at page edges, each run within one page."""
+        cut at page edges, each run within one page (one run on a plane)."""
+        if self.page is None:
+            return [(r0, n)]
         out, j = [], r0
         while j < r0 + n:
             length = min(r0 + n - j, self.page - j % self.page)
@@ -139,27 +148,57 @@ class PagedPlan:
         return out
 
 
-@functools.lru_cache(maxsize=4096)
-def paged_plan(B: int, H: int, dh: int, elt: int, page: int, n_keys: int) -> PagedPlan:
-    """The paged kernel's plan for ``B`` slots of ``H`` heads of dim ``dh``
-    on cache elements of ``elt`` bytes (1: int8, with row scales), pages of
-    ``page`` rows, at most ``n_keys = max_n_past + 1`` keys a slot: ``S =
-    split_plan(n_keys, PAGED_MAX_SPLITS)`` splits, tiles of
-    ``PAGED_STAGE_BYTES / 2`` of K rows or the longest split's keys if
-    fewer, a ring of at most ``PAGED_STAGES`` stages; the shared memory
-    adds S partials, q and the block's own.  The constants are the fastest
-    of the variants timed on an H100 (the CUDA source's note)."""
-    if B < 1 or H < 1 or page < 1 or n_keys < 1 or elt not in (1, 2, 4):
-        raise ValueError(f"paged_plan: B={B}, H={H}, page={page}, n_keys={n_keys}, elt={elt} out of range")
-    check_head_dim("paged_plan", dh)
+def _slot_plan(what, B, H, dh, elt, n_keys, max_splits, stage_bytes, ring, page) -> SlotPlan:
+    """``S = split_plan(n_keys, max_splits)`` splits, tiles of ``stage_bytes
+    / 2`` of K rows or the longest split's keys if fewer, a ring of at most
+    ``ring`` stages (as many as the split's tiles); the shared memory adds S
+    partials, q and the block's own."""
+    if B < 1 or H < 1 or n_keys < 1 or elt not in (1, 2, 4) or not 1 <= max_splits <= MAX_SPLITS:
+        raise ValueError(f"{what}: B={B}, H={H}, n_keys={n_keys}, elt={elt}, max_splits={max_splits} out of range")
+    check_head_dim(what, dh)
     row_bytes = dh * elt
-    splits = split_plan(n_keys, PAGED_MAX_SPLITS)[0]
+    splits = split_plan(n_keys, max_splits)[0]
     keys = split_plan(n_keys, splits)[1]
-    tile = min(pass_tile_rows(row_bytes, PAGED_STAGE_BYTES), keys)
-    stages = min(-(-keys // tile), PAGED_STAGES)
+    tile = min(pass_tile_rows(row_bytes, stage_bytes), keys, MAX_TILE)
+    stages = min(-(-keys // tile), ring)
     smem = (_round16(4 * splits * (dh + 2)) + _round16(4 * dh) + _round16(4 * (dh + 2))
             + pass_smem_bytes(tile, row_bytes, elt == 1, stages))
-    return PagedPlan(splits, keys, tile, stages, smem, (splits, H, B), page)
+    return SlotPlan(splits, keys, tile, stages, smem, (splits, H, B), page)
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(B: int, H: int, dh: int, elt: int, page: int, n_keys: int) -> SlotPlan:
+    """The paged kernel's plan for ``B`` slots of ``H`` heads of dim ``dh``
+    on cache elements of ``elt`` bytes (1: int8, with row scales), pages of
+    ``page`` rows, at most ``n_keys = max_n_past + 1`` keys a slot:
+    ``PAGED_MAX_SPLITS``, ``PAGED_STAGE_BYTES`` and ``PAGED_STAGES``, the
+    fastest of the variants timed on an H100 (the CUDA source's note)."""
+    if page < 1:
+        raise ValueError(f"paged_plan: page={page} out of range")
+    return _slot_plan("paged_plan", B, H, dh, elt, n_keys, PAGED_MAX_SPLITS, PAGED_STAGE_BYTES, PAGED_STAGES, page)
+
+
+def batched_splits(B: int, H: int, n_keys: int, sms: int = 132) -> int:
+    """Splits a (slot, head) of the batched kernel: one for every
+    ``BATCHED_SPLIT_KEYS`` keys of the longest slot, halved while the grid
+    would hold more than ``BATCHED_BLOCKS_PER_SM`` blocks an SM, but at
+    least one for every ``BATCHED_MAX_SPLIT_KEYS`` keys; 1 to 8."""
+    s = min(MAX_SPLITS, -(-n_keys // BATCHED_SPLIT_KEYS))
+    while s > 1 and B * H * s > BATCHED_BLOCKS_PER_SM * sms:
+        s //= 2
+    return max(1, s, min(MAX_SPLITS, -(-n_keys // BATCHED_MAX_SPLIT_KEYS)))
+
+
+@functools.lru_cache(maxsize=4096)
+def batched_plan(B: int, H: int, dh: int, elt: int, n_keys: int, sms: int = 132) -> SlotPlan:
+    """The batched kernel's plan for ``B`` slots of ``H`` heads of dim
+    ``dh`` on a dense cache of ``elt``-byte elements (1: int8, with row
+    scales), at most ``n_keys = max_n_past + 1`` keys a slot, on a card of
+    ``sms`` SMs: :func:`batched_splits` splits, ``BATCHED_STAGE_BYTES``
+    and ``BATCHED_STAGES``, the fastest of the variants timed on an H100
+    (the CUDA source's note; ``tools/flash_variants.py``)."""
+    splits = batched_splits(B, H, n_keys, sms) if B >= 1 and H >= 1 and n_keys >= 1 else 0
+    return _slot_plan("batched_plan", B, H, dh, elt, n_keys, splits, BATCHED_STAGE_BYTES, BATCHED_STAGES, None)
 
 
 def reference_decode_attention(q, keys, values, n_past: int) -> torch.Tensor:
@@ -297,6 +336,10 @@ def _check_n_pasts(what, q, n_pasts, B) -> None:
         raise ValueError(f"{what}: n_pasts must be contiguous int32 [{B}] on q's device")
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _stream(q):
     return ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
 
@@ -332,11 +375,13 @@ def _launch_batched(what, q, k_cache, v_cache, scales, il: int, n_pasts, max_n_p
     if not (0 <= il < L and 0 <= max_n_past < n_ctx):
         raise ValueError(f"{what}: il={il}, max_n_past={max_n_past} out of range")
     n_keys = max_n_past + 1
-    part = torch.empty(B * H * -(-n_keys // SPLIT) * (dh + 2), dtype=torch.float32, device=q.device)
+    plan = batched_plan(B, H, dh, k_cache.element_size(), n_keys, _sm_count(q.device))
+    if plan.smem_bytes > SMEM_LIMIT:  # the launcher refuses it too
+        raise ValueError(f"{what}: {plan.smem_bytes} bytes of shared memory exceed {SMEM_LIMIT}")
     out = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     code = build.lib("flash_decode").flash_decode_batched(
         q.data_ptr(), k_cache[il].data_ptr(), v_cache[il].data_ptr(), *_scale_ptrs(scales, il),
-        n_pasts.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, n_ctx, dh, n_keys,
+        n_pasts.data_ptr(), out.data_ptr(), B, H, n_ctx, dh, n_keys, plan.splits, plan.tile,
         1.0 / math.sqrt(float(dh)), kind, _stream(q),
     )
     build.check(code, what)

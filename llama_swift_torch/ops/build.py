@@ -37,16 +37,17 @@ SOURCES = {
         "q4_0_matmul_multi_smem_bytes": [ctypes.c_int],
         "q4_1_matvec": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "q4_0_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        "q4_1_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "q4_1_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
     "flash_decode": {
         "flash_decode": [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        "flash_decode_batched": [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "flash_decode_batched": [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "flash_decode_paged": [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "flash_decode_paged_smem_bytes": [ctypes.c_int] * 5,
+        "flash_decode_batched_smem_bytes": [ctypes.c_int] * 5,
     },
     "q4_dequant": {
         "q4_0_dequant": [ctypes.c_void_p] * 3

@@ -257,18 +257,19 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 #: the largest in-dim the f32 kernels stage in a block's shared memory (227 KB)
 MAX_F32_IN = 55 * 1024
 
-F32_WARPS = 16  # warps of a Q4_0 f32 matvec block (``F32_WARPS`` in the CUDA source)
+F32_WARPS = 16  # warps of an f32 matvec block (``F32_WARPS`` in the CUDA source)
 F32_RING = 2  # weight blocks a lane keeps in flight (``F32_RING``)
 F32_BLOCKS_PER_SM = 2  # blocks an SM of its persistent grid (``F32_BLOCKS_PER_SM``)
 
 
 @dataclasses.dataclass(frozen=True)
 class MatvecF32Plan:
-    """The Q4_0 f32 matvec's launch: ``blocks`` blocks of ``warps`` warps,
-    warp w of block g on rows ``g·warps + w + k·blocks·warps`` (at most
-    ``rows_per_warp`` each), each lane with ``ring`` weight blocks in
-    flight; x staged transposed in ``smem_bytes`` (``8·stride`` float4,
-    ``stride = (in/32) | 1``)."""
+    """The f32 matvecs' launch (Q4_0 and Q4_1): ``blocks`` blocks of
+    ``warps`` warps, warp w of block g on rows ``g·warps + w +
+    k·blocks·warps`` (at most ``rows_per_warp`` each), each lane with
+    ``ring`` weight blocks in flight; x staged transposed in ``smem_bytes``
+    (``8·stride`` float4, ``stride = (in/32) | 1``; Q4_1 adds each block's
+    sum of x, ``in/32`` floats)."""
 
     blocks: int
     warps: int
@@ -283,44 +284,71 @@ class MatvecF32Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def matvec_f32_plan(out: int, in_dim: int, sms: int = 132) -> MatvecF32Plan:
-    """Plan of :func:`q4_0_matvec_f32`'s kernel on a card of ``sms`` SMs: one
-    block an SM (a persistent grid that stages x once a block), fewer when
-    the rows do not fill them."""
+def matvec_f32_plan(out: int, in_dim: int, sms: int = 132, q4_1: bool = False) -> MatvecF32Plan:
+    """Plan of the f32 matvecs' kernel (:func:`q4_0_matvec_f32`, and with
+    ``q4_1`` :func:`q4_1_matvec_f32`) on a card of ``sms`` SMs: two blocks
+    an SM (a persistent grid that stages x once a block), fewer when the
+    rows do not fill them."""
     if out < 1 or in_dim < QK or in_dim % QK:
         raise ValueError(f"matvec_f32_plan: out {out}, in dim {in_dim}")
     stride = (in_dim // QK) | 1
     blocks = min(-(-out // F32_WARPS), F32_BLOCKS_PER_SM * sms)
-    return MatvecF32Plan(blocks=blocks, warps=F32_WARPS, ring=F32_RING, stride=stride, smem_bytes=8 * stride * 16,
+    smem = 8 * stride * 16 + (4 * (in_dim // QK) if q4_1 else 0)
+    return MatvecF32Plan(blocks=blocks, warps=F32_WARPS, ring=F32_RING, stride=stride, smem_bytes=smem,
                          rows_per_warp=-(-out // (blocks * F32_WARPS)))
 
 
-def q4_0_matvec_f32_lane_order(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
-    """The f32 matvec kernel's order of sums in PyTorch, for tests: lane l
-    of a row's warp takes blocks ``l, l + 32, …``, each block's dot a chain
-    of 32 fused multiply-adds from 0 in element order, then ``acc =
-    fma(d_b, dot_b, acc)``; the warp's butterfly (xor 16, 8, 4, 2, 1) adds
-    the lanes.  An f32 FMA is taken as the f64 sum of the exact product
-    rounded to f32: the kernel's bits wherever that f64 sum is exact."""
-    def fma(a, b, c):
-        return (a.double() * b.double() + c.double()).float()
+def _fma(a, b, c):
+    """An f32 fused multiply-add as the f64 sum of the exact product,
+    rounded to f32 (exact wherever that f64 sum is)."""
+    return (a.double() * b.double() + c.double()).float()
 
-    out, in_dim = w.shape
-    nb = in_dim // QK
-    n = (unpack_nibbles(w.qs).float() - 8.0).reshape(out, nb, QK)
+
+def _f32_lane_order(x: torch.Tensor, n: torch.Tensor, d: torch.Tensor, m: torch.Tensor = None) -> torch.Tensor:
+    """The f32 matvec kernel's sums: lane l takes blocks ``l, l + 32, …``,
+    each block's dot ``Σ_i n_i·x_i`` a chain of 32 FMAs from 0 in element
+    order, then ``acc = fma(d_b, dot_b, acc)`` (with mins ``m``: ``acc =
+    fma(d_b, dot_b, fma(m_b, S_b, acc))``, ``S_b`` the block's sum of x
+    taken as the kernel does, four elements at a time); the warp's
+    butterfly (xor 16, 8, 4, 2, 1) adds the lanes.  n ``[out, nb, 32]``."""
+    out, nb, _ = n.shape
     xb = x.float().reshape(nb, QK)
+    if m is not None:
+        xsum = torch.zeros(nb)
+        for j in range(8):
+            v = xb[:, 4 * j : 4 * j + 4]
+            xsum = xsum + (((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3])
     acc = torch.zeros((out, 32))
     for k in range(-(-nb // 32)):
         b = torch.arange(32) + 32 * k
         live, b = b < nb, b.clamp(max=nb - 1)
         dot = torch.zeros((out, 32))
         for i in range(QK):
-            dot = fma(n[:, b, i], xb[b, i][None], dot)
-        acc = torch.where(live[None], fma(w.d[:, b], dot, acc), acc)
+            dot = _fma(n[:, b, i], xb[b, i][None], dot)
+        inner = acc if m is None else _fma(m[:, b], xsum[b][None], acc)
+        acc = torch.where(live[None], _fma(d[:, b], dot, inner), acc)
     lanes = torch.arange(32)
     for o in (16, 8, 4, 2, 1):
         acc = acc + acc[:, lanes ^ o]
     return acc[:, 0]
+
+
+def q4_0_matvec_f32_lane_order(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """The Q4_0 f32 matvec kernel's order of sums in PyTorch, for tests
+    (``_f32_lane_order`` with nibbles ``n − 8`` and the scales ``d``): the
+    kernel's bits wherever the f64 sums that it rounds are exact."""
+    out, in_dim = w.shape
+    n = (unpack_nibbles(w.qs).float() - 8.0).reshape(out, in_dim // QK, QK)
+    return _f32_lane_order(x, n, w.d)
+
+
+def q4_1_matvec_f32_lane_order(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:
+    """The Q4_1 f32 matvec kernel's order of sums in PyTorch, for tests
+    (``_f32_lane_order`` with nibbles ``n``, the deltas ``d`` and the mins
+    ``m`` times each block's sum of x)."""
+    out, in_dim = w.shape
+    n = unpack_nibbles(w.qs).float().reshape(out, in_dim // QK, QK)
+    return _f32_lane_order(x, n, w.d, w.m)
 
 
 def q4_0_matvec_f32(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
@@ -652,9 +680,10 @@ def q4_1_matvec_f32(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:
     _check_x(x, (in_dim,), "q4_1_matvec_f32")
     if in_dim > MAX_F32_IN:
         raise ValueError(f"q4_1_matvec_f32: in dim {in_dim} exceeds {MAX_F32_IN} (shared memory)")
+    plan = matvec_f32_plan(out, in_dim, _sm_count(x.device), q4_1=True)
     y = torch.empty(out, dtype=torch.float32, device=x.device)
     code = build.lib("q4_matvec").q4_1_matvec_f32(
-        w.qs.data_ptr(), w.dm.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, _stream(x))
+        w.qs.data_ptr(), w.dm.data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim, plan.blocks, _stream(x))
     build.check(code, "q4_1_matvec_f32")
     q4_1_matvec_f32.launches += 1
     return y

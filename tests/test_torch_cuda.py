@@ -15,9 +15,11 @@ shapes, the latter with exact half-step ties in every row's codes; the two
 f32-activation products on the bf16 tensor cores at those shapes, at every
 row count, with one-hot x for their K order, repeated bit for bit, with x
 off 16-byte alignment and at every share of tiles over a cluster; the
-paged kernel at B = 1, 8, 16, pages of 16 and 128 and n_ctx 512 and 2048
-with NaN in every row no live key names, one kernel a call; the f32 Q4_0
-matvec at LLaMA's shapes, bit-equal to its lane order).
+paged and the dense batched kernels at B = 1, 8, 16 (pages of 16 and 128)
+and n_ctx 512 and 2048 with NaN in every row no live key names, one kernel
+a call, the batched kernel at every plan its variant tool times; the f32
+Q4_0 and Q4_1 matvecs at LLaMA's shapes, bit-equal to their lane
+orders).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -1320,3 +1322,160 @@ def test_f32_matvec_sums_in_the_lane_order(cuda):
     torch.cuda.synchronize()
     want = mv.q4_0_matvec_f32_lane_order(x.cpu(), mv.Q4_0Weight(w.qs.cpu(), w.d.cpu()))
     assert torch.equal(y.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the dense batched kernel on the chunk pass (one launch a call, the paged
+# kernel's template on each slot's plane) and the Q4_1 f32-activation
+# matvec on the persistent grid
+# ---------------------------------------------------------------------------
+
+
+def _batched_planes(kind, B, H, dh, n_pasts, n_ctx, cuda, seed, L=2):
+    """(q, poisoned caches, clean caches) [L, B, H, n_ctx, dh] for slots at
+    ``n_pasts``: every row beyond a slot's n_past holds NaN in the poisoned
+    caches (f32/bf16 rows, int8 row scales), finite values in the clean
+    ones; the kernel reads the poisoned caches, the plain version the clean
+    ones."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (L, B, H, n_ctx, dh)
+    q = torch.randn((B, H, dh), device=cuda, generator=g)
+    if kind == "int8":
+        k8, ks = _int8(shape, cuda, seed + 1)
+        v8, vs = _int8(shape, cuda, seed + 2)
+        clean = [k8, v8, ks, vs]
+    else:
+        clean = [torch.randn(shape, device=cuda, generator=g).to(KINDS[kind]) for _ in range(2)]
+    poisoned = [t.clone() for t in clean]
+    for t in poisoned:
+        if t.dtype != torch.int8:
+            for b, n in enumerate(n_pasts):
+                t[:, b, :, n + 1 :] = float("nan")
+    return q, poisoned, clean
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("n_ctx", [512, 2048])
+def test_batched_chunk_pass_at_engine_shapes(cuda, kind, B, n_ctx):
+    """The batched kernel at B = 1, 8 and 16, contexts of 512 and 2048 with
+    one slot at its last position and one at n_past 0, head dims 16, 18,
+    48, 80 and 128 (the plain-load path and the bulk copy), against its
+    plain version within 1e-5; every row beyond a slot's n_past is NaN, so
+    a read past a slot's live keys shows; a second launch repeats the
+    first bit for bit."""
+    n_pasts = [n_ctx - 1, 0, 63, 64, 200, 311, n_ctx // 2, 5, 31, 400, 256, 1, 450, 99, 17, 383][:B]
+    H = 4
+    s = "_int8" if kind == "int8" else ""
+    fn = getattr(att, f"flash_decode_attention_batched{s}")
+    plain = getattr(att, f"flash_decode_attention_batched{s}_plain")
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    for dh in (16, 18, 48, 80, 128):
+        q, poisoned, clean = _batched_planes(kind, B, H, dh, n_pasts, n_ctx, cuda, seed=dh + B)
+        before = fn.launches
+        out = fn(q, *poisoned, 1, np_, max(n_pasts))
+        again = fn(q, *poisoned, 1, np_, max(n_pasts))
+        ref = plain(q, *clean, 1, np_, max(n_pasts))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert bool(torch.isfinite(out).all()), dh
+        assert _rel(out, ref) <= 1e-5, dh
+        assert torch.equal(out, again), dh
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_batched_chunk_pass_is_one_kernel_and_no_scratch(cuda, kind):
+    """One device kernel a call (chip_smoke.launches_per_call: profiler
+    windows of four calls, the most any window shows, since a window can
+    lose records but never invents one) and no allocation besides the
+    output."""
+    from chip_smoke import launches_per_call
+
+    n_pasts = [0, 63, 64, 127, 200, 311, 511, 5]
+    q, caches, _ = _batched_planes(kind, 8, 32, 128, n_pasts, 512, cuda, seed=3)
+    np_ = torch.tensor(n_pasts, dtype=torch.int32, device=cuda)
+    fn = getattr(att, "flash_decode_attention_batched" + ("_int8" if kind == "int8" else ""))
+    assert launches_per_call(torch, lambda i: fn(q, *caches, 1, np_, 511)) == 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = fn(q, *caches, 1, np_, 511)
+    assert torch.cuda.memory_allocated() - base == out.numel() * 4 + (-out.numel() * 4) % 512
+
+
+def test_batched_plan_smem_matches_the_kernel(cuda):
+    """ops/attention.batched_plan's shared memory is the launcher's, at
+    every cache type, the edges of the split plan and B 1, 8 and 32 (from 8
+    splits down to 1)."""
+    from llama_swift_torch.ops import build
+
+    query = build.lib("flash_decode").flash_decode_batched_smem_bytes
+    for kind, elt in ((0, 4), (1, 2), (2, 1)):
+        for dh in (2, 16, 18, 48, 80, 128, 256, 1022, 1024):
+            for n_keys in (1, 16, 17, 128, 129, 512, 1289, 2048, 8192):
+                for B in (1, 8, 32):
+                    plan = att.batched_plan(B, 32, dh, elt, n_keys)
+                    got = query(dh, kind, n_keys, plan.splits, plan.tile)
+                    assert got == plan.smem_bytes, (kind, dh, n_keys, B)
+    assert query(128, 0, 512, 9, 32) == 0 and query(128, 0, 512, 2, 0) == 0  # plans the launcher refuses
+    assert query(17, 0, 512, 2, 32) == -1
+
+
+def test_batched_launcher_refuses_what_it_cannot_run(cuda):
+    """The C entry refuses keys beyond n_ctx, an odd head dim, a plan of
+    more than 8 splits, an empty tile or one beyond 227 KB of shared memory
+    (the wrapper raises before it for each, or plans none)."""
+    from llama_swift_torch.ops import build
+
+    launch = build.lib("flash_decode").flash_decode_batched
+    q, caches, _ = _batched_planes("float32", 2, 4, 128, [20, 3], 64, cuda, seed=1)
+    np_ = torch.tensor([20, 3], dtype=torch.int32, device=cuda)
+    out = torch.empty((2, 4, 128), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(dh, n_keys, S=2, tile=16):
+        return launch(q.data_ptr(), caches[0][1].data_ptr(), caches[1][1].data_ptr(), None, None, np_.data_ptr(),
+                      out.data_ptr(), 2, 4, 64, dh, n_keys, S, tile, 0.1, 0, stream)
+
+    assert call(128, 21) == 0
+    assert call(128, 65) != 0  # n_ctx 64
+    assert call(127, 21) != 0
+    assert call(128, 21, S=9) != 0 and call(128, 21, tile=0) != 0
+    assert call(128, 21, S=1, tile=512) != 0  # a 512-row tile: 0.5 MB of K and V rows
+    with pytest.raises(ValueError):
+        att.flash_decode_attention_batched(q, *caches, 1, np_, 64)
+
+
+def _q41_powers_of_two(out, in_dim, cuda, seed):
+    """A Q4_1 weight and x whose deltas, mins and elements are signed powers
+    of two: every block dot and block sum of x is exact, and so is every
+    f64 sum that the lane order's mirror rounds, so its bits are the
+    kernel's while each rounded sum of the lanes depends on the order."""
+    w, g = _q41(out, in_dim, cuda, seed=seed)
+    d = 2.0 ** torch.randint(-6, 1, w.d.shape, device=cuda, generator=g).float()
+    m = -(2.0 ** torch.randint(-4, 3, w.d.shape, device=cuda, generator=g).float())
+    w = mv.Q4_1Weight(w.qs, torch.stack([d, m], dim=-1).contiguous())
+    x = 2.0 ** torch.randint(-8, 8, (in_dim,), device=cuda, generator=g).float()
+    return w, x * torch.where(torch.rand(in_dim, device=cuda, generator=g) < 0.5, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("out,in_dim", F32_MATVEC_SHAPES)
+def test_q4_1_f32_matvec_at_llama_shapes_in_the_lane_order(cuda, out, in_dim):
+    """The Q4_1 f32-activation matvec on its persistent grid at LLaMA's
+    shapes (13B's and 65B's n_ff in-dims, and the largest taken): bit-equal
+    to ops/q4_matvec.q4_1_matvec_f32_lane_order (the earlier kernel's sums)
+    on power-of-two inputs, within 1e-5 of max |y| of its plain version on
+    random ones, one launch a call, a second launch bit-equal."""
+    w, x = _q41_powers_of_two(out, in_dim, cuda, seed=out % 89)
+    before = mv.q4_1_matvec_f32.launches
+    y = mv.q4_1_matvec_f32(x, w)
+    again = mv.q4_1_matvec_f32(x, w)
+    torch.cuda.synchronize()
+    assert mv.q4_1_matvec_f32.launches == before + 2
+    assert torch.equal(y, again)
+    want = mv.q4_1_matvec_f32_lane_order(x.cpu(), mv.Q4_1Weight(w.qs.cpu(), w.dm.cpu()))
+    assert torch.equal(y.cpu(), want)
+    w, g = _q41(out, in_dim, cuda, seed=out % 83)
+    x = torch.randn(in_dim, device=cuda, generator=g)
+    y = mv.q4_1_matvec_f32(x, w)
+    assert _rel(y, mv.q4_1_matvec_plain(x, w, quantize_acts=False)) <= 1e-5
+    assert torch.equal(y, mv.q4_1_matvec_f32(x, w))

@@ -133,6 +133,22 @@ def test_kv_rows_bf16_step_with_its_floor():
     assert not ok and (worst["kv"], worst["index"]) == ("v", 3)
 
 
+def test_kv_rows_bf16_floor_takes_the_row_11_reading():
+    """The element that failed row 11's own-step bar on an H100 (chip_smoke
+    check_fused_blocks, a bf16 v_new at 7B width, on both sides of an A/B
+    call): plain 2.2888e-5 in a row whose largest |value| is 4.28125 (5.3e-6
+    of it), the kernel's value two bf16 steps away (1.33 steps of its own
+    value), 5.6e-8 of the row's max apart, which is f32 sum noise.  The
+    floored bar takes it; a gap of a few steps on a large element fails."""
+    b = torch.tensor([4.28125, -1.5, 2.288818359375e-05, 0.75]).to(torch.bfloat16)
+    card = b.clone()
+    card[2] = 2.2649765014648438e-05
+    assert float((card.float() - b.float()).abs()[2]) > float(b.float().abs()[2]) * 2.0**-7  # the own-step bar fails
+    assert fc.kv_rows_ok([(card, b)])[0]
+    far = b.float() + torch.tensor([0.0, 0.0, 0.0, 2.0**-6])  # 2.7 bf16 steps of 0.75
+    assert not fc.kv_rows_ok([(far.to(torch.bfloat16), b)])[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forced_run_agrees_on_a_true_trace_and_catches_a_wrong_gate(dtype):
     x, norms, ws, kc, vc = _inputs(dtype)

@@ -1,6 +1,8 @@
-"""The paged flash-decode kernel's launch plan and order of work
-(``csrc/flash_decode.cu`` ``flash_decode_paged`` on the chunk pass of
-``csrc/flash_common.cuh``), on the CPU:
+"""The paged and the dense batched flash-decode kernels' launch plans and
+order of work (``csrc/flash_decode.cu`` ``flash_decode_paged`` and
+``flash_decode_batched``: one kernel template on the chunk pass of
+``csrc/flash_common.cuh``, the rows read through a page table or from each
+slot's plane), on the CPU:
 
 * ``ops/attention.paged_plan``, the pure mirror of the launcher's plan:
   at most 8 splits, shared memory within the H100's 227 KB for every even
@@ -14,10 +16,21 @@
   (1e-6 relative) and the JAX package's paged kernels in interpret mode
   (1e-5, the bar of tests/test_torch_attention_batched.py), at pages of
   16 and 128, garbage table entries beyond the live pages and a slot at
-  n_past 0.  The CUDA kernel is held against the plain version on the card
-  by tests/test_torch_cuda.py and chip_smoke.py.
+  n_past 0.
+* The same for the batched kernel: ``ops/attention.batched_plan`` (at
+  most 8 splits, shared memory within 227 KB for every head dim, B 1..32
+  and up to 100,000 keys, every live key of every slot in exactly one
+  split and tile and none beyond the slot's n_past; the plans that
+  tools/flash_variants.py launches cut the keys as it does), and the mirror of its order (rows from
+  each slot's plane, stale rows beyond each n_past) against the plain
+  version (1e-6) and the JAX package's batched kernels in interpret mode
+  (1e-5).
+
+The CUDA kernels are held against the plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -25,9 +38,15 @@ import numpy as np
 import pytest
 import torch
 
-from llama_swift_tpu.ops.attention import flash_decode_attention_paged, flash_decode_attention_paged_int8
+from llama_swift_tpu.ops.attention import (
+    flash_decode_attention_batched,
+    flash_decode_attention_batched_int8,
+    flash_decode_attention_paged,
+    flash_decode_attention_paged_int8,
+)
 from llama_swift_torch.models.llama import quantize_kv
 from llama_swift_torch.ops import attention as att
+from llama_swift_torch.tools import flash_variants
 
 KEYS = [1, 2, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513, 1000, 1024, 1025, 1289,
         2047, 2048, 8192, 100_000]
@@ -135,42 +154,34 @@ def test_paged_wrapper_refuses_non_cuda_inputs():
 # ---------------------------------------------------------------------------
 
 
-def paged_chunk_order(q, k_pool, v_pool, k_scale, v_scale, table, il, n_pasts, max_n_past):
-    """The paged kernel's computation in its order, in f32: per (slot,
-    head) the slot's splits (``PagedPlan.slot_splits`` of its own keys),
-    per split tiles of ``plan.tile`` rows read through the table (ids
-    clamped to the pool), an online softmax from tile to tile (int8:
-    scores times the K row scale, value weights times the V row scale, the
-    sum of the unscaled weights), then the splits combined in split
-    order."""
-    P, _, H, page, dh = k_pool.shape
-    B = q.shape[0]
-    plan = att.paged_plan(B, H, dh, k_pool.element_size(), page, max_n_past + 1)
+def chunk_order(q, plan, rows, scaled, n_pasts, max_n_past):
+    """The slot kernel's computation in its order, in f32: per (slot, head)
+    the slot's splits (``SlotPlan.slot_splits`` of its own keys), per split
+    tiles of ``plan.tile`` rows (``rows(which, b, h, r0, n)``: K, V or
+    their scales, as f32 ``[n, X]``), an online softmax from tile to tile
+    (int8: scores times the K row scale, value weights times the V row
+    scale, the sum of the unscaled weights), then the splits combined in
+    split order."""
+    B, H, dh = q.shape
     scale = torch.tensor(1.0 / math.sqrt(float(dh)))
     out = torch.empty((B, H, dh))
     for b in range(B):
         keys = min(int(n_pasts[b]) + 1, max_n_past + 1)
-
-        def rows(pool, r0, n, h):
-            j = torch.arange(r0, r0 + n)
-            pid = table[b, j // page].long().clamp(0, P - 1)
-            return pool[pid, il, h, j % page].float()
-
         for h in range(H):
             parts = []
             for j0, jn in plan.slot_splits(keys):
                 m, l, acc = torch.tensor(-math.inf), torch.tensor(0.0), torch.zeros(dh)
                 for r0, n in plan.tiles(j0, jn):
-                    s = rows(k_pool, r0, n, h) @ q[b, h]
-                    if k_scale is not None:
-                        s = s * rows(k_scale, r0, n, h)[:, 0]
+                    s = rows("k", b, h, r0, n) @ q[b, h]
+                    if scaled:
+                        s = s * rows("ks", b, h, r0, n)[:, 0]
                     s = s * scale
                     m_new = torch.maximum(m, s.max())
                     alpha = torch.exp(m - m_new)
                     p = torch.exp(s - m_new)
                     l = l * alpha + p.sum()
-                    pv = p if v_scale is None else p * rows(v_scale, r0, n, h)[:, 0]
-                    acc = acc * alpha + pv @ rows(v_pool, r0, n, h)
+                    pv = p if not scaled else p * rows("vs", b, h, r0, n)[:, 0]
+                    acc = acc * alpha + pv @ rows("v", b, h, r0, n)
                     m = m_new
                 parts.append((m, l, acc))
             mx = max(pm for pm, _, _ in parts)
@@ -181,6 +192,34 @@ def paged_chunk_order(q, k_pool, v_pool, k_scale, v_scale, table, il, n_pasts, m
                 acc_all = acc_all + a * pa
             out[b, h] = acc_all / l_all
     return out
+
+
+def paged_chunk_order(q, k_pool, v_pool, k_scale, v_scale, table, il, n_pasts, max_n_past):
+    """The paged kernel's order (``chunk_order``): tiles read through the
+    table, ids clamped to the pool."""
+    P, _, H, page, dh = k_pool.shape
+    plan = att.paged_plan(q.shape[0], H, dh, k_pool.element_size(), page, max_n_past + 1)
+    pools = {"k": k_pool, "v": v_pool, "ks": k_scale, "vs": v_scale}
+
+    def rows(which, b, h, r0, n):
+        j = torch.arange(r0, r0 + n)
+        pid = table[b, j // page].long().clamp(0, P - 1)
+        return pools[which][pid, il, h, j % page].float()
+
+    return chunk_order(q, plan, rows, k_scale is not None, n_pasts, max_n_past)
+
+
+def batched_chunk_order(q, k, v, k_scale, v_scale, il, n_pasts, max_n_past, plan=None):
+    """The batched kernel's order (``chunk_order``): tiles read from each
+    slot's plane of layer ``il`` of the caches ``[L, B, H, n_ctx, X]``."""
+    _, B, H, _, dh = k.shape
+    plan = plan or att.batched_plan(B, H, dh, k.element_size(), max_n_past + 1)
+    caches = {"k": k, "v": v, "ks": k_scale, "vs": v_scale}
+
+    def rows(which, b, h, r0, n):
+        return caches[which][il, b, h, r0 : r0 + n].float()
+
+    return chunk_order(q, plan, rows, k_scale is not None, n_pasts, max_n_past)
 
 
 def _pools(kind, n_pasts, page, C, garbage, seed, L=2, H=2, dh=128):
@@ -265,3 +304,171 @@ def test_paged_order_matches_jax_kernel(kind, page, garbage):
                 jnp.asarray(table.numpy()), jnp.int32(il), jn, interpret=True)
         assert _rel(got, want) <= 1e-5
         assert _rel(got, _plain(q, pools, table, il, n_pasts)) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the dense batched kernel: its plan and order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("elt", [4, 2, 1])
+def test_batched_plan_fits_every_head_dim(elt):
+    """At most 8 splits (a cluster of the portable size), a tile of at least
+    one row and at most the longest split (and 1024 rows), at most the
+    ring's stages, shared memory within 232,448 bytes, for B 1..32."""
+    for dh in range(2, att.MAX_HEAD_DIM + 1, 2):
+        for n_keys in KEYS:
+            for B in (1, 8, 32):
+                plan = att.batched_plan(B, 32, dh, elt, n_keys)
+                assert 1 <= plan.splits <= att.batched_splits(B, 32, n_keys) <= att.MAX_SPLITS == 8
+                assert 1 <= plan.tile <= min(plan.keys, att.MAX_TILE)
+                assert 1 <= plan.stages <= att.BATCHED_STAGES
+                assert plan.smem_bytes <= att.SMEM_LIMIT, (dh, elt, n_keys)
+                assert plan.grid == (plan.splits, 32, B) and plan.page is None
+
+
+@pytest.mark.parametrize("B,n_keys,splits", [(8, 512, 2), (16, 512, 1), (4, 512, 2), (1, 2048, 8), (8, 2048, 2),
+                                              (16, 2048, 2), (16, 128, 1), (32, 2048, 2), (1, 1, 1)])
+def test_batched_splits_at_the_timed_cases(B, n_keys, splits):
+    """The split rule at the cases tools/flash_variants.py timed on an H100
+    (the fastest or within a few percent of it), and its bounds: 1 to 8
+    splits, at most 4 blocks an SM of 132 unless the keys need more than
+    one split for every 1024."""
+    assert att.batched_splits(B, 32, n_keys) == splits
+    for b in (1, 2, 3, 8, 16, 32, 64):
+        for k in (1, 16, 255, 256, 257, 1024, 1025, 2048, 4096, 100_000):
+            s = att.batched_splits(b, 32, k)
+            assert 1 <= s <= 8 and s <= max(1, -(-k // 256))
+            assert b * 32 * s <= 4 * 132 or s == min(8, -(-k // 1024))
+
+
+@pytest.mark.parametrize("elt", [4, 2, 1])
+def test_flash_variants_plans_cut_keys_as_the_wrapper(elt):
+    """tools/flash_variants.py launches the batched kernel on its own plans
+    (``variant_plan``): at most ``max_splits`` splits that cover the keys,
+    a tile of one row to the longest split; at the wrapper's splits and
+    stage bytes, the wrapper's plan."""
+    for n_keys in (1, 17, 512, 1289, 2048):
+        for splits in (1, 2, 4, 8):
+            for stage_bytes in (8192, 16384, 32768, 65536):
+                S, tile = flash_variants.variant_plan(128, elt, n_keys, splits, stage_bytes)
+                keys = att.split_plan(n_keys, S)[1]
+                assert 1 <= S <= splits and S * keys >= n_keys and 1 <= tile <= keys
+        for B in (1, 8, 16):
+            own = att.batched_plan(B, 32, 128, elt, n_keys)
+            assert flash_variants.variant_plan(128, elt, n_keys, own.splits, att.BATCHED_STAGE_BYTES) == \
+                (own.splits, own.tile)
+
+
+@pytest.mark.parametrize("elt", [4, 2, 1])
+def test_batched_every_live_key_in_one_split_and_tile(elt):
+    """For slots of every key count up to 2048 (B 1..32 at a time): the
+    splits of a slot cover its keys once, in order, each of a multiple of
+    16 keys but the last and at most the plan's longest; no more splits
+    than the plan's; a tile's rows are one copy each of K and V (a plane
+    has no page edges) and no row beyond the slot's n_past is read."""
+    rng = np.random.default_rng(elt)
+    for B in (1, 2, 7, 8, 16, 32):
+        n_keys = [int(k) for k in rng.integers(1, 2049, size=B)]
+        plan = att.batched_plan(B, 8, 128, elt, max(n_keys))
+        for keys in n_keys + [1, max(n_keys)]:
+            splits = plan.slot_splits(keys)
+            assert 1 <= len(splits) <= plan.splits
+            seen = []
+            for c, (j0, jn) in enumerate(splits):
+                assert 1 <= jn <= plan.keys
+                assert jn % att.PASS_MIN_KEYS == 0 or c == len(splits) - 1
+                for r0, n in plan.tiles(j0, jn):
+                    assert 1 <= n <= plan.tile and plan.runs(r0, n) == [(r0, n)]
+                    assert r0 + n <= keys  # never past the slot's n_past
+                    seen += range(r0, r0 + n)
+            assert seen == list(range(keys))
+
+
+@pytest.mark.parametrize("dh,n_keys,B,elt", [
+    (17, 16, 1, 4), (0, 16, 1, 4), (1026, 16, 1, 4), (128, 0, 1, 4), (128, 16, 0, 4), (128, 16, 1, 3)])
+def test_batched_plan_refuses(dh, n_keys, B, elt):
+    with pytest.raises(ValueError):
+        att.batched_plan(B, 4, dh, elt, n_keys)
+
+
+def _planes(kind, n_pasts, C, seed, L=2, H=2, dh=128):
+    """q and caches [L, B, H, C, dh] (int8: codes by the port's write and
+    their row scales) for slots at ``n_pasts``, stale rows beyond each
+    n_past (f32/bf16: +-1e4; int8: code 127, scale 1e3)."""
+    rng = np.random.default_rng(seed)
+    B = len(n_pasts)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((L, B, H, C, dh)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((L, B, H, C, dh)).astype(np.float32))
+    if kind == "int8":
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        for b, n in enumerate(n_pasts):
+            for codes, sc in ((k8, ks), (v8, vs)):
+                codes[:, b, :, n + 1 :] = 127
+                sc[:, b, :, n + 1 :] = 1e3
+        return q, (k8, v8, ks, vs)
+    for b, n in enumerate(n_pasts):
+        k[:, b, :, n + 1 :] = 1e4
+        v[:, b, :, n + 1 :] = -1e4
+    dtype = getattr(torch, kind)
+    return q, (k.to(dtype), v.to(dtype))
+
+
+def _batched_order(q, caches, il, n_pasts, plan=None):
+    np_ = torch.tensor(n_pasts, dtype=torch.int32)
+    scales = caches[2:] if len(caches) == 4 else (None, None)
+    return batched_chunk_order(q, caches[0], caches[1], *scales, il, np_, max(n_pasts), plan=plan)
+
+
+def _batched_plain(q, caches, il, n_pasts):
+    np_ = torch.tensor(n_pasts, dtype=torch.int32)
+    fn = att.flash_decode_attention_batched_int8 if len(caches) == 4 else att.flash_decode_attention_batched
+    return fn(q, *caches, il, np_, max(n_pasts))  # the CPU wrapper is the plain version
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_batched_order_matches_plain_at_2048(kind):
+    """At n_ctx 2048, one slot at its last position (8 splits of 256 keys,
+    or 2 of 1024, each several tiles through a ring of two), one at n_past
+    0, others on both sides of a 16-key split edge: the kernel's order
+    within 1e-6 of the plain version."""
+    n_pasts = [2047, 0, 700, 129, 16]
+    q, caches = _planes(kind, n_pasts, 2048, seed=11)
+    plan = att.batched_plan(len(n_pasts), 2, 128, caches[0].element_size(), 2048)
+    assert plan.splits == 8 and plan.keys == 256 and len(plan.tiles(0, plan.keys)) >= plan.stages
+    wide = att.batched_plan(len(n_pasts), 2, 128, caches[0].element_size(), 2048, sms=1)  # 1 split a 1024 keys
+    assert wide.splits == 2 and wide.keys == 1024 and len(wide.tiles(0, wide.keys)) > wide.stages
+    for il in range(2):
+        plain = _batched_plain(q, caches, il, n_pasts)
+        assert _rel(_batched_order(q, caches, il, n_pasts), plain) <= 1e-6
+        assert _rel(_batched_order(q, caches, il, n_pasts, plan=wide), plain) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_batched_order_matches_jax_kernel(kind):
+    """The kernel's order against the JAX package's batched kernels in
+    interpret mode (f32/bf16: ``flash_decode_attention_batched``; int8:
+    ``flash_decode_attention_batched_int8``) within 1e-5, and the order at
+    1 and 8 splits of 16-row tiles within 1e-6 of the plain version."""
+    n_pasts = [0, 63, 200, 255]
+    q, caches = _planes(kind, n_pasts, 256, seed=12)
+    jn = jnp.asarray(n_pasts, jnp.int32)
+    for il in range(2):
+        got = _batched_order(q, caches, il, n_pasts)
+        if kind == "int8":
+            want, _, _ = flash_decode_attention_batched_int8(
+                jnp.asarray(q.numpy()), *(jnp.asarray(t.numpy()) for t in caches), jnp.int32(il), jn,
+                interpret=True)
+        else:
+            jdt = jnp.float32 if kind == "float32" else jnp.bfloat16
+            want, _, _ = flash_decode_attention_batched(
+                jnp.asarray(q.numpy()), *(jnp.asarray(t.float().numpy()).astype(jdt) for t in caches),
+                jnp.int32(il), jn, interpret=True)
+        assert _rel(got, want) <= 1e-5
+        plain = _batched_plain(q, caches, il, n_pasts)
+        assert _rel(got, plain) <= 1e-6
+        own = att.batched_plan(4, 2, 128, caches[0].element_size(), 256)
+        for splits in (1, 8):
+            plan = dataclasses.replace(own, splits=splits, keys=att.split_plan(256, splits)[1], tile=16)
+            assert _rel(_batched_order(q, caches, il, n_pasts, plan=plan), plain) <= 1e-6
