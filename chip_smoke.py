@@ -27,8 +27,12 @@ Phases:
    ``check_fused_kernel`` for how 4-bit activation flips are counted); the
    multi-row product (row 6) at B = 2, 8, 16, 32 on the four matvec shapes
    beside row 12 on the same inputs; both dequants (rows 3, 3b: bf16, f32,
-   bit-exact) at the four matvec shapes; the Q4_1 matvec at the four
-   matvec shapes, on weights whose mins centre them near zero;
+   bit-exact) at the four matvec shapes; the two 4-bit-activation
+   matvecs (rows 1 and 5, the Q4_1 one on weights whose mins centre them
+   near zero) at the four matvec shapes and the fused 12288x4096 and
+   22016x4096, each bit-equal to its order of sums in PyTorch
+   (``<kind>_matvec_lane_order``), a second launch bit-equal, and one
+   kernel a call (a profiler window);
    the three f32-activation kernels (Q4_0 and Q4_1 matvec, Q4_0 multi-row
    at B = 2, 8, 32) at the four matvec shapes and the fused 12288x4096 and
    22016x4096, beside the dequant + matmul pair they replace; the T
@@ -40,9 +44,11 @@ Phases:
    bit-equal, their plans logged) also at B = 16 and at n_ctx 2048 (pages
    of 128 and 16), the batched kernel on dense caches that hold the paged
    kernel's keys beside it; a checksum (``bits``) of the outputs of every
-   flash kernel, the whole-stack kernel and both f32 matvecs on their
+   flash kernel, the whole-stack kernel and all four matvecs on their
    seeded inputs, so that an A/B call (this script on two trees) shows
    where two kernels agree bit for bit;
+2a. the 4-bit-activation matvecs in the stream: profiled decode steps at
+   7B width on 2 layers, every kernel by name (``profile_stream_matvecs``);
 2b. the kernelbench path (``tools/kernelbench.main``, every variant at its
    five shapes; see ``run_kernelbench``): the stream probe's launches come
    from here, with each product's GB/s against the probe's on its shape;
@@ -187,6 +193,7 @@ BATCHED_NPASTS_16 = BATCHED_NPASTS + [31, 400, 256, 1, 450, 99, 64, 383]  # wave
 PAGED_NPASTS_2048 = [0, 255, 256, 511, 800, 1244, 2047, 20]  # B = 8 at LLaMA's context, a slot at its last key
 F32_WIDE = [(5120, 13824), (8192, 22016)]  # row 1f at the in-dims of 13B's and 65B's n_ff
 STALE_CODE, STALE_SCALE = 127, 1e3  # int8 rows beyond n_past: never to be attended
+PROFILER_START_S = 0.05  # host pause after a profiler window opens: launches right after lose their records
 PROMPTS = [
     "The rain in Spain stays mainly in the plain",
     "Once upon a time, in a land far away,",
@@ -235,7 +242,9 @@ def launches_per_call(torch, fn, calls: int = 4, windows: int = 6) -> float:
     window that shows fewer than the calls made lost records (the wrapper
     raises on a launch that fails; a record is never invented), so up to
     ``windows`` windows are taken until one shows a whole number; returns
-    the most a window showed, which the caller holds to 1."""
+    the most a window showed, which the caller holds to 1.  Launches made
+    right after a window opens lose their records (seen on the card), so
+    each window waits ``PROFILER_START_S`` before the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -243,6 +252,7 @@ def launches_per_call(torch, fn, calls: int = 4, windows: int = 6) -> float:
     per_call = 0.0
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_START_S)
             for i in range(1, calls + 1):
                 fn(i)
             torch.cuda.synchronize()
@@ -253,6 +263,33 @@ def launches_per_call(torch, fn, calls: int = 4, windows: int = 6) -> float:
         if n and n % calls == 0:  # an empty window lost its records too
             break
     return per_call
+
+
+def graph_kernels(torch, fn) -> int:
+    """Kernel launches of one call of ``fn()``: the kernel nodes of that
+    call captured into a CUDA graph, read through the driver API.  A
+    count that no profiler window can lose (a long process lost one
+    record of four in every window of a call, seen on the card)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("graph_kernels: cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("graph_kernels: cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def rel_err(a, b) -> float:
@@ -361,36 +398,71 @@ def rand_q4_1(torch, g, n, out, in_dim):
     return Q4_1Weight(w.qs, torch.stack([w.d, m], dim=-1).contiguous())
 
 
-def check_q4_1_kernels(torch, g, summary) -> list:
-    """The Q4_1 matvec against its plain version at the four matvec shapes
-    (≤ 1e-5 of max |y|: the kernel sums integer block dots, the plain version
-    f32 products of rounded x̂), and the Q4_1 dequant (``check_dequant``).
-    Returns the cases that disagree.  No single PyTorch call computes
-    either function, so ``library_ms`` is None."""
+def check_q4_matvec(torch, g, summary, kind: str) -> list:
+    """Row 1 (``kind`` "q4_0", ``q4_0_matvec``) or row 5 ("q4_1",
+    ``q4_1_matvec``), the 4-bit-activation matvecs on their persistent
+    grid, at ``F32_SHAPES`` (the four matvec shapes and the fused
+    12288x4096 and 22016x4096), on a round robin of weight copies (> 200 MB,
+    cold L2): within 1e-5 of max |y| of the plain version (Q4_0: the same
+    exact block partials summed in another order; Q4_1: integer block dots
+    against the plain version's f32 products of rounded x̂), a second launch
+    bit-equal, bit-equal to the kernel's order of sums in PyTorch
+    (``ops/q4_matvec.<kind>_matvec_lane_order`` on the CPU, where the tree
+    has it), the outputs' ``bits`` and the plan logged; at 11008x4096 the
+    kernels of a call, one: the kernel nodes of a call captured into a CUDA
+    graph, and a profiler window that shows no more than one a call (a
+    window in a long process can lose a record).  The bound is the
+    bytes (weight, x and y in f32) or 2 (Q4_0) or 4 (Q4_1) integer
+    operations a weight at the int8 rate, the larger.  No single PyTorch
+    call computes either function, so ``library_ms`` is None.  Returns the
+    cases that disagree."""
     from llama_swift_torch.ops import q4_matvec as mv
 
+    q41 = kind == "q4_1"
+    name = f"{kind}_matvec"
+    fn, plain = getattr(mv, name), getattr(mv, name + "_plain")
+    mirror = getattr(mv, name + "_lane_order", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
-    for out, in_dim in MATVEC_SHAPES:
-        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 8
+    for out, in_dim in F32_SHAPES:
+        wbytes = out * in_dim // 2 + out * (in_dim // 32) * (8 if q41 else 4)
         n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
-        w = rand_q4_1(torch, g, n, out, in_dim)
+        w = (rand_q4_1 if q41 else rand_q4)(torch, g, n, out, in_dim)
         x = torch.randn(in_dim, device="cuda", generator=g)
-        y = mv.q4_1_matvec(x, w.layer(0))
-        ref = mv.q4_1_matvec_plain(x, w.layer(0))
+        y = fn(x, w.layer(0))
+        ref = plain(x, w.layer(0))
         err = rel_err(y, ref)
         nbytes = wbytes + in_dim * 4 + out * 4
-        case = {"case": "q4_1_matvec", "out": out, "in": in_dim, "max_rel_err": err,
+        case = {"case": name, "out": out, "in": in_dim, "max_rel_err": err,
                 "max_abs_err": float((y - ref).abs().max()),
-                "kernel_ms": time_ms(torch, lambda i: mv.q4_1_matvec(x, w.layer(i % n)), 200),
-                "plain_ms": time_ms(torch, lambda i: mv.q4_1_matvec_plain(x, w.layer(i % n)), 5),
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S, 4 * out * in_dim / INT8_OPS) * 1e3,
-                "library_ms": None, "ok": err <= 1e-5}
+                "kernel_ms": time_ms(torch, lambda i: fn(x, w.layer(i % n)), 200),
+                "plain_ms": time_ms(torch, lambda i: plain(x, w.layer(i % n)), 5),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, (4 if q41 else 2) * out * in_dim / INT8_OPS) * 1e3,
+                "library_ms": None, "bits": bits(y), "repeat_bit_equal": bool(torch.equal(y, fn(x, w.layer(0)))),
+                "plan": plan_record(mv, "matvec_q4_plan", out, in_dim, sms, **({"q4_1": True} if q41 else {}))}
+        case["ok"] = err <= 1e-5 and case["repeat_bit_equal"]
+        if mirror is not None:
+            wc = w.layer(0)
+            wc = type(wc)(wc.qs.cpu(), (wc.dm if q41 else wc.d).cpu())
+            case["lane_order_equal"] = bool(torch.equal(y.cpu(), mirror(x.cpu(), wc)))
+            case["ok"] = case["ok"] and case["lane_order_equal"]
+        if (out, in_dim) == (11008, 4096):  # one kernel a call: a graph's nodes, a profiler window that never adds
+            case["launches_per_call"] = launches_per_call(torch, lambda i: fn(x, w.layer(i % n)))
+            case["graph_kernels_per_call"] = graph_kernels(torch, lambda: fn(x, w.layer(0)))
+            case["ok"] = case["ok"] and case["graph_kernels_per_call"] == 1 and 0 < case["launches_per_call"] <= 1
+            summary[name] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
         log(case)
         if not case["ok"]:
             failed.append(case)
-        if (out, in_dim) == (11008, 4096):
-            summary["q4_1_matvec"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
         del w
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_q4_1_kernels(torch, g, summary) -> list:
+    """Row 5, the Q4_1 matvec (``check_q4_matvec``), and the Q4_1 dequant
+    (``check_dequant``).  Returns the cases that disagree."""
+    failed = check_q4_matvec(torch, g, summary, "q4_1")
     failed += check_dequant(torch, g, summary, "q4_1")
     torch.cuda.empty_cache()
     return failed
@@ -481,7 +553,7 @@ def check_multi_kernel(torch, g, summary) -> list:
                     "plain_ms": time_ms(torch, lambda i: mv.q4_0_matmul_multi_plain(x, w.layer(i % n)), 3),
                     "row12_ms": time_ms(torch, lambda i: qm.q4_0_int_matmul(x, w.layer(i % n)), 200),
                     "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": None, "ok": err <= 1e-5}
+                    "library_ms": None, "bits": bits(y), "ok": err <= 1e-5}
             case["faster_than_row12"] = case["kernel_ms"] < case["row12_ms"]
             if (out, in_dim) == (11008, 4096) and rows in (8, 32):
                 case["kernel_us"] = kernel_us(torch, lambda i: mv.q4_0_matmul_multi(x, w.layer(i % n)))
@@ -896,35 +968,13 @@ def check_kernels(torch) -> dict:
     """Returns {kernel name: summary at its representative shape}."""
     from llama_swift_torch.ops import attention as att
     from llama_swift_torch.ops import q4_dequant as dq
-    from llama_swift_torch.ops import q4_matvec as mv
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     summary = {}
     failed = []
 
-    # matvec: enough weight copies that a round robin streams > 200 MB (cold L2)
-    for out, in_dim in MATVEC_SHAPES:
-        wbytes = out * in_dim // 2 + out * (in_dim // 32) * 4
-        n = max(2, math.ceil(2e8 / wbytes))
-        w = rand_q4(torch, g, n, out, in_dim)
-        x = torch.randn(in_dim, device=dev, generator=g)
-        y = mv.q4_0_matvec(x, w.layer(0))
-        ref = mv.q4_0_matvec_plain(x, w.layer(0))
-        err = rel_err(y, ref)
-        ms = time_ms(torch, lambda i: mv.q4_0_matvec(x, w.layer(i % n)), 200)
-        plain_ms = time_ms(torch, lambda i: mv.q4_0_matvec_plain(x, w.layer(i % n)), 5)
-        nbytes = wbytes + in_dim * 4 + out * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, 2 * out * in_dim / INT8_OPS) * 1e3
-        case = {"case": "q4_0_matvec", "out": out, "in": in_dim, "max_rel_err": err,
-                "max_abs_err": float((y - ref).abs().max()), "kernel_ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "library_ms": None, "ok": err <= 1e-5}
-        log(case)
-        if not case["ok"]:
-            failed.append(case)
-        if (out, in_dim) == (11008, 4096):
-            summary["q4_0_matvec"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
-        del w
+    failed += check_q4_matvec(torch, g, summary, "q4_0")
 
     # flash decode over the 32-layer stacked cache, a layer per call
     L, H, n_ctx, dh = 32, 32, 512, 128
@@ -1087,6 +1137,7 @@ def check_kernels(torch) -> dict:
     log(case)
     if not case["ok"]:
         failed.append(case)
+    profile_stream_matvecs(torch)  # before any verdict: an A/B call reads it on both trees
     if failed:
         raise SystemExit(f"chip_smoke: {len(failed)} kernel case(s) disagree with the plain version")
     return summary
@@ -1965,6 +2016,7 @@ def serve(torch, workdir: str, profile: bool) -> dict:
     ops.reset_launch_counts()  # the main path's run starts here
     per_request = run_requests(torch, runner, requests, PROMPTS + ENGINE_PROMPTS[3:], composed(runner.config.n_layer))
     counts = ops.launch_counts()  # read just after the main path's run
+    profile_matvec_decode(torch, runner, "profile_q4_0_decode_8_steps", r"q4_matvec_kernel<.*\bBlockQ4_0>")
     if profile:
         profile_decode(torch, runner)
     return {"launches": counts, "requests": per_request, "runner": runner, "fused_runner": fused_runner,
@@ -2169,7 +2221,8 @@ def serve_q4_1(torch, workdir: str, profile: bool) -> list:
         ("greedy_device_q4_1_f32_acts", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=10, top_k=1)),
          "float32")], PROMPTS[2:], composed(n_layer, 7, "q4_1_matvec_f32", "q4_1_dequant"), quantize_activations=False)
     runs.append(ops.launch_counts())  # read just after
-    profile_f32_decode(torch, runner, "profile_q4_1_f32_decode_8_steps", focus="F32BlockQ4_1")
+    profile_matvec_decode(torch, runner, "profile_q4_1_f32_decode_8_steps", "F32BlockQ4_1", False)
+    profile_matvec_decode(torch, runner, "profile_q4_1_decode_8_steps", r"q4_matvec_kernel<.*\bBlockQ4_1>")
     del fused_runner
     torch.cuda.empty_cache()
     runs.append(serve_engine(torch, runner, [("F_q4_1_dense_f32", 4, dict(cache_dtype=torch.float32),
@@ -2325,17 +2378,39 @@ def serve_engine(torch, runner, waves, n_predict: int = 32, **overrides) -> dict
     return counts
 
 
-def profile_f32_decode(torch, runner, name: str, focus: str = "F32BlockQ4_0") -> None:
-    """A profiled 8-step window of batch-1 decode with f32 activations on
-    the runner's params (the device idle share of that path, and the device
-    time a step of its f32 matvec: ``focus`` names its block type)."""
+def profile_matvec_decode(torch, runner, name: str, focus: str, quantize_activations: bool = True) -> None:
+    """A profiled 8-step window of batch-1 decode on the runner's params,
+    with 4-bit or (``quantize_activations=False``) f32 activations: the
+    device idle share of that path, and the device time a step (a token's
+    225 calls) of its matvec kernel, which ``focus`` names."""
     from llama_swift_torch.models import llama as model_lib
 
-    cfg = dataclasses.replace(runner.config, quantize_activations=False)
+    cfg = dataclasses.replace(runner.config, quantize_activations=quantize_activations)
     tok = torch.tensor(1, device="cuda")
     cache = model_lib.init_cache(cfg, device="cuda")
     profile_window(torch, name, lambda i: model_lib.decode_step(runner.params, tok, i, cache, cfg), focus=focus)
     del cache
+
+
+def profile_stream_matvecs(torch) -> None:
+    """The 4-bit-activation matvecs in the stream, where the host launches
+    one call at a time and the card waits between them: profiled 8-step
+    windows of batch-1 decode at 7B width on 2 layers (Q4_0 and Q4_1
+    params from seeds, 15 matvec calls a step), every kernel by name with
+    its device time a step (``top_kernels_us_per_step``), so that an A/B
+    call compares two trees whatever kernels their calls launch."""
+    from llama_swift_torch.config import GGMLType, ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+
+    tok = torch.tensor(1, device="cuda")
+    for name, ftype, seed in (("q4_0", GGMLType.Q4_0, 7), ("q4_1", GGMLType.Q4_1, 8)):
+        cfg = dataclasses.replace(ModelConfig.llama_7b(ftype=ftype), n_layer=2)
+        params = model_lib.params_from_tensors(dict(synthetic_tensors(cfg, seed=seed)), cfg, device="cuda")
+        cache = model_lib.init_cache(cfg, device="cuda")
+        profile_window(torch, f"profile_stream_{name}_2_layers_8_steps",
+                       lambda i: model_lib.decode_step(params, tok, i, cache, cfg))
+        del params, cache
+        torch.cuda.empty_cache()
 
 
 def profile_dense_steps(torch, runner) -> None:
@@ -2393,7 +2468,7 @@ def serve_f32_acts(torch, runner) -> list:
         ("greedy_device_f32_acts", RunnerConfig(num_tokens=32, sampling=SamplingConfig(seed=21, top_k=1)),
          "float32")], PROMPTS[:1], composed(n_layer, 7, "q4_0_matvec_f32"), quantize_activations=False)
     runs.append(ops.launch_counts())  # read just after
-    profile_f32_decode(torch, runner, "profile_f32_decode_8_steps")
+    profile_matvec_decode(torch, runner, "profile_f32_decode_8_steps", "F32BlockQ4_0", False)
     runs.append(serve_engine(torch, runner, [("G_dense_f32_f32_acts", 8, dict(cache_dtype=torch.float32),
                                               ENGINE_PROMPTS[:12], [None] * 12, "flash_decode_attention_batched")],
                              quantize_activations=False))
@@ -2994,6 +3069,7 @@ def profile_window(torch, name: str, step, n_steps: int = 8, focus: str = None) 
     step(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_START_S)
         t0 = time.perf_counter()
         for i in range(1, n_steps + 1):
             step(i)

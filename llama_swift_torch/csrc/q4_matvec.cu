@@ -1,37 +1,72 @@
-// Batch-1 Q4_0 matvec with the reference's int4 x int4 block dot.
+// Batch-1 Q4_0 and Q4_1 matvecs on 4-bit activation codes (q4_0_matvec,
+// q4_1_matvec): one kernel template, q4_matvec_kernel<Block>, the weight
+// block type its parameter.
 //
-// Replaces the TPU kernel `_q4_0_vpu_kernel` / `_q4_0_vpu_kernel_stacked`
-// (llama_swift_tpu/ops/q4_vpu_pallas.py, entry points q4_0_vpu_matvec and
-// q4_0_vpu_matvec_stacked), which is itself the device form of
-// ggml_vec_dot_q4_0 (ggml.c:1296-1582).
+// Replace the TPU kernels `_q4_0_vpu_kernel` / `_q4_0_vpu_kernel_stacked`
+// and `_q4_1_vpu_kernel` / `_q4_1_vpu_kernel_stacked` with their manually
+// pipelined forms (llama_swift_tpu/ops/q4_vpu_pallas.py, entry points
+// q4_0_vpu_matvec(_stacked) and q4_1_vpu_matvec(_stacked), activations
+// quantized by _prep_inputs and _prep_inputs_q41), the device forms of
+// ggml_vec_dot_q4_0 and ggml_vec_dot_q4_1 (ggml.c:1296-1626):
 //
-//   y[o] = sum_b  d_w[o,b] * d_x[b] * ( sum_i n[o,32b+i] * q[32b+i]  -  8 * sum_i q[32b+i] )
+//   Q4_0:  y[o] = sum_b d_w[o,b] * d_x[b] * ( sum_i n[o,32b+i] * q[32b+i]  -  8 * sum_i q[32b+i] )
+//   Q4_1:  y[o] = sum_b d_w[o,b] * sum_i n[o,32b+i] * xh[32b+i]  +  m_w[o,b] * sum_i xh[32b+i]
 //
-// with n the stored nibbles (0..15) and q the activation quantized per
-// 32-block to integers in [-7, 7] (d_x = amax/7, round half away from zero).
+// with n the stored nibbles (0..15); Q4_0 quantizes x per 32-block to
+// integers q in [-7, 7] (d_x = amax/7, round half away from zero), Q4_1 to
+// codes q in [0, 15] (min/max, d_x = (max - min)/15) and xh = q * d_x + m_x.
+// ggml_vec_dot_q4_1's algebra makes Q4_1's block work integer too:
+// sum(n * xh) = d_x * sum(n * q) + m_x * sum(n).
 //
-// What bounds it on the H100: device-memory bandwidth.  Each weight costs
-// 0.625 bytes (half a byte of nibble + 4 bytes of scale per 32) and 2 integer
-// operations, far below the int8 tensor rate, so the kernel exists to stream
-// the packed weight once at full rate.
+// What bounds them on the H100: device-memory bandwidth.  A weight costs
+// 0.625 bytes (Q4_0: half a byte of nibble and 4 bytes of scale per 32) or
+// 0.75 (Q4_1: 8 bytes of (d, m) per 32) and 2 integer operations, far below
+// the int8 rate; the tensor cores cannot help a single row, so __dp4a on
+// the CUDA cores takes four products a time (a block is 8 dp4a; Q4_1 adds
+// 8 more against 0x01 bytes for sum(n)).
 //
-// Design:
-//  * Pre-pass (quantize_x_kernel): one warp per 32-block of x computes amax
-//    with shuffles, d_x and the integer q, bit-identical to
-//    quantize_activations_q4_0_int (explicit _rn intrinsics: nvcc would
-//    otherwise contract x*inv + 0.5 into one FMA and round ties differently).
-//    It stores q de-interleaved per block so that it lines up with the
-//    nibble bytes: bytes 0..15 hold the even elements of each 8-group, bytes
-//    16..31 the odd ones, plus sum(q) per block.
-//  * Main kernel: one warp per output row, eight rows per block.  Lane l
-//    reads block b = l, l+32, ... of its row: 16 contiguous bytes of
-//    nibbles (a warp reads 512 contiguous bytes per step) and the matching
-//    32 bytes of q.  Low nibbles (w & 0x0F0F0F0F) pair with the even q
-//    bytes, high nibbles with the odd ones; __dp4a takes four products a
-//    time, so a block is 8 dp4a.  The -8 offset is removed once per block
-//    as 8*sum(q), like the TPU kernel's aux row.  Block partials are exact
-//    integers; only the f32 sum over blocks is reassociated (per lane, then
-//    a warp shuffle reduction).
+// Design (q4_matvec_kernel<Block>: one launch a call, no scratch).  The
+// first kernels were two launches a call (a quantizing pre-pass through
+// global scratch, then one warp a row, eight rows a block, four loads in
+// flight a warp), which held the 4096^2 product, 128 of a token's 225
+// calls, at 34 % (Q4_0) and 38 % (Q4_1) of its bound.  Now, on a
+// persistent grid (ops/q4_matvec.matvec_q4_plan):
+//  * one block of MV_WARPS = 32 warps an SM, so that x is staged and
+//    quantized once an SM; warp w of block g walks rows w * grid + g,
+//    + 32 * grid, ... (interleaved over the SMs: no SM holds more than one
+//    row beyond another);
+//  * thread 0 first issues one bulk copy (TMA) of x into shared memory: an
+//    L2 hit that the weight loads queued in the SM cannot hold back (plain
+//    loads of x waited behind them, 1.7-2.8 us at in 4096 and 11008 in the
+//    variants timed); x off 16-byte alignment is staged by plain loads;
+//  * each lane then issues the streaming loads (evict first, as the stream
+//    probe's) of its first MV_RING weight blocks, 16 bytes of nibbles and
+//    the 4-byte scale or Q4_1's 8-byte (d, m) each: at in 4096 (4 blocks a
+//    lane a row) a lane's whole row is in flight at once;
+//  * while they are on their way, the block quantizes x from shared memory
+//    into shared memory, a quad of threads a 32-block (a thread holds 8
+//    elements, so the tree of a warp's butterfly is levels 16, 8 and 4 in
+//    its registers and levels 2 and 1 two shuffles): 32 codes
+//    de-interleaved as quantize_block_warp writes them, even and odd halves
+//    in two planes so that lane l's 16-byte reads of block l + 32k do not
+//    conflict, and per block {sum of codes, d_x} (Q4_0) or {d_x, m_x,
+//    sum xh} (Q4_1); with x, 168 or 176 bytes per 32 elements (cap:
+//    ops/q4_matvec.MAX_Q4_IN);
+//  * then a ring of MV_RING blocks in registers runs across rows: a lane's
+//    blocks of a row and those of its next row form one stream, a refill
+//    issued as soon as a block is taken.
+// The codes are the pre-pass's bit for bit: amax, min and max are exact in
+// any order, each code is its own element's _rn rounding, the sum of codes
+// is an exact integer, and Q4_1's sum of xh is added in warp_sum_f's
+// butterfly tree order (xor 16, 8, 4, 2, 1, as lane 0 saw it).  The sums
+// are the first kernels' bit for bit: lane l adds its blocks l, l + 32,
+// ... in order, Q4_0 as acc + part * (d_w * d_x) with each operation
+// rounded, Q4_1 in the contraction nvcc chose for the first kernel's
+// `acc += d * nx + m * s` (read from its SASS), written out with fmaf so
+// that no kernel context changes it; then the same warp butterfly.  A
+// row's lanes step through the same number of ring slots (a lane past the
+// row's blocks skips its slot), so the butterfly meets every lane at the
+// row's end.
 //
 // Multi-row matmul (q4_0_matmul_multi, 2..32 activation rows, the batched
 // decode step of the continuous-batching engine).
@@ -97,33 +132,6 @@
 // pre-pass and a launch gap), and each block takes chunk after chunk
 // behind a barrier each, so at B = 8 the weight stream is not kept full;
 // from B = 16 the per-block scaling of NT MMAs a block pair sets the pace.
-//
-// Q4_1 matvec (q4_1_matvec, batch 1 against Q4_1 weights).
-//
-// Replaces the TPU kernels `_q4_1_vpu_kernel` / `_q4_1_vpu_kernel_stacked`
-// and their manually pipelined forms (llama_swift_tpu/ops/q4_vpu_pallas.py,
-// entry points q4_1_vpu_matvec and q4_1_vpu_matvec_stacked):
-//
-//   y[o] = sum_b  d_w[o,b] * sum_i n[o,32b+i] * xh[32b+i]  +  m_w[o,b] * sum_i xh[32b+i]
-//
-// with n the stored nibbles (0..15), (d_w, m_w) the block's delta and min,
-// and xh = q * d_x + m_x the activation quantized per 32-block through Q4_1
-// (min/max, d_x = (max - min)/15, q = round((x - min)/d_x) in 0..15).
-//
-// What bounds it on the H100: device-memory bandwidth, 0.75 bytes a weight
-// (16 bytes of nibbles plus 8 of delta and min per 32), 20 % more than Q4_0.
-//
-// Design: the Q4_0 matvec's shape.  The pre-pass (quantize_x_q4_1_kernel)
-// reproduces quantize_activations_q4_1's codes (explicit _rn intrinsics,
-// __fdiv_rn for /15 and 1/d, min and max by shuffles) and stores them
-// de-interleaved like the Q4_0 codes, plus per block {d_x, m_x, sum(xh)}
-// (one 16-byte load).  The main kernel is one warp per output row, lane l
-// on blocks l, l+32, ...: 16 bytes of nibbles and one 8-byte (d, m) load a
-// block.  ggml_vec_dot_q4_1's algebra (ggml.c:1584-1626) makes the block
-// integer work: sum(n * xh) = d_x * sum(n * q) + m_x * sum(n), and dp4a
-// takes both sum(n * q) (8 dp4a, as for Q4_0) and sum(n) (8 more, against
-// 0x01 bytes).  This rounds otherwise than the plain version, which rounds
-// each xh and sums n * xh in f32; both stay within 1e-5 of max |y|.
 //
 // f32 activations (q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32:
 // ModelConfig.quantize_activations = False).
@@ -202,90 +210,6 @@
 #include "q4_mma.cuh"
 
 namespace {
-
-constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
-
-// x [nb*32] f32 -> xq [nb][32] int8 (de-interleaved), qsum [nb] int32, dx [nb] f32
-__global__ void quantize_x_kernel(const float* __restrict__ x, int nb,
-                                  int8_t* __restrict__ xq, int* __restrict__ qsum,
-                                  float* __restrict__ dx) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= nb) return;
-  quantize_block_warp(x[b * QK + lane], lane, xq + b * QK, qsum + b, dx + b);
-}
-
-// x [nb*32] f32 -> xq [nb][32] u8 codes 0..15 (de-interleaved like the Q4_0
-// codes), xs [nb] {d_x, m_x, sum of xh, 0}; the arithmetic of
-// quantize_activations_q4_1 and dequantize_activations_q4_1
-__global__ void quantize_x_q4_1_kernel(const float* __restrict__ x, int nb, uint8_t* __restrict__ xq,
-                                       float4* __restrict__ xs) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= nb) return;
-  const float v = x[b * QK + lane];
-  const float mn = warp_min(v);
-  const float d = __fdiv_rn(__fsub_rn(warp_max(v), mn), 15.0f);
-  const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
-  const float q = truncf(__fadd_rn(__fmul_rn(__fsub_rn(v, mn), inv), 0.5f));  // v - mn >= 0
-  const int g = lane >> 3, r = lane & 7;
-  xq[b * QK + ((r & 1) * 4 + g) * 4 + (r >> 1)] = static_cast<uint8_t>(q);
-  const float xsum = warp_sum_f(__fadd_rn(__fmul_rn(q, d), mn));
-  if (lane == 0) xs[b] = make_float4(d, mn, xsum, 0.0f);
-}
-
-// qs [out][nb*16] u8, dm [out][nb] {d, m} f32 -> y [out] f32
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-q4_1_matvec_kernel(const uint8_t* __restrict__ qs, const float2* __restrict__ dm,
-                   const uint8_t* __restrict__ xq, const float4* __restrict__ xs,
-                   float* __restrict__ y, int out, int nb) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= out) return;
-  const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
-  const float2* dmrow = dm + static_cast<size_t>(row) * nb;
-  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
-  const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int b = lane; b < nb; b += 32) {
-    const uint4 w = __ldg(wrow + b);
-    const float2 wdm = __ldg(dmrow + b);
-    const float4 s = __ldg(xs + b);
-    const int nq = block_dot(w, __ldg(xq4 + 2 * b), __ldg(xq4 + 2 * b + 1), 0);  // sum(n * q)
-    const int n = block_dot(w, ones, ones, 0);                                   // sum(n)
-    const float nx = s.x * static_cast<float>(nq) + s.y * static_cast<float>(n);  // sum(n * xh)
-    acc += wdm.x * nx + wdm.y * s.z;
-  }
-  acc = warp_sum_f(acc);
-  if (lane == 0) y[row] = acc;
-}
-
-// qs [out][nb*16] u8, dw [out][nb] f32 -> y [out] f32
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-q4_0_matvec_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
-                   const int8_t* __restrict__ xq, const int* __restrict__ qsum,
-                   const float* __restrict__ dx, float* __restrict__ y,
-                   int out, int nb) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= out) return;
-  const uint4* wrow = reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * nb * 16);
-  const float* drow = dw + static_cast<size_t>(row) * nb;
-  const uint4* xq4 = reinterpret_cast<const uint4*>(xq);
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int b = lane; b < nb; b += 32) {
-    const uint4 w = __ldg(wrow + b);
-    const uint4 qe = __ldg(xq4 + 2 * b);
-    const uint4 qo = __ldg(xq4 + 2 * b + 1);
-    const int part = block_dot(w, qe, qo, __ldg(qsum + b));
-    const float scale = __fmul_rn(__ldg(drow + b), __ldg(dx + b));
-    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(part), scale));
-  }
-  acc = warp_sum_f(acc);
-  if (lane == 0) y[row] = acc;
-}
 
 // ---------------------------------------------------------------------------
 // multi-row Q4_0 product on the int8 tensor cores
@@ -858,24 +782,247 @@ int launch_matvec_f32(const void* qs, const void* sc, const void* x, void* y, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// 4-bit activations (rows 1 and 5) on the persistent grid
+// ---------------------------------------------------------------------------
+
+constexpr int MV_WARPS = 32;         // warps of a block, one row at a time each (ops/q4_matvec.MV_WARPS)
+constexpr int MV_RING = 4;           // weight blocks a lane keeps in flight (MV_RING)
+constexpr int MV_BLOCKS_PER_SM = 1;  // blocks an SM of the persistent grid (MV_BLOCKS_PER_SM)
+
+// The weight block types of the 4-bit-activation matvec.  quantize() takes
+// one quad's share of a 32-block of x (quantize_x) and gives the quad's
+// partial code words and the block's data exactly as the first kernels'
+// pre-pass computed them (quantize_block_warp, the Q4_1 pre-pass); add()
+// adds one weight block's term to a lane's sum as the first kernels did.
+// Thread t of a quad holds elements t + 4k, k < 8: byte (t >> 1) + 2 (k & 1)
+// of word k >> 1 of the even (t even) or the odd half of the codes.
+struct BlockQ4_0 {
+  using Scale = float;  // d_w
+  using Meta = int2;    // {sum of the codes, d_x bits}
+  __device__ static Meta quantize(const float* v, int t, uint32_t* w) {
+    float a = fabsf(v[0]);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) a = fmaxf(a, fabsf(v[k]));
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));  // amax: exact in any order
+    const float d = __fdiv_rn(a, 7.0f);
+    const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
+    int s = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int q = static_cast<int>(truncf(__fadd_rn(__fmul_rn(v[k], inv), v[k] >= 0.0f ? 0.5f : -0.5f)));
+      s += q;
+      w[k >> 1] |= (static_cast<uint32_t>(q) & 0xFFu) << (8 * ((t >> 1) + 2 * (k & 1)));
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    return make_int2(s, __float_as_int(d));
+  }
+  __device__ static float add(float acc, uint4 w, Scale d, uint4 e, uint4 o, Meta m) {
+    const int part = block_dot(w, e, o, m.x);
+    return __fadd_rn(acc, __fmul_rn(static_cast<float>(part), __fmul_rn(d, __int_as_float(m.y))));
+  }
+};
+struct BlockQ4_1 {
+  using Scale = float2;  // {d_w, m_w}
+  using Meta = float4;   // {d_x, m_x, sum of xh, 0}
+  __device__ static Meta quantize(float* v, int t, uint32_t* w) {
+    float mn = v[0], mx = v[0];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) {
+      mn = fminf(mn, v[k]);
+      mx = fmaxf(mx, v[k]);
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // min and max: exact in any order
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    const float d = __fdiv_rn(__fsub_rn(mx, mn), 15.0f);
+    const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float q = truncf(__fadd_rn(__fmul_rn(__fsub_rn(v[k], mn), inv), 0.5f));  // v - mn >= 0
+      w[k >> 1] |= static_cast<uint32_t>(q) << (8 * ((t >> 1) + 2 * (k & 1)));
+      v[k] = __fadd_rn(__fmul_rn(q, d), mn);  // xh
+    }
+    // sum of xh in the tree order of warp_sum_f's butterfly as lane 0 sees
+    // it: levels 16, 8, 4 pair this thread's own elements (k with k + 4,
+    // then k + 2, then k + 1), levels 2 and 1 the quad's threads t ^ 2, t ^ 1
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __fadd_rn(v[k], v[k + 4]);
+    v[0] = __fadd_rn(v[0], v[2]);
+    v[1] = __fadd_rn(v[1], v[3]);
+    float s = __fadd_rn(v[0], v[1]);
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+    return make_float4(d, mn, s, 0.0f);
+  }
+  // sum(n * xh) = d_x * sum(n * q) + m_x * sum(n), then d_w * that + m_w *
+  // sum(xh), in the contraction nvcc chose for the first kernel's
+  // `nx = s.x * nq + s.y * n; acc += d * nx + m * s.z` (its SASS: FMUL s.y
+  // n, FFMA s.x nq; FMUL d nx, FFMA m s.z; FADD acc)
+  __device__ static float add(float acc, uint4 w, Scale dm, uint4 e, uint4 o, Meta s) {
+    const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
+    const float nq = static_cast<float>(block_dot(w, e, o, 0));
+    const float n = static_cast<float>(block_dot(w, ones, ones, 0));
+    const float nx = fmaf(s.x, nq, __fmul_rn(s.y, n));
+    return __fadd_rn(acc, fmaf(dm.y, s.z, __fmul_rn(dm.x, nx)));
+  }
+};
+
+// x [nb*32] f32, staged in shared memory (xs) -> its codes (even halves
+// xe [nb], odd halves xo [nb], Meta [nb]), a quad of threads a 32-block,
+// the quads of a warp on 8 consecutive blocks, round after round.  Quad q
+// of a warp reads element t + 4 ((k + q) & 7) of its block in step k, so
+// that the warp's 32 reads fall on 32 banks, and then rotates the eight
+// values back into element order.  Every lane of a warp runs the same
+// rounds (the quads past nb quantize block nb - 1 again and store
+// nothing), so the shuffles are whole-warp.
+template <typename Block>
+__device__ __forceinline__ void quantize_x(const float* xs, int nb, uint4* xe, uint4* xo,
+                                           typename Block::Meta* meta) {
+  const int lane = threadIdx.x & 31, t = lane & 3, q = lane >> 2;
+  for (int b = (threadIdx.x >> 5) * 8 + q; b - q < nb; b += (blockDim.x >> 5) * 8) {
+    const float* xb = xs + min(b, nb - 1) * QK + t;
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = xb[4 * ((k + q) & 7)];
+#pragma unroll
+    for (int r = 1; r < 8; r <<= 1) {  // v[k] holds element (k + q') & 7: take r off q'
+      float u[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u[k] = (q & r) ? v[(k - r) & 7] : v[k];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = u[k];
+    }
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    const typename Block::Meta m = Block::quantize(v, t, w);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) w[g] |= __shfl_xor_sync(0xffffffffu, w[g], 2);  // the other two bytes of each word
+    if (b < nb) {
+      if (t < 2) (t ? xo : xe)[b] = make_uint4(w[0], w[1], w[2], w[3]);
+      if (t == 0) meta[b] = m;
+    }
+  }
+}
+
+// Shared memory of a block at nb blocks of x: x staged [nb * 32] f32, even
+// codes [nb] uint4, odd codes [nb] uint4, [nb] Block::Meta, then the
+// staging copy's mbarrier (ops/q4_matvec.matvec_q4_plan computes the same)
+template <typename Block>
+__host__ __device__ constexpr size_t mv_smem_bytes(int nb) {
+  return static_cast<size_t>(nb) * (QK * sizeof(float) + 2 * sizeof(uint4) + sizeof(typename Block::Meta)) + 8;
+}
+
+// qs [out][nb*16] u8, sc [out][nb] (Q4_0: d f32; Q4_1: {d, m} f32),
+// x [nb*32] f32 -> y [out] f32.  Warp w of block g takes rows
+// w * gridDim.x + g + k * gridDim.x * MV_WARPS: every SM within a row a
+// warp of any other.
+template <typename Block>
+__global__ void __launch_bounds__(MV_WARPS * 32, MV_BLOCKS_PER_SM)
+q4_matvec_kernel(const uint8_t* __restrict__ qs, const typename Block::Scale* __restrict__ sc,
+                 const float* __restrict__ x, float* __restrict__ y, int out, int nb) {
+  using Meta = typename Block::Meta;
+  extern __shared__ uint4 xc[];  // x staged [nb][32] f32, then its codes: even halves, odd halves, Meta
+  float* xs = reinterpret_cast<float*>(xc);
+  uint4* xe = xc + 8 * nb;
+  uint4* xo = xe + nb;
+  Meta* meta = reinterpret_cast<Meta*>(xo + nb);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(meta + nb);
+  const int lane = threadIdx.x & 31;
+  const int kb = (nb + 31) / 32;                           // ring slots a row: lane l's blocks l + 32k, k < kb
+  const int klast = lane < nb ? (nb - 1 - lane) / 32 : -1;  // this lane's last slot with a block
+  const int rstep = gridDim.x * MV_WARPS;
+  const int first = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;  // rows interleaved over the SMs
+  const size_t jump = static_cast<size_t>(rstep) * nb - static_cast<size_t>(32) * kb;  // a row's end to the next row
+  // the load cursor (lrow, lk; block lo of the weight) runs MV_RING slots ahead of the sums
+  uint4 wq[MV_RING];
+  typename Block::Scale wd[MV_RING];
+  int lrow = first, lk = 0;
+  size_t lo = static_cast<size_t>(first) * nb + lane;
+  auto fetch = [&](int u) {
+    if (lrow < out && lk <= klast) {
+      wq[u] = __ldcs(reinterpret_cast<const uint4*>(qs) + lo);  // streaming loads, as the stream probe's
+      wd[u] = __ldcs(sc + lo);
+    }
+    lo += 32;
+    if (++lk == kb) {
+      lk = 0;
+      lrow += rstep;
+      lo += jump;
+    }
+  };
+  // x first, by one bulk copy (TMA) into shared memory where x is 16-byte
+  // aligned: an L2 hit that no weight load in the SM's queues holds back;
+  // then the ring's first loads, then x's codes while the weights are on
+  // their way.  x off 16-byte alignment is staged by plain loads.
+  const bool bulk = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if (bulk && threadIdx.x == 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // earlier uses of this memory before the copy
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar, nb * QK * sizeof(float));
+    bulk_load(xs, x, nb * QK * sizeof(float), bar);
+  }
+#pragma unroll
+  for (int u = 0; u < MV_RING; ++u) fetch(u);
+  if (!bulk)
+    for (int i = threadIdx.x; i < nb * QK; i += blockDim.x) xs[i] = __ldg(x + i);
+  __syncthreads();  // the barrier's init, or the plain copy
+  if (bulk) mbar_wait(bar, 0);
+  quantize_x<Block>(xs, nb, xe, xo, meta);
+  __syncthreads();
+  if (bulk && threadIdx.x == 0) mbar_inval(bar);  // every thread is past its wait
+  int row = first, k = 0, b = lane;  // b: this lane's block lane + 32k
+  float acc = 0.0f;
+  while (row < out) {
+#pragma unroll
+    for (int u = 0; u < MV_RING; ++u) {
+      if (row < out) {  // the same for the whole warp
+        if (k <= klast) acc = Block::add(acc, wq[u], wd[u], xe[b], xo[b], meta[b]);
+        fetch(u);  // slot u is free: the block MV_RING slots on
+        b += 32;
+        if (++k == kb) {
+          acc = warp_sum_f(acc);
+          if (lane == 0) y[row] = acc;
+          acc = 0.0f;
+          k = 0;
+          row += rstep;
+          b = lane;
+        }
+      }
+    }
+  }
+}
+
+// The 4-bit-activation matvec of Block's weights on `blocks` blocks
+// (ops/q4_matvec.matvec_q4_plan: two an SM, fewer for few rows); x's codes
+// in shared memory.
+template <typename Block>
+int launch_matvec_q4(const void* qs, const void* sc, const void* x, void* y, int out, int in_dim, int blocks,
+                     void* stream) {
+  const int nb = in_dim / QK;
+  const size_t smem = mv_smem_bytes<Block>(nb);
+  if (out < 1 || nb < 1 || in_dim % QK || blocks < 1 || smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(q4_matvec_kernel<Block>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  q4_matvec_kernel<Block><<<blocks, MV_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(qs), static_cast<const typename Block::Scale*>(sc), static_cast<const float*>(x),
+      static_cast<float*>(y), out, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 
-// Launches the pre-pass and the matvec on `stream`; scratch xq [in] int8,
-// qsum [in/32] int32 and dx [in/32] f32 come from the caller.
-extern "C" int q4_0_matvec(const void* qs, const void* dw, const void* x, void* xq,
-                           void* qsum, void* dx, void* y, int out, int in_dim,
+// x [in] f32 against Q4_0 qs [out, in/2], d [out, in/32], the activation
+// quantized to 4-bit codes in every block; `blocks` blocks
+// (ops/q4_matvec.matvec_q4_plan).  One launch, no scratch.
+extern "C" int q4_0_matvec(const void* qs, const void* dw, const void* x, void* y, int out, int in_dim, int blocks,
                            void* stream) {
-  const int nb = in_dim / QK;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_x_kernel<<<(nb + 7) / 8, 256, 0, s>>>(
-      static_cast<const float*>(x), nb, static_cast<int8_t*>(xq),
-      static_cast<int*>(qsum), static_cast<float*>(dx));
-  q4_0_matvec_kernel<<<(out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, ROWS_PER_BLOCK * 32, 0, s>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const float*>(dw),
-      static_cast<const int8_t*>(xq), static_cast<const int*>(qsum),
-      static_cast<const float*>(dx), static_cast<float*>(y), out, nb);
-  return static_cast<int>(cudaGetLastError());
+  return launch_matvec_q4<BlockQ4_0>(qs, dw, x, y, out, in_dim, blocks, stream);
 }
 
 // Shared memory of a multi-row launch of B rows (ops/q4_matvec.multi_plan
@@ -912,18 +1059,12 @@ extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, 
   return static_cast<int>(e);
 }
 
-// Q4_1 weights: qs [out, in/2] u8, dm [out, in/32, 2] f32; scratch xq [in]
-// u8 and xs [in/32, 4] f32 come from the caller.
-extern "C" int q4_1_matvec(const void* qs, const void* dm, const void* x, void* xq, void* xs,
-                           void* y, int out, int in_dim, void* stream) {
-  const int nb = in_dim / QK;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_x_q4_1_kernel<<<(nb + 7) / 8, 256, 0, s>>>(
-      static_cast<const float*>(x), nb, static_cast<uint8_t*>(xq), static_cast<float4*>(xs));
-  q4_1_matvec_kernel<<<(out + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, ROWS_PER_BLOCK * 32, 0, s>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const float2*>(dm),
-      static_cast<const uint8_t*>(xq), static_cast<const float4*>(xs), static_cast<float*>(y), out, nb);
-  return static_cast<int>(cudaGetLastError());
+// x [in] f32 against Q4_1 qs [out, in/2], dm [out, in/32, 2], the activation
+// quantized through Q4_1 in every block; `blocks` blocks
+// (ops/q4_matvec.matvec_q4_plan).  One launch, no scratch.
+extern "C" int q4_1_matvec(const void* qs, const void* dm, const void* x, void* y, int out, int in_dim, int blocks,
+                           void* stream) {
+  return launch_matvec_q4<BlockQ4_1>(qs, dm, x, y, out, in_dim, blocks, stream);
 }
 
 // f32 activations, one row: x [in] f32 against Q4_0 qs [out, in/2], d [out,

@@ -32,10 +32,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 #: or for the ``*_blocks``/``*_scratch_bytes``/``*_smem_bytes`` queries the value asked for
 SOURCES = {
     "q4_matvec": {
-        "q4_0_matvec": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "q4_0_matvec": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_0_matmul_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "q4_0_matmul_multi_smem_bytes": [ctypes.c_int],
-        "q4_1_matvec": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "q4_1_matvec": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_0_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_1_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },

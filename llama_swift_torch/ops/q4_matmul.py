@@ -56,9 +56,9 @@ from .q4_matvec import (
     _check_weight,
     _check_x,
     _launch_f32_mma,
+    _launch_matvec_q4,
     _launch_q4_0_matmul_multi,
     _launch_q4_0_matmul_multi_f32,
-    _launch_q4_0_matvec,
     _launch_q4_0_matvec_f32,
     _stream,
     q4_0_matmul_multi_f32_plain,
@@ -239,7 +239,7 @@ def q4_0_t_matmul_multi(x: torch.Tensor, w: Q4_0Weight, *, quantize_acts: bool =
         return q4_0_t_matmul_multi_plain(x, w, quantize_acts=quantize_acts)
     what = "q4_0_t_matmul_multi"
     if B == 1:
-        launch = _launch_q4_0_matvec if quantize_acts else _launch_q4_0_matvec_f32
+        launch = _launch_matvec_q4 if quantize_acts else _launch_q4_0_matvec_f32
         y = launch(x[0], w, what)[None]
     else:
         launch = _launch_q4_0_matmul_multi if quantize_acts else _launch_q4_0_matmul_multi_f32

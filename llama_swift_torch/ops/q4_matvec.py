@@ -43,6 +43,14 @@ takes the block dots on the bf16 tensor cores from exact products (the
 nibbles and three bf16 pieces of x, ``csrc/q4_f32_mma.cuh``), cut by
 :func:`f32_mma_plan`; the Q4_0 matvec's persistent grid is
 :func:`matvec_f32_plan`'s.
+
+**The 4-bit-activation matvecs** (:func:`q4_0_matvec`, :func:`q4_1_matvec`)
+run one kernel template on a persistent grid (:func:`matvec_q4_plan`), each
+call one launch with no scratch: every block quantizes x into shared memory
+a quad of threads per 32-block (:func:`quantize_blocks_q4_0`,
+:func:`quantize_blocks_q4_1` mirror it) while its first weight loads are in
+flight.  :func:`q4_0_matvec_lane_order` and :func:`q4_1_matvec_lane_order`
+are the kernel's order of sums in PyTorch, for tests.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -298,10 +307,154 @@ def matvec_f32_plan(out: int, in_dim: int, sms: int = 132, q4_1: bool = False) -
                          rows_per_warp=-(-out // (blocks * F32_WARPS)))
 
 
+#: the largest in-dim whose staged x and codes the 4-bit-activation
+#: matvecs hold in a block's shared memory (Q4_1: 176 bytes per 32
+#: elements, 225,288 bytes)
+MAX_Q4_IN = 40 * 1024
+
+MV_WARPS = 32  # warps of a 4-bit-activation matvec block (``MV_WARPS`` in the CUDA source)
+MV_RING = 4  # weight blocks a lane keeps in flight (``MV_RING``)
+MV_BLOCKS_PER_SM = 1  # blocks an SM of its persistent grid (``MV_BLOCKS_PER_SM``)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatvecQ4Plan:
+    """The 4-bit-activation matvecs' launch (Q4_0 and Q4_1): ``blocks``
+    blocks of ``warps`` warps, one an SM, warp w of block g on rows
+    ``w·blocks + g + k·blocks·warps`` (at most ``rows_per_warp`` each; the
+    blocks' rows differ by one at most), each lane with ``ring`` weight
+    blocks in flight; x staged and its codes in ``smem_bytes`` of shared
+    memory a block (per 32 elements 128 bytes of x, 32 codes and the
+    block's {sum of codes, d_x}, 168 bytes, or Q4_1's {d_x, m_x, Σx̂}, 176;
+    and the staging copy's 8-byte barrier)."""
+
+    blocks: int
+    warps: int
+    ring: int
+    smem_bytes: int
+    rows_per_warp: int
+
+    def warp_rows(self, out: int, block: int, warp: int) -> list:
+        step = self.blocks * self.warps
+        return list(range(warp * self.blocks + block, out, step))
+
+
+@functools.lru_cache(maxsize=None)
+def matvec_q4_plan(out: int, in_dim: int, sms: int = 132, q4_1: bool = False) -> MatvecQ4Plan:
+    """Plan of the 4-bit-activation matvecs' kernel (:func:`q4_0_matvec`,
+    and with ``q4_1`` :func:`q4_1_matvec`) on a card of ``sms`` SMs: a
+    block an SM (x staged and quantized once an SM), fewer blocks than rows
+    never; in-dims above ``MAX_Q4_IN`` are refused."""
+    if out < 1 or in_dim < QK or in_dim % QK or in_dim > MAX_Q4_IN:
+        raise ValueError(f"matvec_q4_plan: out {out}, in dim {in_dim}: the in dim must be a multiple of {QK} "
+                         f"up to {MAX_Q4_IN} (shared memory)")
+    blocks = min(out, MV_BLOCKS_PER_SM * sms)
+    return MatvecQ4Plan(blocks=blocks, warps=MV_WARPS, ring=MV_RING,
+                        smem_bytes=(in_dim // QK) * (176 if q4_1 else 168) + 8,
+                        rows_per_warp=-(-out // (blocks * MV_WARPS)))
+
+
+def _tree32(v: torch.Tensor, f) -> torch.Tensor:
+    """``f`` over the last axis of 32 in the order in which lane 0 of a warp
+    reduction by shuffles (xor 16, 8, 4, 2, 1) sees the lanes' values."""
+    for s in (16, 8, 4, 2, 1):
+        v = f(v[..., :s], v[..., s : 2 * s])
+    return v[..., 0]
+
+
+def _deinterleave(q: torch.Tensor) -> torch.Tensor:
+    """Codes ``[nb, 32]`` in element order → bytes ``[nb, 32]`` as the
+    kernels hold them: element 8g + 2t + p at byte 16p + 4g + t."""
+    return q.reshape(-1, 4, 4, 2).permute(0, 3, 1, 2).reshape(-1, QK)
+
+
+def quantize_blocks_q4_0(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 4-bit-activation Q4_0 kernel's quantizer, a quad of threads a
+    32-block, as it fills shared memory: x ``[in]`` → (codes int8 ``[in/32, 32]``
+    de-interleaved, the sum of each block's codes int32 ``[in/32]``, d_x
+    ``[in/32]``); ``amax/7`` and ``1/d`` divided truly, ``trunc(x·inv ±
+    ½)`` with each operation rounded."""
+    xb = x.float().reshape(-1, QK)
+    d = _tree32(xb.abs(), torch.maximum) / torch.full((xb.shape[0],), 7.0)
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
+    q = torch.trunc(xb * inv[:, None] + torch.where(xb >= 0, 0.5, -0.5)).to(torch.int32)
+    return _deinterleave(q).to(torch.int8), q.sum(dim=1, dtype=torch.int32), d
+
+
+def quantize_blocks_q4_1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 4-bit-activation Q4_1 kernel's quantizer, a quad of threads a
+    32-block, as it fills shared memory: x ``[in]`` → (codes uint8 ``[in/32,
+    32]`` de-interleaved, ``[in/32, 3]`` of each block's {d_x, m_x, Σx̂});
+    min and max exact, ``(max − min)/15`` and ``1/d`` divided truly, ``x̂ =
+    q·d_x + m_x`` rounded twice and Σx̂ added in the tree order of a warp's
+    shuffle reduction."""
+    xb = x.float().reshape(-1, QK)
+    mn = _tree32(xb, torch.minimum)
+    d = (_tree32(xb, torch.maximum) - mn) / torch.full_like(mn, 15.0)
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)), torch.zeros_like(d))
+    q = torch.trunc((xb - mn[:, None]) * inv[:, None] + 0.5)
+    xh = q * d[:, None] + mn[:, None]
+    return _deinterleave(q.to(torch.uint8)), torch.stack([d, mn, _tree32(xh, torch.add)], dim=1)
+
+
+def _butterfly(acc: torch.Tensor) -> torch.Tensor:
+    """The lanes' sums ``[out, 32]`` added as a warp's butterfly does (xor
+    16, 8, 4, 2, 1): lane 0's result ``[out]``."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lanes ^ o]
+    return acc[:, 0]
+
+
+def _lane_sums(terms: torch.Tensor) -> torch.Tensor:
+    """The 4-bit-activation kernels' sum of block terms ``[out, nb]``: lane
+    l adds the terms of blocks l, l + 32, … in order, then the butterfly."""
+    out, nb = terms.shape
+    acc = torch.zeros((out, 32))
+    for k in range(-(-nb // 32)):
+        b = torch.arange(32) + 32 * k
+        live, b = b < nb, b.clamp(max=nb - 1)
+        acc = torch.where(live[None], acc + terms[:, b], acc)
+    return _butterfly(acc)
+
+
+def q4_0_matvec_lane_order(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
+    """The Q4_0 4-bit-activation kernel's order of sums in PyTorch, for
+    tests: block terms ``partial·(d_w·d_x)`` (an exact integer partial, two
+    roundings) summed by :func:`_lane_sums`.  Every operation is one IEEE
+    rounding, so on the CPU these are the kernel's bits."""
+    q, dx = quantize_activations_q4_0_int(x)
+    return _lane_sums(q4_0_block_partials(q, w).float() * (w.d * dx[None]))
+
+
+def q4_1_matvec_lane_order(x: torch.Tensor, w: Q4_1Weight) -> torch.Tensor:
+    """The Q4_1 4-bit-activation kernel's order of sums in PyTorch, for
+    tests: per block ``nx = fma(d_x, Σn·q, m_x·Σn)`` and the term
+    ``fma(m_w, Σx̂, d_w·nx)`` (the contraction nvcc chose for the first
+    kernel's ``acc += d·nx + m·s``), Σx̂ as :func:`quantize_blocks_q4_1`
+    adds it, summed by :func:`_lane_sums`.  The integer sums are exact and
+    :func:`_fma` rounds once, so these are the kernel's bits."""
+    q, dx, mx = quantize_activations_q4_1(x)
+    xsum = quantize_blocks_q4_1(x)[1][:, 2]
+    w0 = Q4_0Weight(w.qs, w.d)
+    nq = _block_dots(q, w0) + 8.0 * q.reshape(-1, QK).sum(dim=1)  # Σ(n − 8)·q + 8·Σq: exact integers
+    n = _block_dots(torch.ones_like(q), w0) + 8.0 * QK
+    nx = _fma(dx[None], nq, mx[None] * n)
+    return _lane_sums(_fma(w.m, xsum[None], w.d * nx))
+
+
 def _fma(a, b, c):
-    """An f32 fused multiply-add as the f64 sum of the exact product,
-    rounded to f32 (exact wherever that f64 sum is)."""
-    return (a.double() * b.double() + c.double()).float()
+    """An f32 fused multiply-add, rounded once: the exact product in f64,
+    its sum with ``c`` rounded to odd in f64 (TwoSum's exact error says
+    which way), then to nearest in f32, which rounds the exact value
+    correctly (53 bits ≥ 24 + 2)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    even = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(even, torch.nextafter(s, torch.where(e > 0, math.inf, -math.inf)), s).float()
 
 
 def _f32_lane_order(x: torch.Tensor, n: torch.Tensor, d: torch.Tensor, m: torch.Tensor = None) -> torch.Tensor:
@@ -327,10 +480,7 @@ def _f32_lane_order(x: torch.Tensor, n: torch.Tensor, d: torch.Tensor, m: torch.
             dot = _fma(n[:, b, i], xb[b, i][None], dot)
         inner = acc if m is None else _fma(m[:, b], xsum[b][None], acc)
         acc = torch.where(live[None], _fma(d[:, b], dot, inner), acc)
-    lanes = torch.arange(32)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, lanes ^ o]
-    return acc[:, 0]
+    return _butterfly(acc)
 
 
 def q4_0_matvec_f32_lane_order(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
@@ -390,7 +540,7 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> t
         return q4_0_matvec_f32(x, w)
     if x.device.type == "cpu":
         return q4_0_matvec_plain(x, w)
-    y = _launch_q4_0_matvec(x, w, "q4_0_matvec")
+    y = _launch_matvec_q4(x, w, "q4_0_matvec")
     q4_0_matvec.launches += 1
     return y
 
@@ -398,21 +548,20 @@ def q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, quantize_acts: bool = True) -> t
 q4_0_matvec.launches = 0
 
 
-def _launch_q4_0_matvec(x: torch.Tensor, w: Q4_0Weight, what: str) -> torch.Tensor:
-    """Check and launch the matvec kernel (no count: the caller's wrapper
+def _launch_matvec_q4(x: torch.Tensor, w, what: str) -> torch.Tensor:
+    """Check and launch the 4-bit-activation matvec kernel of ``w``'s type
+    (Q4_0 or Q4_1; one launch, no scratch; no count: the caller's wrapper
     counts its launch)."""
     out, in_dim = w.shape
     _check_weight(w, x, what)
     _check_x(x, (in_dim,), what)
-    nb = in_dim // QK
-    xq = torch.empty(in_dim, dtype=torch.int8, device=x.device)
-    qsum = torch.empty(nb, dtype=torch.int32, device=x.device)
-    dx = torch.empty(nb, dtype=torch.float32, device=x.device)
+    q4_1 = isinstance(w, Q4_1Weight)
+    plan = matvec_q4_plan(out, in_dim, _sm_count(x.device), q4_1=q4_1)
     y = torch.empty(out, dtype=torch.float32, device=x.device)
-    code = build.lib("q4_matvec").q4_0_matvec(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(),
-        qsum.data_ptr(), dx.data_ptr(), y.data_ptr(), out, in_dim, _stream(x),
-    )
+    lib = build.lib("q4_matvec")
+    code = (lib.q4_1_matvec if q4_1 else lib.q4_0_matvec)(
+        w.qs.data_ptr(), (w.dm if q4_1 else w.d).data_ptr(), x.data_ptr(), y.data_ptr(), out, in_dim,
+        plan.blocks, _stream(x))
     build.check(code, what)
     return y
 
@@ -702,17 +851,7 @@ def q4_1_matvec(x: torch.Tensor, w: Q4_1Weight, quantize_acts: bool = True) -> t
         return q4_1_matvec_f32(x, w)
     if x.device.type == "cpu":
         return q4_1_matvec_plain(x, w)
-    out, in_dim = w.shape
-    _check_weight(w, x, "q4_1_matvec")
-    _check_x(x, (in_dim,), "q4_1_matvec")
-    xq = torch.empty(in_dim, dtype=torch.uint8, device=x.device)
-    xs = torch.empty((in_dim // QK, 4), dtype=torch.float32, device=x.device)  # d_x, m_x, Σx̂, pad
-    y = torch.empty(out, dtype=torch.float32, device=x.device)
-    code = build.lib("q4_matvec").q4_1_matvec(
-        w.qs.data_ptr(), w.dm.data_ptr(), x.data_ptr(), xq.data_ptr(), xs.data_ptr(), y.data_ptr(),
-        out, in_dim, _stream(x),
-    )
-    build.check(code, "q4_1_matvec")
+    y = _launch_matvec_q4(x, w, "q4_1_matvec")
     q4_1_matvec.launches += 1
     return y
 

@@ -19,7 +19,10 @@ paged and the dense batched kernels at B = 1, 8, 16 (pages of 16 and 128)
 and n_ctx 512 and 2048 with NaN in every row no live key names, one kernel
 a call, the batched kernel at every plan its variant tool times; the f32
 Q4_0 and Q4_1 matvecs at LLaMA's shapes, bit-equal to their lane
-orders).
+orders; the two 4-bit-activation matvecs at LLaMA's shapes, odd row
+counts, in-dim 32 and the largest taken, bit-equal to their lane orders,
+one kernel a call with no scratch, x off 16-byte alignment, blocks of
+exact ties and flat blocks, the in-dim cap refused).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -418,7 +421,7 @@ def test_q4_1_dequant_kernel_bit_exact(cuda, dtype):
 
 def test_q4_1_quantizer_divides_on_card(cuda):
     """Block ranges r where r·(1/15) and r/15 round apart: the card's plain
-    quantizer divides, as the CPU and the kernel's pre-pass do."""
+    quantizer divides, as the CPU and the matvec kernel's quantizer do."""
     import numpy as np
 
     r = np.random.default_rng(0).uniform(0.5, 8.0, 4096).astype(np.float32)
@@ -1479,3 +1482,113 @@ def test_q4_1_f32_matvec_at_llama_shapes_in_the_lane_order(cuda, out, in_dim):
     y = mv.q4_1_matvec_f32(x, w)
     assert _rel(y, mv.q4_1_matvec_plain(x, w, quantize_acts=False)) <= 1e-5
     assert torch.equal(y, mv.q4_1_matvec_f32(x, w))
+
+
+# ---------------------------------------------------------------------------
+# the 4-bit-activation matvecs (rows 1 and 5) on the persistent grid: one
+# launch a call, no scratch, x's codes quantized in every block
+# ---------------------------------------------------------------------------
+
+# LLaMA 7B's four matvec shapes and the fused wqkv and w13, 13B's and 65B's
+# n_ff in-dims, odd row counts, in-dim 32 and the largest taken
+Q4_MATVEC_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096), (12288, 4096), (22016, 4096),
+                    (5120, 13824), (8192, 22016), (77, 352), (1001, 4096), (8, 32), (33, 32), (64, mv.MAX_Q4_IN)]
+
+
+def _q4_kind(kind, out, in_dim, cuda, seed):
+    w, g = (_q41 if kind == "q4_1" else _q4)(out, in_dim, cuda, seed=seed)
+    cpu = type(w)(w.qs.cpu(), (w.dm if kind == "q4_1" else w.d).cpu())
+    return w, cpu, g
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+@pytest.mark.parametrize("out,in_dim", Q4_MATVEC_SHAPES)
+def test_q4_matvec_bit_equal_to_its_lane_order(cuda, kind, out, in_dim):
+    """The kernel's results are ops/q4_matvec.<kind>_matvec_lane_order's on
+    the CPU bit for bit (the first kernels' sums: exact integer block dots,
+    each product and sum rounded once, Q4_1's fused multiply-adds rounded
+    once), a second launch bit-equal, one counted launch a call, within
+    1e-5 of max |y| of the plain version."""
+    w, cpu, g = _q4_kind(kind, out, in_dim, cuda, seed=out % 89)
+    x = torch.randn(in_dim, device=cuda, generator=g)
+    fn = getattr(mv, f"{kind}_matvec")
+    before = fn.launches
+    y = fn(x, w)
+    again = fn(x, w)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(y, again)
+    assert torch.equal(y.cpu(), getattr(mv, f"{kind}_matvec_lane_order")(x.cpu(), cpu))
+    assert _rel(y, getattr(mv, f"{kind}_matvec_plain")(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+def test_q4_matvec_codes_of_ties_and_flat_blocks(cuda, kind):
+    """Blocks of exact rounding ties, constant blocks (d_x = 0) and all-zero
+    blocks quantize in the kernel as on the CPU: bit-equal to the lane
+    order, whose quantizer is the plain one."""
+    out, in_dim = 300, 4096
+    w, cpu, g = _q4_kind(kind, out, in_dim, cuda, seed=3)
+    x = torch.randn(in_dim, device=cuda, generator=g)
+    x[:32] = torch.tensor([7.0, 2.5, -2.5, 0.5, -0.5, 1.5, -1.5, 3.5] * 4)  # Q4_0: amax 7, d = 1, ties
+    x[32:64] = torch.arange(32, dtype=torch.float32) % 15 + 0.5  # Q4_1: min 0.5, max 14.5, ties
+    x[32], x[33] = 0.0, 15.0
+    x[64:96] = 0.75
+    x[96:128] = 0.0
+    y = getattr(mv, f"{kind}_matvec")(x, w)
+    assert torch.equal(y.cpu(), getattr(mv, f"{kind}_matvec_lane_order")(x.cpu(), cpu))
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+def test_q4_matvec_takes_x_off_16_byte_alignment(cuda, kind):
+    """x 4-byte aligned only (a view one element in) takes the kernel's
+    scalar loads: the same bits as an aligned copy."""
+    w, _, g = _q4_kind(kind, 4096, 4096, cuda, seed=4)
+    x = torch.randn(4097, device=cuda, generator=g)[1:]
+    assert x.data_ptr() % 16
+    fn = getattr(mv, f"{kind}_matvec")
+    assert torch.equal(fn(x, w), fn(x.clone(), w))
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+def test_q4_matvec_is_one_kernel_and_no_scratch(cuda, kind):
+    """One device kernel a call and no allocation besides the output: one
+    call captured into a CUDA graph holds one kernel node
+    (chip_smoke.graph_kernels), each call counts one launch, and a
+    profiler window of eight calls shows the matvec kernel and no other (no
+    pre-pass), never more than eight times (a window in a long process can
+    lose a record, seen on the card)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import graph_kernels
+
+    w, _, g = _q4_kind(kind, 11008, 4096, cuda, seed=5)
+    x = torch.randn(4096, device=cuda, generator=g)
+    fn = getattr(mv, f"{kind}_matvec")
+    assert graph_kernels(torch, lambda: fn(x, w)) == 1
+    before = fn.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(8):
+            fn(x, w)
+        torch.cuda.synchronize()
+    keys = [(ev.key, ev.count) for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert fn.launches == before + 8
+    assert len(keys) == 1 and "q4_matvec_kernel" in keys[0][0] and 1 <= keys[0][1] <= 8, keys
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    y = fn(x, w)
+    assert torch.cuda.memory_allocated() - base == y.numel() * 4 + (-y.numel() * 4) % 512
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_1"])
+def test_q4_matvec_refuses_in_dims_beyond_its_cap(cuda, kind):
+    """x's codes beyond a block's shared memory: refused before a launch."""
+    w, _, g = _q4_kind(kind, 8, mv.MAX_Q4_IN + 32, cuda, seed=6)
+    fn = getattr(mv, f"{kind}_matvec")
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(torch.randn(mv.MAX_Q4_IN + 32, device=cuda, generator=g), w)
+    assert fn.launches == before

@@ -153,6 +153,112 @@ def test_matvec_matches_fake_quant_dense_dot(w_np, w_t):
     assert _rel(y, ref) <= MATVEC_BAR
 
 
+# ---------------------------------------------------------------------------
+# the 4-bit-activation kernel's quantizer and order of sums
+# (csrc/q4_matvec.cu q4_matvec_kernel<BlockQ4_1>; on the card the kernel is
+# held to q4_1_matvec_lane_order bit for bit, tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+def _tree32_np(v):
+    """f32 sums of the last axis of 32 in a warp butterfly's tree order (xor
+    16, 8, 4, 2, 1, as lane 0 sees it), in numpy."""
+    v = v.astype(np.float32)
+    for s in (16, 8, 4, 2, 1):
+        v = (v[..., :s] + v[..., s : 2 * s]).astype(np.float32)
+    return v[..., 0]
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_block_quantizer_bit_exact(seed):
+    """A thread a 32-block gives the pre-pass's codes and block data: the
+    port's quantize_activations_q4_1 codes, d_x and m_x bit for bit (the
+    codes de-interleaved), their x̂ the JAX fake_quantize_q4_1's, and Σx̂ the
+    JAX x̂ added in the butterfly's tree order, which differs from a
+    sequential sum on some blocks."""
+    x = _acts(seed)[0]
+    codes, meta = mv.quantize_blocks_q4_1(torch.from_numpy(x))
+    q, d, m = mv.quantize_activations_q4_1(torch.from_numpy(x))
+    back = codes.numpy().reshape(-1, 2, 4, 4).transpose(0, 2, 3, 1).reshape(-1, 32)
+    np.testing.assert_array_equal(back, q.numpy().reshape(-1, 32))
+    np.testing.assert_array_equal(meta[:, 0].numpy(), d.numpy())
+    np.testing.assert_array_equal(meta[:, 1].numpy(), m.numpy())
+    xh = np.asarray(jqmm.fake_quantize_q4_1(jnp.asarray(x))).reshape(-1, 32)
+    np.testing.assert_array_equal((back * meta[:, :1].numpy() + meta[:, 1:2].numpy()).astype(np.float32), xh)
+    np.testing.assert_array_equal(meta[:, 2].numpy(), _tree32_np(xh))
+    sequential = np.zeros(xh.shape[0], np.float32)
+    for i in range(32):
+        sequential = (sequential + xh[:, i]).astype(np.float32)
+    assert (meta[:, 2].numpy() != sequential).any()
+
+
+def _weight_q41(out, in_dim, seed):
+    t = Q4_1Tensor.quantize((np.random.default_rng(seed).standard_normal((out, in_dim)) * 0.05).astype(np.float32))
+    return t, mv.Q4_1Weight.from_q4_1(_port(t))
+
+
+@pytest.mark.parametrize("out,in_dim", [(128, 256), (128, 1056), (256, 2080)])
+def test_lane_order_matches_plain_and_jax(out, in_dim):
+    """In-dims of 8, 33 and 65 blocks, within 1e-5 of max |y| of the plain
+    version, of the TPU kernel in interpret mode and of the JAX package's
+    Pallas-free product (``linear(..., prefer_pallas=False)``): the kernel
+    sums integer block dots, the others f32 products of rounded x̂."""
+    t, w = _weight_q41(out, in_dim, seed=in_dim)
+    x = np.random.default_rng(in_dim + 1).standard_normal(in_dim).astype(np.float32)
+    x[32:64] = 0.75  # a constant block: d_x = 0
+    got = mv.q4_1_matvec_lane_order(torch.from_numpy(x), w).numpy()
+    assert _rel(got, mv.q4_1_matvec_plain(torch.from_numpy(x), w).numpy()) <= MATVEC_BAR
+    yj = q4_1_vpu_matvec(jnp.asarray(x[None]), Q4_1TensorV.from_q4_1(t), interpret=True)
+    assert _rel(got, np.asarray(yj)[0]) <= MATVEC_BAR
+    assert _rel(got, np.asarray(jqmm.linear(jnp.asarray(x), t, prefer_pallas=False))) <= MATVEC_BAR
+
+
+def _round_f32(v):
+    """A fraction rounded to the nearest f32 (ties to even), exactly."""
+    from fractions import Fraction
+
+    f = np.float32(float(v))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    errs = [abs(Fraction(float(c)) - v) for c in cands]
+    best = [c for c, e in zip(cands, errs) if e == min(errs)]
+    return best[0] if len(best) == 1 else next(c for c in best if int(c.view(np.uint32)) % 2 == 0)
+
+
+def test_lane_order_is_the_order_of_the_sums():
+    """The mirror equals a lane-by-lane reference written out with exact
+    fractions, bit for bit: per block nx = fma(d_x, Σn·q, m_x·Σn), the term
+    fma(m_w, Σx̂, d_w·nx), lane l adding its blocks l, l + 32, … in order,
+    then the butterfly."""
+    from fractions import Fraction
+
+    def fma(a, b, c):
+        return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+    out, in_dim = 3, 2080
+    t, w = _weight_q41(out, in_dim, seed=12)
+    x = np.random.default_rng(13).standard_normal(in_dim).astype(np.float32)
+    got = mv.q4_1_matvec_lane_order(torch.from_numpy(x), w).numpy()
+    q, dx, mx = (a.numpy() for a in mv.quantize_activations_q4_1(torch.from_numpy(x)))
+    xsum = mv.quantize_blocks_q4_1(torch.from_numpy(x))[1][:, 2].numpy()
+    nib = np.empty((out, in_dim), np.int64)
+    nib[:, 0::2] = t.qs & 0xF
+    nib[:, 1::2] = t.qs >> 4
+    qb = q.astype(np.int64).reshape(-1, 32)
+    nb = in_dim // 32
+    for o in range(out):
+        lanes = []
+        for lane in range(32):
+            acc = np.float32(0.0)
+            for b in range(lane, nb, 32):
+                n = nib[o, 32 * b : 32 * b + 32]
+                nx = fma(dx[b], np.float32((n * qb[b]).sum()), np.float32(mx[b] * np.float32(n.sum())))
+                acc = np.float32(acc + fma(t.mins[o, b], xsum[b], np.float32(t.scales[o, b] * nx)))
+            lanes.append(acc)
+        for s in (16, 8, 4, 2, 1):
+            lanes = [np.float32(lanes[i] + lanes[i ^ s]) for i in range(32)]
+        assert got[o] == lanes[0], o
+
+
 def test_weight_layout_and_layer_view(w_np, w_t):
     """d and m are views of one [out, nb, 2] tensor (one 8-byte load a
     block); a layer of a stack is a view, never a copy."""
