@@ -37,7 +37,12 @@ Phases:
    at B = 2, 8, 32) at the four matvec shapes and the fused 12288x4096 and
    22016x4096, beside the dequant + matmul pair they replace; the T
    layout's product (``q4_0_matmul_t``) at the four matvec shapes with
-   N = 1, 8, 33, 64, beside the same pair; the stream probe
+   N = 1, 8, 33, 64, beside the same pair; the T layout's integer product
+   (row 12, ``q4_0_int_matmul``) at N = 1 to 100 on the four shapes,
+   bit-equal to row 6 at 2-32 rows, two kernels (pre-pass and product) a
+   call of at most 64 rows by CUDA-graph nodes; the two blocks of one layer
+   (row 11) at 7B, 13B and 65B widths, one kernel a call by graph nodes,
+   the attention block's split plan against its C query; the stream probe
    (``stream_probe``) at kernelbench's five shapes, every row bit-equal,
    beside ``torch.sum(words, dtype=int32)``; the batched and paged
    kernels (one launch a call, from a profiler window, a second call
@@ -523,9 +528,9 @@ def kernel_us(torch, fn, calls: int = 20) -> dict:
 def check_multi_kernel(torch, g, summary) -> list:
     """Row 6, ``q4_0_matmul_multi``, at B in ``MULTI_ROWS_TIMED`` on the four
     matvec shapes, within 1e-5 of max |y| of its plain version.  Row 12
-    (``q4_0_int_matmul``: the same function on the int8 tensor cores, the
-    T layout's product) is timed beside it on the same inputs as the
-    in-repo yardstick (``row12_ms``); no PyTorch call applies per-block
+    (``q4_0_int_matmul``: the same function, the T layout's product, which
+    runs row 6's own launch at these rows) is timed beside it on the same
+    inputs (``row12_ms``); no PyTorch call applies per-block
     scales to an int8 product, so ``library_ms`` is None.  At 11008x4096
     the pre-pass and the product are also timed apart (profiler).  The
     bound is the larger of the bytes (the packed weight, x and y in f32)
@@ -707,17 +712,23 @@ def check_t_kernel(torch, g, summary) -> list:
     return failed
 
 
-INT_ROWS = [1, 8, 33, 64]
+INT_ROWS = [1, 2, 8, 16, 32, 33, 64, 65, 100]
 
 
 def check_int_t_kernels(torch, g, summary) -> list:
     """Row 12, ``q4_0_int_matmul`` (the exact int4×int4 T product on the int8
-    tensor cores), at the four matvec shapes and N in ``INT_ROWS``, and row
-    13, ``q4_0_t_matmul_multi`` (the multi-row T product on the V layout's
-    kernels), at B = 8 on the four shapes and B = 1 and 32 at 11008x4096,
-    with 4-bit and f32 activations; each within 1e-5 of max |y| of its plain
-    version.  Beside row 12, row 10 (``q4_0_matmul_t``, what serving takes at
-    these rows) on the same rows, fake-quantized, is timed as
+    tensor cores, row 6's kernel up to 64 rows a launch), at the four matvec
+    shapes and N in ``INT_ROWS``, and row 13, ``q4_0_t_matmul_multi`` (the
+    multi-row T product on the V layout's kernels), at B = 8 on the four
+    shapes and B = 1 and 32 at 11008x4096, with 4-bit and f32 activations;
+    each within 1e-5 of max |y| of its plain version.  Row 12 also: at 2–32
+    rows bit-equal to row 6 (``q4_0_matmul_multi``) on the same inputs,
+    which is timed beside it (``row6_ms``); a second call bit-equal; its
+    kernels a call counted as CUDA-graph nodes, two (the pre-pass and the
+    product) for each call of at most 64 rows of its plan
+    (``int_matmul_plan``; ``plan_record`` logs None on a tree without one).
+    Beside row 12, row 10 (``q4_0_matmul_t``, what serving takes at these
+    rows, 64 at most) on the same rows, fake-quantized, is timed as
     ``replaced_ms``; no PyTorch call applies per-block scales to an int8
     product (``torch._int_mm`` has none), so ``library_ms`` is None.  The
     bound is the larger of the bytes (0.625 a weight, x and y in f32) and
@@ -725,6 +736,7 @@ def check_int_t_kernels(torch, g, summary) -> list:
     one f32 row); ``bound_by`` says which; f32 rows from 2 take
     ``tensor_bound``'s.  Returns the cases that disagree."""
     from llama_swift_torch.ops import q4_matmul as qm
+    from llama_swift_torch.ops import q4_matvec as mv
     from llama_swift_torch.ops import quantized_matmul as qmm
 
     failed = []
@@ -747,14 +759,26 @@ def check_int_t_kernels(torch, g, summary) -> list:
         n = max(2, math.ceil(2e8 / wbytes))  # a round robin streams > 200 MB (cold L2)
         base = rand_q4(torch, g, n, out, in_dim)
         w = qm.Q4_0WeightT(base.qs, base.d)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         for rows in INT_ROWS:
             x = torch.randn((rows, in_dim), device="cuda", generator=g)
             xq = qmm.fake_quantize_q4_0(x)
-            case = measure({"case": "q4_0_int_matmul", "rows": rows, "out": out, "in": in_dim},
-                           lambda i: qm.q4_0_int_matmul(x, w.layer(i % n)),
+            fn = lambda i: qm.q4_0_int_matmul(x, w.layer(i % n))  # noqa: E731
+            case = measure({"case": "q4_0_int_matmul", "rows": rows, "out": out, "in": in_dim}, fn,
                            lambda i: qm.q4_0_int_matmul_plain(x, w.layer(i % n)),
                            rows, out, in_dim, wbytes, INT8_OPS, 100, 3)
-            case["replaced_ms"] = time_ms(torch, lambda i: qm.q4_0_matmul_t(xq, w.layer(i % n)), 50)
+            y = fn(1)
+            case["repeat_bit_equal"] = bool(torch.equal(y, fn(1)))
+            case["bits"] = bits(y)
+            if 2 <= rows <= mv.MAX_MULTI_ROWS:  # row 6's instance: its bits, timed beside
+                case["row6_bit_equal"] = bool(torch.equal(y, mv.q4_0_matmul_multi(x, w.layer(1))))
+                case["row6_ms"] = time_ms(torch, lambda i: mv.q4_0_matmul_multi(x, w.layer(i % n)), 100)
+            case["plan"] = plan_record(mv, "int_matmul_plan", out, in_dim, rows, sms)
+            case["graph_kernels_per_call"] = graph_kernels(torch, lambda: fn(1))
+            case["replaced_ms"] = (time_ms(torch, lambda i: qm.q4_0_matmul_t(xq, w.layer(i % n)), 50)
+                                   if rows <= qm.MAX_PHASE_KERNEL_ROWS else None)
+            case["ok"] = case["ok"] and case["repeat_bit_equal"] and case.get("row6_bit_equal", True) and (
+                case["plan"] is None or case["graph_kernels_per_call"] == 2 * len(case["plan"]["launches"]))
             log(case)
             if not case["ok"]:
                 failed.append(case)
@@ -863,33 +887,54 @@ def bf16_worst(pairs) -> dict:
     return best
 
 
+#: wider attention and FFN blocks, one layer each: (heads, n_ff, n_pasts) of 13B and 65B
+FUSED_WIDE = [(40, 13824, [0, 511]), (64, 22016, [0, 511])]
+
+
 def check_fused_blocks(torch, g, summary) -> list:
     """Row 11, the attention block and the FFN block, against their plain
     versions at 7B width (32 heads, n_ff 11008) with 2 layers of weights, at
     ``FUSED_NPAST`` on f32 and bf16 caches whose rows at and beyond n_past
-    are stale (never read): the cache bytes unchanged by the call; k_new and
-    v_new within 1e-5 (bf16: ``utils/fused_check.kv_rows_ok``, one bf16 step
-    of their value taken at no less than 2^-13 of the row's largest, with
-    the element farthest in steps of its own value logged); each delta
-    within 5e-4 where no 4-bit activation code differs between the two
-    (their quantizer inputs are traced), else the flips counted and held
-    below ``FUSED_FLIP_LIMIT``.  Times against the bound of one layer's
-    bytes (the attention block's weights and the n_past history rows; the
-    FFN block's weights).  No single PyTorch call computes either block, so
-    ``library_ms`` is None."""
+    are stale (never read), and with one layer at the widths of
+    ``FUSED_WIDE`` (13B's 40 heads, 65B's 64) on both caches: the cache
+    bytes unchanged by the call; k_new and v_new within 1e-5 (bf16:
+    ``utils/fused_check.kv_rows_ok``, one bf16 step of their value taken at
+    no less than 2^-13 of the row's largest, with the element farthest in
+    steps of its own value logged); each delta within 5e-4 where no 4-bit
+    activation code differs between the two (their quantizer inputs are
+    traced), else the flips counted and held below ``FUSED_FLIP_LIMIT``;
+    each block one kernel a call (CUDA-graph nodes) and the attention
+    block's split plan that of ``ops/fused_layer.attn_block_plan`` and of
+    its C query (logged as None on a tree without them).  Times against
+    the bound of one layer's bytes (the attention block's weights and the
+    n_past history rows; the FFN block's weights).  No single PyTorch call
+    computes either block, so ``library_ms`` is None."""
+    failed = []
+    blocks_at(torch, g, summary, failed, 32, 11008, 2, FUSED_NPAST)
+    for H, F, n_pasts in FUSED_WIDE:
+        blocks_at(torch, g, summary, failed, H, F, 1, n_pasts)
+    return failed
+
+
+def blocks_at(torch, g, summary, failed, H: int, F: int, L: int, n_pasts) -> None:
+    """``check_fused_blocks`` at H heads and n_ff F with L layers of weights
+    (the cases run at layer L - 1, timed over all L); the 7B cases fill
+    ``summary``."""
+    from llama_swift_torch.ops import build
     from llama_swift_torch.ops import fused_layer as fl
     from llama_swift_torch.ops.q4_matvec import quantize_activations_q4_0_int
     from llama_swift_torch.utils import fused_check
 
-    H, n_ctx, F, L = 32, 512, 11008, 2
+    n_ctx, il = 512, L - 1
     D = H * fl.HEAD_DIM
+    seven_b = (H, F) == (32, 11008)
     wqkv, wo, w13, w2 = (rand_q4(torch, g, L, out, in_dim) for out, in_dim in
                          [(3 * D, D), (D, D), (2 * F, D), (D, F)])
     an, fn = (1.0 + 0.05 * torch.randn((L, D), device="cuda", generator=g) for _ in range(2))
     x = torch.randn(D, device="cuda", generator=g)
     grids = fl.block_grids(H, F)
-    log({"case": "fused_blocks_grid", "attn_blocks": grids[0], "ffn_blocks": grids[1]})
-    failed = []
+    log({"case": "fused_blocks_grid", "heads": H, "n_ff": F, "attn_blocks": grids[0], "ffn_blocks": grids[1]})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def flips(tr_k, tr_p):
         return int((quantize_activations_q4_0_int(tr_k[0])[0] != quantize_activations_q4_0_int(tr_p[0])[0]).sum())
@@ -897,44 +942,57 @@ def check_fused_blocks(torch, g, summary) -> list:
     def wbytes(*shapes):
         return sum(out * in_dim // 2 + out * (in_dim // 32) * 4 for out, in_dim in shapes)
 
+    def attn_plan(n_past):
+        """(the Python plan, the C query's), None where the tree has no such plan."""
+        if not hasattr(fl, "attn_block_plan"):
+            return None
+        lib = build.lib("fused_layer")
+        return {"python": list(fl.attn_block_plan(H, n_past, sms)),
+                "c": [lib.fused_attn_block_splits(H, n_past), lib.fused_attn_block_split_keys(H, n_past)]}
+
     # the FFN block reads no cache: one case
     tr_k, tr_p = [], []
-    delta = fl.fused_ffn_block(x, fn[1], w13, w2, 1, trace=tr_k)
-    ref = fl.fused_ffn_block_plain(x, fn[1], w13, w2, 1, trace=tr_p)
+    delta = fl.fused_ffn_block(x, fn[il], w13, w2, il, trace=tr_k)
+    ref = fl.fused_ffn_block_plain(x, fn[il], w13, w2, il, trace=tr_p)
     err, nflip = rel_err(delta, ref), flips(tr_k, tr_p)
     nbytes = wbytes((2 * F, D), (D, F)) + 3 * D * 4
     t_ops = 2 * 3 * D * F / INT8_OPS
-    case = {"case": "fused_ffn_block", "layers": L, "max_rel_err": err, "max_abs_err": float((delta - ref).abs().max()),
-            "q4_flips": nflip,
+    case = {"case": "fused_ffn_block", "heads": H, "n_ff": F, "layers": L, "max_rel_err": err,
+            "max_abs_err": float((delta - ref).abs().max()), "q4_flips": nflip, "bits": bits(delta),
+            "graph_kernels_per_call": graph_kernels(torch, lambda: fl.fused_ffn_block(x, fn[il], w13, w2, il)),
             "kernel_ms": time_ms(torch, lambda i: fl.fused_ffn_block(x, fn[i % L], w13, w2, i % L), 50),
             "plain_ms": time_ms(torch, lambda i: fl.fused_ffn_block_plain(x, fn[i % L], w13, w2, i % L), 3),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3, "bound_by": "bytes", "library_ms": None,
-            "ok": bool(torch.isfinite(delta).all()) and (err <= 5e-4 or 0 < nflip <= FUSED_FLIP_LIMIT)}
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3, "bound_by": "bytes", "library_ms": None}
+    case["ok"] = bool(torch.isfinite(delta).all()) and case["graph_kernels_per_call"] == 1 and (
+        err <= 5e-4 or 0 < nflip <= FUSED_FLIP_LIMIT)
     log(case)
     if not case["ok"]:
         failed.append(case)
-    summary["fused_ffn_block"] = dict(case, shape=f"D{D} n_ff{F}, one layer")
+    if seven_b:
+        summary["fused_ffn_block"] = dict(case, shape=f"D{D} n_ff{F}, one layer")
 
     for dtype in (torch.float32, torch.bfloat16):
         kc0 = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
         vc0 = torch.randn((L, H, n_ctx, fl.HEAD_DIM), device="cuda", generator=g).to(dtype)
-        for n_past in FUSED_NPAST:
+        for n_past in n_pasts:
             kc, vc = kc0.clone(), vc0.clone()
             kc[:, :, n_past:] = 1e4  # stale rows: the block reads only j < n_past
             vc[:, :, n_past:] = -1e4
             k0, v0 = kc.clone(), vc.clone()
             cos, sin = fl.rope_vectors(n_past, device="cuda")
             tr_k, tr_p = [], []
-            delta, k_new, v_new = fl.fused_attn_block(x, an[1], cos, sin, wqkv, wo, kc, vc, 1, n_past, trace=tr_k)
+            attn = lambda i: fl.fused_attn_block(  # noqa: E731
+                x, an[i % L], cos, sin, wqkv, wo, kc, vc, i % L, n_past)
+            delta, k_new, v_new = fl.fused_attn_block(x, an[il], cos, sin, wqkv, wo, kc, vc, il, n_past, trace=tr_k)
             torch.cuda.synchronize()
             cache_ok = bool(torch.equal(kc, k0) and torch.equal(vc, v0))
-            ref, k_ref, v_ref = fl.fused_attn_block_plain(x, an[1], cos, sin, wqkv, wo, kc, vc, 1, n_past,
+            ref, k_ref, v_ref = fl.fused_attn_block_plain(x, an[il], cos, sin, wqkv, wo, kc, vc, il, n_past,
                                                           trace=tr_p)
             pairs = ((k_new, k_ref), (v_new, v_ref))
             kv_err = max(rel_err(a, b) for a, b in pairs)
             worst = None
-            if dtype == torch.bfloat16:  # the megakernel's bar for the same rows
-                kv_ok = fused_check.kv_rows_ok(pairs)[0]
+            if dtype == torch.bfloat16:  # the megakernel's bar for the same rows, given them as the cache holds them
+                kv_ok = fused_check.kv_rows_ok(tuple((a.to(dtype), b.to(dtype)) for a, b in pairs))[0]
                 worst = bf16_worst(pairs)
             else:
                 kv_ok = kv_err <= 1e-5
@@ -942,26 +1000,31 @@ def check_fused_blocks(torch, g, summary) -> list:
             elt = kc.element_size()
             nbytes = wbytes((3 * D, D), (D, D)) + 2 * H * n_past * fl.HEAD_DIM * elt + 2 * D * 4 + 3 * D * 4
             t_ops = 2 * 4 * D * D / INT8_OPS
-            case = {"case": "fused_attn_block", "layers": L, "cache": str(dtype).split(".")[-1], "n_past": n_past,
+            again = fl.fused_attn_block(x, an[il], cos, sin, wqkv, wo, kc, vc, il, n_past)
+            case = {"case": "fused_attn_block", "heads": H, "layers": L, "cache": str(dtype).split(".")[-1],
+                    "n_past": n_past, "plan": attn_plan(n_past),
                     "max_rel_err": err, "max_abs_err": float((delta - ref).abs().max()), "kv_new_rel_err": kv_err,
                     "kv_new_ok": kv_ok, "kv_new_worst": worst, "cache_unchanged": cache_ok, "q4_flips": nflip,
-                    "kernel_ms": time_ms(torch, lambda i: fl.fused_attn_block(
-                        x, an[i % L], cos, sin, wqkv, wo, kc, vc, i % L, n_past), 50),
+                    "bits": bits(delta, k_new, v_new),
+                    "repeat_bit_equal": all(bool(torch.equal(a, b)) for a, b in zip(again, (delta, k_new, v_new))),
+                    "graph_kernels_per_call": graph_kernels(torch, lambda: attn(il)),
+                    "kernel_ms": time_ms(torch, attn, 50),
                     "plain_ms": time_ms(torch, lambda i: fl.fused_attn_block_plain(
                         x, an[i % L], cos, sin, wqkv, wo, kc, vc, i % L, n_past), 3),
                     "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3, "bound_by": "bytes",
                     "library_ms": None}
-            case["ok"] = bool(torch.isfinite(delta).all()) and cache_ok and (
-                (err <= 5e-4 and kv_ok) or 0 < nflip <= FUSED_FLIP_LIMIT)
+            plan = case["plan"]
+            case["ok"] = bool(torch.isfinite(delta).all()) and cache_ok and case["graph_kernels_per_call"] == 1 \
+                and case["repeat_bit_equal"] and (plan is None or plan["python"] == plan["c"]) and (
+                    (err <= 5e-4 and kv_ok) or 0 < nflip <= FUSED_FLIP_LIMIT)
             log(case)
             if not case["ok"]:
                 failed.append(case)
-            if dtype == torch.float32 and n_past == 127:
+            if seven_b and dtype == torch.float32 and n_past == 127:
                 summary["fused_attn_block"] = dict(case, shape=f"H{H} n_past{n_past} f32, one layer")
         del kc0, vc0, kc, vc
     del wqkv, wo, w13, w2
     torch.cuda.empty_cache()
-    return failed
 
 
 def check_kernels(torch) -> dict:
@@ -3140,10 +3203,10 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
     "q4_1_matvec_f32": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:287"),
     "q4_0_matmul_multi_f32": ("llama_swift_torch/csrc/q4_f32_mma.cuh", "llama_swift_tpu/ops/q4_vpu_pallas.py:795"),
     "q4_0_matmul_t": ("llama_swift_torch/csrc/q4_f32_mma.cuh", "llama_swift_tpu/ops/q4_matmul_pallas.py:424"),
-    "q4_0_int_matmul": ("llama_swift_torch/csrc/q4_int_mma.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:196"),
+    "q4_0_int_matmul": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:196"),
     # the T multi-row product runs the V layout's multi-row and matvec kernels (one logical layout)
     "q4_0_t_matmul_multi": ("llama_swift_torch/csrc/q4_matvec.cu", "llama_swift_tpu/ops/q4_matmul_pallas.py:681"),
-    "fused_attn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:481"),
+    "fused_attn_block": ("llama_swift_torch/csrc/fused_layer.cu", "llama_swift_tpu/ops/q4_fused_layer.py:481"),
     "fused_ffn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:320"),
     "stream_probe": ("llama_swift_torch/csrc/stream_probe.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:996"),
 }

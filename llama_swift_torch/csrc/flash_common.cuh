@@ -1,17 +1,17 @@
-// Device code of single-query (decode) attention shared by flash_decode.cu,
-// fused_layer.cu and fused_blocks.cu: the chunk pass over one run of keys
-// (from a contiguous plane or through a page table), the older split pass
-// of the two-kernels-per-layer blocks and the combine of a head's splits.
+// Device code of single-query (decode) attention shared by flash_decode.cu
+// and fused_layer.cu: the chunk pass over one run of keys (from a
+// contiguous plane or through a page table) and the combine of a head's
+// splits.
 //
 // The chunk pass (`chunk_pass`) is what batch-1 decode, the batched and
-// paged kernels and the whole-stack kernel's attention phase run.  What
-// bounds it on the H100 is device memory: a split's K and V rows are read
-// once (2.5 us for 8.4 MB at 3.35 TB/s for 32 heads at n_past 511 on a
-// bf16 cache).  The older pass (`split_chunk_kv`, kept only for the
-// two-kernels-per-layer blocks of fused_blocks.cu) reached it through
-// many dependent loads: a warp read a key row at a time, then a serial
-// max, then thread d walked the 64 value rows, so a block waited on memory
-// some 80 times and too few bytes were in flight.  The chunk pass instead:
+// paged kernels, the whole-stack kernel's attention phase and the
+// attention block run.  What bounds it on the H100 is device memory: a
+// split's K and V rows are read once (2.5 us for 8.4 MB at 3.35 TB/s for
+// 32 heads at n_past 511 on a bf16 cache).  The first split pass reached
+// it through many dependent loads: a warp read a key row at a time, then a
+// serial max, then thread d walked the 64 value rows, so a block waited on
+// memory some 80 times and too few bytes were in flight.  The chunk pass
+// instead:
 //  * copies its run of K and V rows into shared memory with the 1-D bulk
 //    form of TMA (cp.async.bulk: one instruction for a tile's K rows, one
 //    for its V rows, each completing on an mbarrier; the int8 row scales
@@ -53,8 +53,6 @@
 
 namespace {
 
-constexpr int CHUNK = 64;  // keys per split of split_chunk_kv
-
 __host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -71,58 +69,6 @@ __device__ __forceinline__ float warp_max_f(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// This lane's share of q . row: lanes split the dims.
-template <typename T>
-__device__ __forceinline__ float lane_dot(const float* qs, const T* row, int dh, int lane) {
-  float s = 0.0f;
-  for (int d = lane; d < dh; d += 32) s += qs[d] * to_f32(row[d]);
-  return s;
-}
-
-// Rows of one head of a contiguous [n_ctx, Dh] plane.
-template <typename T>
-struct DenseRows {
-  const T* base;
-  int dh;
-  __device__ const T* row(int j) const { return base + static_cast<size_t>(j) * dh; }
-};
-
-// Keys [j0, j0 + jn) of one head, keys and values read through the
-// accessors (f32 or bf16 rows): writes (acc[0..dh), m, l) to out.  Block
-// of dh threads (dh % 32 == 0).  Dynamic shared memory (dh + 2 * CHUNK)
-// floats.
-template <typename T, typename Rows>
-__device__ void split_chunk_kv(const float* __restrict__ qrow, const Rows& krows, const Rows& vrows,
-                               int j0, int jn, float scale, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int dh = krows.dh;
-  float* qs = smem;                // [dh]
-  float* sc = smem + dh;           // [CHUNK] scores, then exp(s - m)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  qs[tid] = qrow[tid];
-  __syncthreads();
-  for (int j = warp; j < jn; j += nwarps) {
-    const float s = warp_sum(lane_dot(qs, krows.row(j0 + j), dh, lane));
-    if (lane == 0) sc[j] = s * scale;
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int j = 0; j < jn; ++j) m = fmaxf(m, sc[j]);
-  __syncthreads();
-  for (int j = tid; j < jn; j += blockDim.x) sc[j] = expf(sc[j] - m);
-  __syncthreads();
-  float l = 0.0f, acc = 0.0f;
-  for (int j = 0; j < jn; ++j) {
-    l += sc[j];
-    acc += sc[j] * to_f32(vrows.row(j0 + j)[tid]);
-  }
-  out[tid] = acc;
-  if (tid == 0) {
-    out[dh] = m;
-    out[dh + 1] = l;
-  }
 }
 
 // Combine the first `live` splits of one (slot, head) (part [S][dh + 2]):

@@ -1,6 +1,6 @@
 // Device code of the fused decode kernels, shared by fused_layer.cu (the
-// whole-stack kernel) and fused_blocks.cu (one layer's attention block and
-// FFN block): the head dim, the Q4_0 weight and published-activation
+// whole-stack kernel and one layer's attention block) and fused_blocks.cu
+// (one layer's FFN block): the head dim, the Q4_0 weight and published-activation
 // records, the cache element conversion, the norm element, the SwiGLU
 // element and the occupancy of a cooperative launch.  Each kernel keeps
 // its own norm statistics, quantization, staging and product loop, sized

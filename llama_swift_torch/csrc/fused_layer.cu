@@ -78,6 +78,41 @@
 //    never from a stale L1 line.
 //  * Float rounding follows the plain version: _rn intrinsics where nvcc
 //    would contract a multiply and an add, expf (not __expf) in SwiGLU.
+//
+// One layer's attention block (fused_attn_block) runs in this file on the
+// same phases.  It replaces the TPU kernel `_make_attn_kernel`
+// (llama_swift_tpu/ops/q4_fused_layer.py, entry point fused_attn_block, the
+// "two kernels per layer" design):
+//
+//   h     = norm(x) * attn_norm;  qkv = wqkv[il] . q4(h)
+//   q, k  = rope(q), rope(k): y[d] = x[d] cos[d] + x[d ^ 1] sin_s[d] (the
+//           caller's rope vectors for position n_past, as in the JAX block)
+//   k_new, v_new = k, v rounded through the cache type (f32 or bf16), out
+//   ctx   = softmax over (keys j < n_past of the cache, then k_new) . (values, v_new)
+//   delta = wo[il] . q4(ctx)
+//
+// The cache is only read, and only at j < n_past; the new K/V go out to the
+// caller; no residual is added.  What bounds it: device memory (at 7B 4 D^2
+// weights at 0.625 bytes, 41.9 MB, and 2 H n_past history rows).  Design:
+// one cooperative launch of the whole-stack kernel's blocks (one of 512
+// threads an SM) and two grid barriers (the first design, 128-thread blocks
+// up to four an SM, had four, published the normed activation through
+// global memory and walked the history in 64-key items of a one-key-a-warp
+// pass with a combine phase of its own):
+//   A  attention norm + quantize (every block); wqkv rows by row pairs;
+//      the first K/V tiles of the block's attention item started     | sync 1
+//   B  rope with the caller's vectors; the chunk pass over the history
+//      keys of items (head, split) (block_split_plan: at most blocks / H
+//      splits a head; ring tiles of 32 KB, 3-4 % faster than the
+//      whole-stack kernel's 16 KB at n_past 511, tools/block_variants.py);
+//      the last split of a head to arrive combines the
+//      splits in split order, folds in the own term last (recomputing
+//      k_new and v_new from qkv, rounded through the cache type), writes
+//      k_new and v_new out and quantizes ctx                           | sync 2
+//   C  wo rows -> delta.
+// At n_past 0 there is no split: a block a head takes the own term alone
+// (ctx = v_new).  The arrival counters are the launch's scratch, zeroed by
+// the kernel before barrier 1 and left zero at its end.
 #include "fused_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -90,6 +125,7 @@ constexpr int BLOCKS_PER_SM = 1;
 constexpr int ATTN_STAGES = 4;           // ring tiles of the chunk pass: three in flight
 constexpr int ATTN_STAGE_BYTES = 16384;  // K and V rows of a tile
 constexpr int ATTN_MAX_SPLITS = 4;       // attention work items of a head (132 blocks: 128 items)
+constexpr int BLOCK_STAGE_BYTES = 32768;  // the attention block's ring tiles: K and V rows of a tile
 
 struct Args {
   float* x;            // [D] residual stream, updated in place
@@ -128,11 +164,14 @@ struct Smem {
   float* ws;
 };
 
-__host__ __device__ inline int attn_tile(int elt) { return pass_tile_rows(DH * elt, ATTN_STAGE_BYTES); }
+__host__ __device__ inline int attn_tile(int elt, int stage_bytes = ATTN_STAGE_BYTES) {
+  return pass_tile_rows(DH * elt, stage_bytes);
+}
 
-__host__ __device__ inline size_t smem_layout(int D, int F, int elt, unsigned char* base, Smem* sm) {
+__host__ __device__ inline size_t smem_layout(int D, int F, int elt, unsigned char* base, Smem* sm,
+                                               int stage_bytes = ATTN_STAGE_BYTES) {
   const int max_in = D > F ? D : F;
-  const size_t pass = pass_smem_bytes(attn_tile(elt), DH * elt, false, NT, ATTN_STAGES);
+  const size_t pass = pass_smem_bytes(attn_tile(elt, stage_bytes), DH * elt, false, NT, ATTN_STAGES);
   const size_t xw = 8 * static_cast<size_t>(D);
   const size_t sizes[10] = {static_cast<size_t>(max_in), 4 * static_cast<size_t>(max_in / QK),
                             4 * static_cast<size_t>(max_in / QK), 4 * NW, 4 * DH, 4 * (DH + 2), 4,
@@ -480,6 +519,185 @@ Scratch scratch_parts(int H, int F, int n_past) {
           round16(max_in), round16(8 * static_cast<size_t>(max_in / QK)), 4 * static_cast<size_t>(H + F / QK)};
 }
 
+// ---------------------------------------------------------------------------
+// one layer's attention block (fused_attn_block) on the phases above
+// ---------------------------------------------------------------------------
+
+struct BlockArgs {
+  const float* x;      // [D]
+  const float* norm;   // [D] the layer's attention norm
+  const float* cos;    // [DH] the caller's rope vectors of position n_past:
+  const float* sin_s;  //   cos repeated per pair, sin signed -/+ for the even/odd element
+  Weight wqkv, wo;     // stacked, read at layer il
+  const void* k;       // [L, H, n_ctx, DH] f32 or bf16, only read, at rows j < n_past
+  const void* v;
+  float* delta;        // [D] out
+  float* k_new;        // [H, DH] out, rounded through the cache type
+  float* v_new;
+  float* qkv;          // scratch [3D]
+  float* part;         // scratch [H, S, DH + 2]
+  Staged st;           // scratch: the published ctx, D values
+  int* head_cnt;       // scratch [H] arrivals of a head's splits
+  float* trace;        // [2D] quantizer inputs (h, ctx), or null
+  int il, H, n_ctx, n_past, layernorm, splits, split_keys;
+  float eps, scale;
+};
+
+// The block's attention plan: splits of a head over the history keys j <
+// n_past, as many as the grid holds items for every head (at most blocks
+// / H a head: 4 at 32 heads and 132 blocks, 3 at 40, 2 at 52 and 64), none
+// at n_past 0 (no history: ctx is the own term alone).
+SplitPlan block_split_plan(int H, int n_past, int blocks) {
+  if (n_past == 0) return {0, 0};
+  const int most = blocks / H;
+  return split_plan(n_past, most > 1 ? most : 1);
+}
+
+// Element d of rope(x) for one head with the caller's vectors: two products
+// and a sum, each rounded, as the plain version's x * cos + swap(x) * sin_s.
+__device__ __forceinline__ float rope_cs(const float* x, int d, const BlockArgs& a) {
+  return __fadd_rn(__fmul_rn(__ldcg(x + d), __ldg(a.cos + d)), __fmul_rn(__ldcg(x + (d ^ 1)), __ldg(a.sin_s + d)));
+}
+
+// Start this block's first attention item (its first tiles of history
+// K/V rows on their way), so that they stream during the wqkv product and
+// barrier 1.
+template <typename T>
+__device__ void block_attention_begin(const BlockArgs& a, const Smem& sm) {
+  const int S = a.splits, item = blockIdx.x;
+  if (item >= a.H * S) return;
+  const int h = item / S, c = item % S, j0 = c * a.split_keys;
+  const size_t head = (static_cast<size_t>(a.il) * a.H + h) * a.n_ctx * DH;
+  chunk_begin<T, NT, ATTN_STAGES>(static_cast<const T*>(a.k) + head, static_cast<const T*>(a.v) + head, nullptr,
+                                  nullptr, DH, j0, min(a.split_keys, a.n_past - j0),
+                                  attn_tile(sizeof(T), BLOCK_STAGE_BYTES), sm.pass);
+}
+
+// Head h's ctx, by the block that brings its last split (or, at n_past 0,
+// the head's block; sm.qrow holds its roped q): the S history splits at ph
+// combined in split order, then the own term last, from the cache-rounded
+// new K/V (the JAX block's update: m' = max(m, s), l' = l exp(m - m') +
+// exp(s - m'), acc' = acc exp(m - m') + exp(s - m') v_new); ctx quantized
+// and published (a warp a 32-block), k_new and v_new out.
+template <typename T>
+__device__ void finish_head(const BlockArgs& a, int h, const float* ph, int S, const Smem& sm) {
+  const int tid = threadIdx.x, D = a.H * DH;
+  float kn = 0.0f, vn = 0.0f, q = 0.0f;
+  if (tid < DH) {
+    kn = to_f32(from_f32<T>(rope_cs(a.qkv + D + h * DH, tid, a)));
+    vn = to_f32(from_f32<T>(__ldcg(a.qkv + 2 * D + h * DH + tid)));
+    q = sm.qrow[tid];
+  }
+  const float s_own = block_sum_nt(__fmul_rn(q, kn), sm.red) * a.scale;
+  if (tid >= DH) return;
+  float m = -INFINITY, l = 0.0f, acc = 0.0f;
+  for (int c = 0; c < S; ++c) m = fmaxf(m, __ldcg(ph + c * (DH + 2) + DH));
+  for (int c = 0; c < S; ++c) {
+    const float* pc = ph + c * (DH + 2);
+    const float w = expf(__ldcg(pc + DH) - m);
+    l += w * __ldcg(pc + DH + 1);
+    acc += w * __ldcg(pc + tid);
+  }
+  const float mf = fmaxf(m, s_own);
+  const float alpha = expf(m - mf), p_own = expf(s_own - mf);  // alpha = 0 without history
+  const float v = (acc * alpha + p_own * vn) / (l * alpha + p_own);
+  a.k_new[h * DH + tid] = kn;
+  a.v_new[h * DH + tid] = vn;
+  const int b = h * (DH / QK) + (tid >> 5);
+  if (a.trace != nullptr) a.trace[D + b * QK + (tid & 31)] = v;
+  quantize_block_warp(v, tid & 31, a.st.xq + b * QK, a.st.qsum + b, a.st.dx + b);
+}
+
+// Phase B of the block: the chunk pass over the history keys of every
+// (head, split) item; the last split of a head to arrive finishes it.
+template <typename T>
+__device__ void block_attention(const BlockArgs& a, const Smem& sm) {
+  const int tid = threadIdx.x, S = a.splits;
+  const T* kc = static_cast<const T*>(a.k);
+  const T* vc = static_cast<const T*>(a.v);
+  if (S == 0) {  // n_past 0: no history, a block a head
+    for (int h = blockIdx.x; h < a.H; h += gridDim.x) {
+      __syncthreads();  // the previous head is done with qrow
+      if (tid < DH) sm.qrow[tid] = rope_cs(a.qkv + h * DH, tid, a);
+      __syncthreads();
+      finish_head<T>(a, h, nullptr, 0, sm);
+    }
+    return;
+  }
+  for (int item = blockIdx.x; item < a.H * S; item += gridDim.x) {
+    const int h = item / S, c = item % S, j0 = c * a.split_keys;
+    const size_t head = (static_cast<size_t>(a.il) * a.H + h) * a.n_ctx * DH;
+    __syncthreads();  // the previous item is done with qrow, outp and flag
+    chunk_pass<T, NT, ATTN_STAGES>(
+        sm.qrow, [&] { if (tid < DH) sm.qrow[tid] = rope_cs(a.qkv + h * DH, tid, a); }, kc + head, vc + head,
+        nullptr, nullptr, DH, j0, min(a.split_keys, a.n_past - j0), attn_tile(sizeof(T), BLOCK_STAGE_BYTES), a.scale,
+        sm.pass,
+        sm.outp, -1, nullptr, nullptr, item == blockIdx.x);
+    float* ph = a.part + static_cast<size_t>(h) * S * (DH + 2);
+    if (tid < DH + 2) ph[c * (DH + 2) + tid] = sm.outp[tid];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *sm.flag = atomicAdd(a.head_cnt + h, 1) == S - 1;
+    __syncthreads();
+    if (*sm.flag) {  // every split of head h is in
+      __threadfence();
+      finish_head<T>(a, h, ph, S, sm);
+      if (tid == 0) a.head_cnt[h] = 0;
+    }
+  }
+}
+
+// Layer il's attention block: phase A (norm, quantized in every block;
+// wqkv rows; the first K/V tiles started) | barrier | phase B (rope,
+// attention over the history, each head finished by its last split) |
+// barrier | phase C (wo rows -> delta).
+template <typename T>
+__global__ void __launch_bounds__(NT, BLOCKS_PER_SM) attn_block_kernel(BlockArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char fused_smem[];
+  const int D = a.H * DH;
+  Smem sm;
+  smem_layout(D, D, sizeof(T), fused_smem, &sm, BLOCK_STAGE_BYTES);
+  // the arrival counters start at zero; barrier 1 orders this before their first use
+  for (int i = blockIdx.x * NT + threadIdx.x; i < a.H; i += gridDim.x * NT) a.head_cnt[i] = 0;
+  stage_weights(a.norm, D, sm);
+  // (A) attention norm, quantized in every block (block 0 traces it); wqkv
+  const NormStats ns = stage_x(a.x, D, a.layernorm, a.eps, sm);
+  quantize_local([&](int i) { return norm_elem(sm.xs[i], sm.ws[i], ns); }, D, sm,
+                 blockIdx.x == 0 ? a.trace : nullptr);
+  block_attention_begin<T>(a, sm);  // x and the norm weights are done with the pass's memory
+  q4_rows2<false>(a.wqkv, a.il, 3 * D, D / QK, sm, a.qkv);
+  prefetch_rows(a.wo, a.il, D, D / QK);
+  grid.sync();
+  // (B) rope, attention over the history, ctx published by each head's last split
+  block_attention<T>(a, sm);
+  grid.sync();
+  // (C) wo -> delta
+  load_published(a.st, D, sm);
+  q4_rows2<false>(a.wo, a.il, D, D / QK, sm, a.delta);
+}
+
+size_t block_smem(int D, int kind) {
+  return smem_layout(D, D, kind == 0 ? 4 : 2, nullptr, nullptr, BLOCK_STAGE_BYTES);
+}
+
+int block_blocks_for(int kind, size_t smem) {
+  switch (kind) {
+    case 0: return coop_blocks(attn_block_kernel<float>, smem, NT, BLOCKS_PER_SM);
+    case 1: return coop_blocks(attn_block_kernel<__nv_bfloat16>, smem, NT, BLOCKS_PER_SM);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The block's scratch: floats qkv [3D] | partials [H, S, DH + 2], then
+// the published ctx's codes [D] | sums, scales [D / 32], then the
+// counters [H]; the sizes of its parts in bytes.
+Scratch block_scratch_parts(int H, int S) {
+  const int D = H * DH;
+  return {round16(4 * (3 * static_cast<size_t>(D) + static_cast<size_t>(H) * S * (DH + 2))), round16(D),
+          round16(8 * static_cast<size_t>(D / QK)), 4 * static_cast<size_t>(H)};
+}
+
 }  // namespace
 
 // Bytes of scratch that fused_layers needs for these widths and position
@@ -532,6 +750,84 @@ extern "C" int fused_layers(void* x, const void* anorm, const void* fnorm, const
   void* args[] = {&a};
   const void* fn = kind == 0 ? reinterpret_cast<const void*>(fused_layers_kernel<float>)
                              : reinterpret_cast<const void*>(fused_layers_kernel<__nv_bfloat16>);
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(NT), args, smem,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the card's grid that the attention block's plan counts on:
+// BLOCKS_PER_SM an SM (what coop_blocks gives wherever it fits), or a
+// negative cudaError code.
+static int card_blocks() {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e != cudaSuccess ? -static_cast<int>(e) : BLOCKS_PER_SM * sms;
+}
+
+// Blocks that fused_attn_block launches (cache element kind 0 f32, 1
+// bf16), or a negative cudaError code.
+extern "C" int fused_attn_block_blocks(int H, int kind) {
+  return block_blocks_for(kind, block_smem(H * DH, kind));
+}
+
+// The attention block's splits of a head over the history at n_past, and
+// the keys of a split (ops/fused_layer.attn_block_plan computes the same).
+extern "C" int fused_attn_block_splits(int H, int n_past) {
+  const int b = card_blocks();
+  return b < 0 ? b : block_split_plan(H, n_past, b).splits;
+}
+extern "C" int fused_attn_block_split_keys(int H, int n_past) {
+  const int b = card_blocks();
+  return b < 0 ? b : block_split_plan(H, n_past, b).keys;
+}
+
+// Bytes of scratch that fused_attn_block needs at these widths and position.
+extern "C" int fused_attn_block_scratch_bytes(int H, int n_past) {
+  const int b = card_blocks();
+  if (b < 0) return b;
+  const Scratch s = block_scratch_parts(H, block_split_plan(H, n_past, b).splits);
+  return static_cast<int>(s.floats + s.codes + s.sums + s.counters);
+}
+
+// Layer il's attention block of one decode token: delta [D], k_new and
+// v_new [H, 128] f32 out; the caches [L, H, n_ctx, 128] are only read, at
+// rows j < n_past; cos and sin_s are the rope vectors [128] of position
+// n_past.  scratch holds fused_attn_block_scratch_bytes(H, n_past) bytes,
+// 16-byte aligned; trace is null or [2D] floats.
+extern "C" int fused_attn_block(const void* x, const void* norm, const void* cos, const void* sin_s,
+                                const void* wqkv_qs, const void* wqkv_d, const void* wo_qs, const void* wo_d,
+                                const void* k, const void* v, void* delta, void* k_new, void* v_new, void* scratch,
+                                void* trace, int il, int H, int n_ctx, int n_past, int layernorm, float eps,
+                                float scale, int kind, void* stream) {
+  const int D = H * DH;
+  if (H < 1 || n_past < 0 || n_past >= n_ctx || il < 0 || (kind != 0 && kind != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = block_smem(D, kind);
+  const int blocks = block_blocks_for(kind, smem), cb = card_blocks();
+  if (blocks < 0) return -blocks;
+  if (cb < 0) return -cb;
+  const SplitPlan plan = block_split_plan(H, n_past, cb);
+  const Scratch parts = block_scratch_parts(H, plan.splits);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  float* qkv = reinterpret_cast<float*>(base);
+  int8_t* codes = reinterpret_cast<int8_t*>(base + parts.floats);
+  int* qsum = reinterpret_cast<int*>(base + parts.floats + parts.codes);
+  float* dx = reinterpret_cast<float*>(qsum + D / QK);
+  int* counters = reinterpret_cast<int*>(base + parts.floats + parts.codes + parts.sums);
+  BlockArgs a{static_cast<const float*>(x),
+              static_cast<const float*>(norm),
+              static_cast<const float*>(cos),
+              static_cast<const float*>(sin_s),
+              {static_cast<const uint8_t*>(wqkv_qs), static_cast<const float*>(wqkv_d)},
+              {static_cast<const uint8_t*>(wo_qs), static_cast<const float*>(wo_d)},
+              k, v, static_cast<float*>(delta), static_cast<float*>(k_new), static_cast<float*>(v_new),
+              qkv, qkv + 3 * D, {codes, qsum, dx}, counters, static_cast<float*>(trace),
+              il, H, n_ctx, n_past, layernorm, plan.splits, plan.keys, eps, scale};
+  void* args[] = {&a};
+  const void* fn = kind == 0 ? reinterpret_cast<const void*>(attn_block_kernel<float>)
+                             : reinterpret_cast<const void*>(attn_block_kernel<__nv_bfloat16>);
   const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(NT), args, smem,
                                                     static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

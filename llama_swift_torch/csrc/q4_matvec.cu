@@ -133,6 +133,33 @@
 // behind a barrier each, so at B = 8 the weight stream is not kept full;
 // from B = 16 the per-block scaling of NT MMAs a block pair sets the pace.
 //
+// The T layout's exact integer product (q4_0_int_matmul, N >= 1 rows).
+//
+// Replaces the TPU kernel `_q4_0_magic_kernel` and its stacked form
+// (llama_swift_tpu/ops/q4_matmul_pallas.py, core `_magic_core`, entry
+// points q4_0_int_matmul_pallas and q4_0_int_matmul_pallas_stacked), whose
+// function is the multi-row product's: y[n, o] = sum_b d_w[o,b] d_x[n,b]
+// (P - 8 S) with exact block dots P of each row's 4-bit codes.  The TPU
+// kernel puts the block dots on its matrix unit through a block-diagonal
+// bf16 expansion of the codes; here it is the multi-row kernel above,
+// extended from 32 to 64 activation rows a launch: NT = ceil(N / 8) tiles
+// of 8 rows, the same ring, MMA and magic-bias scaling.  At 1..32 rows it
+// is q4_0_matmul_multi's pre-pass and launch, bit for bit.  At 33..64
+// rows (NT 5..8) a warp keeps its two chains for all NT tiles (64
+// accumulators a lane at NT 8, one block of 256 threads an SM: the ring's
+// three stages take 146-194 KB), and the in-dim is split over a cluster of
+// 2 where that takes fewer waves of blocks over the SMs
+// (ops/q4_matvec.int_matmul_plan).  Sum order at 33..64 rows: each block's
+// exact P - 8 S times the rounded d_w * d_x, added to one of the warp's two
+// chains by one FMA (one rounding for the product and the sum, where 1..32
+// rows round each; 3-15 % faster at 33-100 rows, measured with
+// tools/block_variants.py), the chains added, the KS * 2 warp parts summed
+// in order.  More than 64 rows are further calls of at most
+// 64, each a pre-pass and a launch.  What bounds it: the weight stream
+// (8.4 us at 11008x4096), then the per-block scaling of every (row,
+// output) pair on the CUDA cores (three f32 operations each: 270 M at N =
+// 64 and 11008x4096), whose dependent chains eight warps an SM do not hide.
+//
 // f32 activations (q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32:
 // ModelConfig.quantize_activations = False).
 //
@@ -225,6 +252,7 @@ constexpr int MM_WSTRIDE = MM_KC * 16 + 16;  // bytes of a row's nibbles in a st
 constexpr int MM_DSTRIDE = MM_KC + 4;        // floats of a row's scales in a stage (16 of padding)
 constexpr int MM_XSTRIDE = MM_KC * 32 + 16;  // bytes of an activation row's codes in a stage
 constexpr int MM_MAGIC = 0x4B400000;         // the float 12582912 = 1.5 * 2^23
+constexpr int MM_MAX_ROWS = 64;              // activation rows a launch (q4_0_int_matmul; 32 for q4_0_matmul_multi)
 
 // Ring stages for NP activation rows: 3 (2 chunks in flight while one is
 // used), 2 at NP 32, so that two blocks fit on an SM (measured: a third
@@ -242,11 +270,14 @@ __host__ __device__ constexpr int mm_smem_bytes(int np) { return mm_stages(np) *
 static_assert(MM_KC % 4 == 0 && mm_off_x() % 16 == 0 && MM_XSTRIDE % 16 == 0, "16-byte stage parts");
 // block 0's partial sums of the cluster, [KS][MM_KG][NP][MM_ROWS], reuse the ring
 static_assert(MM_KG * MM_MAX_SPLITS * 8 * MM_ROWS * 4 <= mm_smem_bytes(8) &&
-              MM_KG * MM_MAX_SPLITS * 32 * MM_ROWS * 4 <= mm_smem_bytes(32), "partials fit the ring");
+              MM_KG * MM_MAX_SPLITS * 32 * MM_ROWS * 4 <= mm_smem_bytes(32) &&
+              MM_KG * MM_MAX_SPLITS * 40 * MM_ROWS * 4 <= mm_smem_bytes(40) &&
+              MM_KG * MM_MAX_SPLITS * 64 * MM_ROWS * 4 <= mm_smem_bytes(64), "partials fit the ring");
+static_assert(mm_smem_bytes(MM_MAX_ROWS) <= 232448, "a block's shared memory at 64 rows");
 static_assert(MM_MT * 16 == MM_ROWS && MM_MT * MM_KG * 32 == MM_THREADS, "warps: tiles x parts of a chunk");
 
-// x [N][nb*32] f32 -> xq [NP][nb*32] i8 as quantize_rows_kernel (q4_int_mma.cu)
-// writes it, and bd [nb][NP] {0x4B400000 - 8 S, dx}: the MMA's accumulator
+// x [N][nb*32] f32 -> xq [NP][nb*32] i8 (quantize_block_warp's codes, zero
+// rows from N up to NP), and bd [nb][NP] {0x4B400000 - 8 S, dx}: the MMA's accumulator
 // input and the block scale of each (block, row), side by side (zero rows:
 // S = 0, dx = 0)
 __global__ void quantize_rows_bias_kernel(const float* __restrict__ x, int N, int NP, int nb,
@@ -277,8 +308,9 @@ __global__ void quantize_rows_bias_kernel(const float* __restrict__ x, int N, in
 template <int NP>
 struct MmCopies {
   static constexpr int W = MM_ROWS * MM_KC / MM_THREADS, X = NP * MM_KC * 2 / MM_THREADS;
+  static constexpr int BD = (MM_KC * NP / 2 + MM_THREADS - 1) / MM_THREADS;  // 16-byte copies of pairs: 1, 2 from 40 rows
   static_assert(W * MM_THREADS == MM_ROWS * MM_KC && X * MM_THREADS == NP * MM_KC * 2 &&
-                    MM_ROWS * MM_KC / 4 <= MM_THREADS && MM_KC * NP / 2 <= MM_THREADS,
+                    MM_ROWS * MM_KC / 4 <= MM_THREADS,
                 "every copy of a chunk has a thread");
   const uint8_t* w[W];
   const int8_t* x[X];
@@ -313,7 +345,10 @@ struct MmCopies {
     if (threadIdx.x < MM_ROWS * MM_KC / 4) cp_async16(st + ddst, d + static_cast<size_t>(c) * MM_KC);
 #pragma unroll
     for (int k = 0; k < X; ++k) cp_async16(st + xdst[k], x[k] + static_cast<size_t>(c) * MM_KC * QK);
-    if (threadIdx.x < MM_KC * NP / 2) cp_async16(st + bddst, bd + static_cast<size_t>(c) * MM_KC * NP);
+#pragma unroll
+    for (int k = 0; k < BD; ++k)
+      if (threadIdx.x + k * MM_THREADS < MM_KC * NP / 2)
+        cp_async16(st + bddst + 16 * k * MM_THREADS, bd + static_cast<size_t>(c) * MM_KC * NP + 2 * k * MM_THREADS);
   }
 };
 
@@ -363,9 +398,14 @@ __device__ void mm_load_chunk(unsigned char* st, const uint8_t* __restrict__ qs,
 // block h of the pair) lives in one warp's registers, acc[p][u][h], so
 // each class sum is sequential; a cluster of 2 takes the chunks of one
 // parity each.  At NT >= 3 those registers do not fit, and each warp sums
-// into two chains (h) instead: the sum is reassociated.
+// into two chains (h) instead: the sum is reassociated.  NT 5..8 (33-64
+// rows, q4_0_int_matmul only) take that order too, each term added by one
+// FMA: per output, warp part kg's two chains (its blocks kb = 4u + 2 kg of
+// each chunk in chunk order, chain h the pair's block h), added, then the
+// KS * MM_KG parts summed in (cluster rank, kg) order; 8 NT accumulators a
+// lane, one block an SM.
 template <int NT>
-__global__ void __launch_bounds__(MM_THREADS, NT == 2 ? 1 : 2)  // NT 2: 128 class sums a lane
+__global__ void __launch_bounds__(MM_THREADS, NT == 2 || NT > 4 ? 1 : 2)  // NT 2: 128 class sums a lane
 q4_0_matmul_multi_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ dw,
                          const int8_t* __restrict__ xq, const int2* __restrict__ bd, float* __restrict__ y,
                          int out, int nb, int B) {
@@ -444,11 +484,18 @@ q4_0_matmul_multi_kernel(const uint8_t* __restrict__ qs, const float* __restrict
               mma_u8s8(a, b[2 * h], b[2 * h + 1], c, p);  // 12582912 + P - 8 S, as float bits
               const float w_lo = h ? d_lo.y : d_lo.x, w_hi = h ? d_hi.y : d_hi.x;
               const float dx0 = __int_as_float(e.y), dx1 = __int_as_float(e.w);
-              float* ac = acc[P][EXACT ? u : 0][h][j];  // each term rounded, then added (no FMA)
-              ac[0] = __fadd_rn(ac[0], __fmul_rn(__fsub_rn(__int_as_float(p[0]), 12582912.0f), __fmul_rn(w_lo, dx0)));
-              ac[1] = __fadd_rn(ac[1], __fmul_rn(__fsub_rn(__int_as_float(p[1]), 12582912.0f), __fmul_rn(w_lo, dx1)));
-              ac[2] = __fadd_rn(ac[2], __fmul_rn(__fsub_rn(__int_as_float(p[2]), 12582912.0f), __fmul_rn(w_hi, dx0)));
-              ac[3] = __fadd_rn(ac[3], __fmul_rn(__fsub_rn(__int_as_float(p[3]), 12582912.0f), __fmul_rn(w_hi, dx1)));
+              float* ac = acc[P][EXACT ? u : 0][h][j];  // each term rounded, then added (no FMA) ...
+              if constexpr (NT > 4) {  // ... but from 33 rows the product and the sum in one rounding
+                ac[0] = fmaf(__fsub_rn(__int_as_float(p[0]), 12582912.0f), __fmul_rn(w_lo, dx0), ac[0]);
+                ac[1] = fmaf(__fsub_rn(__int_as_float(p[1]), 12582912.0f), __fmul_rn(w_lo, dx1), ac[1]);
+                ac[2] = fmaf(__fsub_rn(__int_as_float(p[2]), 12582912.0f), __fmul_rn(w_hi, dx0), ac[2]);
+                ac[3] = fmaf(__fsub_rn(__int_as_float(p[3]), 12582912.0f), __fmul_rn(w_hi, dx1), ac[3]);
+              } else {
+                ac[0] = __fadd_rn(ac[0], __fmul_rn(__fsub_rn(__int_as_float(p[0]), 12582912.0f), __fmul_rn(w_lo, dx0)));
+                ac[1] = __fadd_rn(ac[1], __fmul_rn(__fsub_rn(__int_as_float(p[1]), 12582912.0f), __fmul_rn(w_lo, dx1)));
+                ac[2] = __fadd_rn(ac[2], __fmul_rn(__fsub_rn(__int_as_float(p[2]), 12582912.0f), __fmul_rn(w_hi, dx0)));
+                ac[3] = __fadd_rn(ac[3], __fmul_rn(__fsub_rn(__int_as_float(p[3]), 12582912.0f), __fmul_rn(w_hi, dx1)));
+              }
             }
           }
         }
@@ -1029,16 +1076,16 @@ extern "C" int q4_0_matvec(const void* qs, const void* dw, const void* x, void* 
 // computes the same).
 extern "C" int q4_0_matmul_multi_smem_bytes(int B) { return mm_smem_bytes(8 * ((B + 7) / 8)); }
 
-// B rows (1..32) of x [B, in] against one weight, the in-dim split over
-// `ks` (1..2) blocks of a cluster; scratch xq [NP, in] int8 and bd [in/32,
-// NP, 2] int32 (NP = 8 * ceil(B / 8)) come from the caller; y is [B, out].
-// Two launches: the pre-pass and the product.
-extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, void* xq, void* bd, void* y,
-                                 int out, int in_dim, int B, int ks, void* stream) {
+// The pre-pass and the product of B rows (1..max_rows) of x [B, in]
+// against one weight, the in-dim split over `ks` (1..2) blocks of a
+// cluster; scratch xq [NP, in] int8 and bd [in/32, NP, 2] int32 (NP = 8 *
+// ceil(B / 8)) come from the caller; y is [B, out].
+static int multi_rows(const void* qs, const void* dw, const void* x, void* xq, void* bd, void* y, int out,
+                      int in_dim, int B, int ks, int max_rows, void* stream) {
   const int nb = in_dim / QK, NT = (B + 7) / 8, NP = 8 * NT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nchunks = (nb + MM_KC - 1) / MM_KC;
-  if (B < 1 || B > 32 || in_dim % QK || nb < 1 || out < 1 || ks < 1 || ks > MM_MAX_SPLITS ||
+  if (B < 1 || B > max_rows || in_dim % QK || nb < 1 || out < 1 || ks < 1 || ks > MM_MAX_SPLITS ||
       ks > nchunks)  // every block of a cluster has a chunk
     return static_cast<int>(cudaErrorInvalidValue);
   quantize_rows_bias_kernel<<<(NP * nb + 7) / 8, 256, 0, s>>>(static_cast<const float*>(x), B, NP, nb,
@@ -1054,9 +1101,30 @@ extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, 
     case 1: e = launch_multi<1>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
     case 2: e = launch_multi<2>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
     case 3: e = launch_multi<3>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
-    default: e = launch_multi<4>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    case 4: e = launch_multi<4>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    case 5: e = launch_multi<5>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    case 6: e = launch_multi<6>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    case 7: e = launch_multi<7>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
+    default: e = launch_multi<8>(q, d, xqp, bdp, yp, out, nb, B, ks, s); break;
   }
   return static_cast<int>(e);
+}
+
+// B rows (1..32) of x [B, in] against one weight (multi_rows); two
+// launches: the pre-pass and the product.
+extern "C" int q4_0_matmul_multi(const void* qs, const void* dw, const void* x, void* xq, void* bd, void* y,
+                                 int out, int in_dim, int B, int ks, void* stream) {
+  return multi_rows(qs, dw, x, xq, bd, y, out, in_dim, B, ks, 32, stream);
+}
+
+// The T layout's exact integer product (q4_0_int_matmul): N rows (1..64)
+// of x [N, in] against one weight, the pre-pass and one launch of the
+// multi-row kernel at ceil(N / 8) tiles; at 1..32 rows the very launches
+// of q4_0_matmul_multi, bit for bit.  The caller cuts more rows into
+// calls of at most 64 (ops/q4_matvec.int_matmul_plan).
+extern "C" int q4_0_int_matmul(const void* qs, const void* dw, const void* x, void* xq, void* bd, void* y, int out,
+                               int in_dim, int N, int ks, void* stream) {
+  return multi_rows(qs, dw, x, xq, bd, y, out, in_dim, N, ks, MM_MAX_ROWS, stream);
 }
 
 // x [in] f32 against Q4_1 qs [out, in/2], dm [out, in/32, 2], the activation

@@ -1,7 +1,6 @@
-// The int8 tensor-core pieces of the exact Q4_0 products, shared by
-// q4_int_mma.cu (the T layout's integer product) and q4_matvec.cu (the
-// multi-row product): the m16n8k32 u8 x s8 MMA whose K order is the codes'
-// de-interleaved one
+// The int8 tensor-core pieces of the exact Q4_0 products of q4_matvec.cu
+// (the multi-row product and the T layout's integer product, one kernel):
+// the m16n8k32 u8 x s8 MMA whose K order is the codes' de-interleaved one
 // (k < 16: the low nibble of packed byte k, k >= 16: the high nibble of
 // byte k - 16), so that an A fragment is one 32-bit word of a weight
 // block masked with 0x0F0F0F0F (or shifted right by 4 first) and a B

@@ -35,6 +35,7 @@ SOURCES = {
         "q4_0_matvec": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_0_matmul_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "q4_0_matmul_multi_smem_bytes": [ctypes.c_int],
+        "q4_0_int_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "q4_1_matvec": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_0_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "q4_1_matvec_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -59,14 +60,7 @@ SOURCES = {
         "q4_0_f32_mma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "q4_0_f32_mma_smem_bytes": [ctypes.c_int],
     },
-    "q4_int_mma": {
-        "q4_0_int_matmul": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    },
     "fused_blocks": {
-        "fused_attn_block": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        "fused_attn_block_blocks": [ctypes.c_int] * 2,
-        "fused_attn_block_scratch_bytes": [ctypes.c_int] * 2,
         "fused_ffn_block": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
         "fused_ffn_block_blocks": [ctypes.c_int] * 2,
         "fused_ffn_block_scratch_bytes": [ctypes.c_int] * 2,
@@ -79,6 +73,12 @@ SOURCES = {
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "fused_layers_blocks": [ctypes.c_int] * 3,
         "fused_layers_scratch_bytes": [ctypes.c_int] * 3,
+        "fused_attn_block": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "fused_attn_block_blocks": [ctypes.c_int] * 2,
+        "fused_attn_block_splits": [ctypes.c_int] * 2,
+        "fused_attn_block_split_keys": [ctypes.c_int] * 2,
+        "fused_attn_block_scratch_bytes": [ctypes.c_int] * 2,
     },
 }
 

@@ -1,7 +1,8 @@
 """Fused batch-1 decode kernels and their plain versions: the whole-stack
 kernel (all L transformer layers of one token in one launch,
 ``csrc/fused_layer.cu``) and one layer in two kernels, the attention block
-and the FFN block (``csrc/fused_blocks.cu``).
+(on the whole-stack kernel's phases, in the same source) and the FFN block
+(``csrc/fused_blocks.cu``).
 
 Counterpart of ``llama_swift_tpu/ops/q4_fused_layer.py``
 (``fused_layers_block``, ``fused_attn_block``, ``fused_ffn_block``,
@@ -39,7 +40,7 @@ import torch
 
 from ..config import QK
 from . import build
-from .attention import flash_decode_attention_plain
+from .attention import flash_decode_attention_plain, split_plan
 from .norms import norm
 from .q4_matvec import Q4_0Weight, q4_0_matvec_plain
 
@@ -242,6 +243,16 @@ def _check_attn(x, attn_norm, cos, sin, wqkv, wo, k_cache, v_cache, il: int, n_p
     return H, D
 
 
+def attn_block_plan(n_head: int, n_past: int, sms: int = 132) -> tuple[int, int]:
+    """(splits of a head, keys of a split) of the attention block's history
+    pass at ``n_past`` on a card of ``sms`` SMs (one block each): at most
+    ``sms // n_head`` splits a head (4 at 32 heads, 3 at 40, 2 at 52 and
+    64), each a multiple of 16 keys, none empty; (0, 0) at n_past 0, where
+    there is no history.  The CUDA source's ``block_split_plan`` (queried by
+    ``fused_attn_block_splits``/``_split_keys``) computes the same."""
+    return split_plan(n_past, max(1, sms // n_head)) if n_past else (0, 0)
+
+
 def fused_attn_block_plain(
     x, attn_norm, cos, sin, wqkv: Q4_0Weight, wo: Q4_0Weight, k_cache, v_cache, il: int, n_past: int, *,
     norm_type: str = "layernorm", eps: float = 1e-5, trace: Optional[list] = None,
@@ -287,7 +298,7 @@ def fused_attn_block(
     if x.device.type == "cpu":
         return fused_attn_block_plain(x, attn_norm, cos, sin, wqkv, wo, k_cache, v_cache, il, n_past,
                                       norm_type=norm_type, eps=eps, trace=trace)
-    lib = build.lib("fused_blocks")
+    lib = build.lib("fused_layer")
     scratch = torch.empty(lib.fused_attn_block_scratch_bytes(H, n_past), dtype=torch.uint8, device=x.device)
     delta = torch.empty(D, dtype=torch.float32, device=x.device)
     k_new = torch.empty((H, HEAD_DIM), dtype=torch.float32, device=x.device)
@@ -390,11 +401,11 @@ fused_ffn_block.launches = 0
 
 def block_grids(n_head: int, n_ff: int, dtype=torch.float32) -> tuple[int, int]:
     """Blocks of the attention block's and the FFN block's cooperative
-    launches on the current card (the occupancy limit, at most four a
-    multiprocessor); raises if none fits."""
-    lib = build.lib("fused_blocks")
-    n_attn = lib.fused_attn_block_blocks(n_head, _KIND[dtype])
-    n_ffn = lib.fused_ffn_block_blocks(n_head * HEAD_DIM, n_ff)
+    launches on the current card (the occupancy limit: one block a
+    multiprocessor for the attention block, at most four for the FFN
+    block); raises if none fits."""
+    n_attn = build.lib("fused_layer").fused_attn_block_blocks(n_head, _KIND[dtype])
+    n_ffn = build.lib("fused_blocks").fused_ffn_block_blocks(n_head * HEAD_DIM, n_ff)
     build.check(max(0, -n_attn), "fused_attn_block grid")
     build.check(max(0, -n_ffn), "fused_ffn_block grid")
     return n_attn, n_ffn

@@ -60,7 +60,9 @@ from .q4_matvec import (
     _launch_q4_0_matmul_multi,
     _launch_q4_0_matmul_multi_f32,
     _launch_q4_0_matvec_f32,
+    _sm_count,
     _stream,
+    int_matmul_plan,
     q4_0_matmul_multi_f32_plain,
     q4_0_matmul_multi_plain,
 )
@@ -187,8 +189,11 @@ def q4_0_int_matmul(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     """``y [N, out] = x [N, in] · Wᵀ`` for N ≥ 1 f32 rows with the
     reference's int4×int4 dot: each row quantized per 32-block to codes in
     [−7, 7] (by the kernel's pre-pass), exact block dots on the int8 tensor
-    cores, the scales applied outside.  No row cap (more than 64 rows run as
-    further launches of the same weights inside one call).  CPU tensors
+    cores, the scales applied outside.  The kernel is the multi-row
+    product's (``csrc/q4_matvec.cu``), up to 64 rows a launch; at 1–32 rows
+    its result is :func:`~.q4_matvec.q4_0_matmul_multi`'s bit for bit.  No
+    row cap: more than 64 rows run as further launches of the same weights
+    inside one call (:func:`~.q4_matvec.int_matmul_plan`).  CPU tensors
     take the plain version; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return q4_0_int_matmul_plain(x, w)
@@ -198,16 +203,16 @@ def q4_0_int_matmul(x: torch.Tensor, w: Q4_0Weight) -> torch.Tensor:
     _check_x(x, (n, in_dim), "q4_0_int_matmul")
     if n < 1:
         raise ValueError("q4_0_int_matmul: no rows")
-    nb = in_dim // QK
-    n_pad = -(-n // 8) * 8
-    xq = torch.empty((n_pad, in_dim), dtype=torch.int8, device=x.device)
-    s = torch.empty((nb, n_pad), dtype=torch.int32, device=x.device)
-    dx = torch.empty((nb, n_pad), dtype=torch.float32, device=x.device)
+    plan = int_matmul_plan(out, in_dim, n, _sm_count(x.device))
+    xq = torch.empty((plan.np, in_dim), dtype=torch.int8, device=x.device)
+    bd = torch.empty((in_dim // QK, plan.np, 2), dtype=torch.int32, device=x.device)  # {bias, dx bits}
     y = torch.empty((n, out), dtype=torch.float32, device=x.device)
-    code = build.lib("q4_int_mma").q4_0_int_matmul(
-        w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(), s.data_ptr(), dx.data_ptr(),
-        y.data_ptr(), out, in_dim, n, n_pad, _stream(x))
-    build.check(code, "q4_0_int_matmul")
+    lib = build.lib("q4_matvec")
+    for n0, rows, p in plan.launches:
+        code = lib.q4_0_int_matmul(
+            w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr() + 4 * n0 * in_dim, xq.data_ptr(), bd.data_ptr(),
+            y.data_ptr() + 4 * n0 * out, out, in_dim, rows, p.splits, _stream(x))
+        build.check(code, "q4_0_int_matmul")
     q4_0_int_matmul.launches += 1
     return y
 

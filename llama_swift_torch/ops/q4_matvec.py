@@ -601,6 +601,16 @@ class MultiPlan:
         return (self.splits, self.tiles)
 
 
+def _multi_smem(np_: int) -> int:
+    """Shared memory of the multi-row kernel at ``np_`` activation rows (a
+    multiple of 8): its ring stages (``mm_stages``: 2 at 32 rows, else 3) of
+    64 rows' nibbles and scales, the rows' codes and their {bias, dx} pairs
+    (``mm_smem_bytes`` in the CUDA source)."""
+    stage = MULTI_TILE_ROWS * (MULTI_KC * 16 + 16) + MULTI_TILE_ROWS * (MULTI_KC + 4) * 4 \
+        + np_ * (MULTI_KC * 32 + 16) + MULTI_KC * np_ * 8
+    return (2 if np_ == 32 else 3) * stage
+
+
 def multi_plan(out: int, in_dim: int, B: int, sms: int = 132) -> MultiPlan:
     """The launch plan of the multi-row kernel for ``B`` rows against an
     ``[out, in_dim]`` weight on a card of ``sms`` SMs (the CUDA source
@@ -612,9 +622,7 @@ def multi_plan(out: int, in_dim: int, B: int, sms: int = 132) -> MultiPlan:
     if not 1 <= B <= MAX_MULTI_ROWS or in_dim % QK or in_dim < QK or out < 1:
         raise ValueError(f"multi_plan: {B} rows of {in_dim} against {out} outputs is no multi-row product")
     np_ = 8 * -(-B // 8)
-    stage = MULTI_TILE_ROWS * (MULTI_KC * 16 + 16) + MULTI_TILE_ROWS * (MULTI_KC + 4) * 4 \
-        + np_ * (MULTI_KC * 32 + 16) + MULTI_KC * np_ * 8
-    smem = (2 if np_ == 32 else 3) * stage  # ring stages: mm_stages in the CUDA source
+    smem = _multi_smem(np_)
     tiles = -(-out // MULTI_TILE_ROWS)
     chunks = -(-(in_dim // QK) // MULTI_KC)
     # two blocks an SM where their shared memory fits (1 KB a block the card
@@ -622,6 +630,54 @@ def multi_plan(out: int, in_dim: int, B: int, sms: int = 132) -> MultiPlan:
     per_sm = 2 if np_ != 16 and 2 * (smem + 1024) <= SMEM_PER_SM else 1
     splits = MULTI_MAX_SPLITS if chunks >= MULTI_MAX_SPLITS and MULTI_MAX_SPLITS * tiles <= sms * per_sm else 1
     return MultiPlan(np=np_, splits=splits, tiles=tiles, chunks=chunks, smem=smem, blocks_per_sm=per_sm)
+
+
+#: activation rows one launch of the T layout's integer product takes
+#: (``MM_MAX_ROWS`` in ``csrc/q4_matvec.cu``: the multi-row kernel at up to
+#: 8 tiles of 8 rows)
+MAX_INT_LAUNCH_ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class IntMatmulPlan:
+    """How ``q4_0_int_matmul`` cuts N rows: ``launches`` of (first row, rows,
+    :class:`MultiPlan`), each a pre-pass and one launch of the multi-row
+    kernel at ``plan.np // 8`` tiles of 8 rows."""
+
+    launches: tuple
+
+    @property
+    def np(self) -> int:
+        """Rows of the largest launch's scratch."""
+        return max(p.np for _, _, p in self.launches)
+
+
+def int_matmul_plan(out: int, in_dim: int, N: int, sms: int = 132) -> IntMatmulPlan:
+    """The launches of the T layout's integer product for ``N`` rows against
+    an ``[out, in_dim]`` weight: calls of at most
+    :data:`MAX_INT_LAUNCH_ROWS` rows in order.  A call of 1..32 rows takes
+    :func:`multi_plan` (``q4_0_matmul_multi``'s launch, bit for bit); one
+    of 33..64 rows holds one block an SM (its ring does not fit twice) and
+    splits the in-dim over a cluster of 2 where that takes fewer waves of
+    blocks (⌈blocks / SMs⌉ · chunks a block)."""
+    if N < 1 or in_dim % QK or in_dim < QK or out < 1:
+        raise ValueError(f"int_matmul_plan: {N} rows of {in_dim} against {out} outputs is no integer product")
+    launches = []
+    for n0 in range(0, N, MAX_INT_LAUNCH_ROWS):
+        rows = min(MAX_INT_LAUNCH_ROWS, N - n0)
+        if rows <= MAX_MULTI_ROWS:
+            plan = multi_plan(out, in_dim, rows, sms)
+        else:
+            np_ = 8 * -(-rows // 8)
+            tiles, chunks = -(-out // MULTI_TILE_ROWS), -(-(in_dim // QK) // MULTI_KC)
+
+            def waves(s):
+                return -(-tiles * s // sms) * -(-chunks // s)
+
+            splits = MULTI_MAX_SPLITS if chunks >= MULTI_MAX_SPLITS and waves(MULTI_MAX_SPLITS) < waves(1) else 1
+            plan = MultiPlan(np=np_, splits=splits, tiles=tiles, chunks=chunks, smem=_multi_smem(np_), blocks_per_sm=1)
+        launches.append((n0, rows, plan))
+    return IntMatmulPlan(launches=tuple(launches))
 
 
 #: the f32-activation products' tiling on the bf16 tensor cores

@@ -22,7 +22,11 @@ Q4_0 and Q4_1 matvecs at LLaMA's shapes, bit-equal to their lane
 orders; the two 4-bit-activation matvecs at LLaMA's shapes, odd row
 counts, in-dim 32 and the largest taken, bit-equal to their lane orders,
 one kernel a call with no scratch, x off 16-byte alignment, blocks of
-exact ties and flat blocks, the in-dim cap refused).
+exact ties and flat blocks, the in-dim cap refused; the T layout's integer
+product bit-equal to the multi-row product at 2-32 rows of the 7B shapes,
+two kernels a call of at most 64 rows by CUDA-graph nodes, its plan's
+shared memory the kernel's; the attention block's split plan the C
+query's, and the block at 40 and 64 heads, one kernel a call).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -536,6 +540,66 @@ def test_q4_0_int_matmul_kernel_matches_plain(cuda, rows, out, in_dim):
         qm.q4_0_int_matmul(x.double(), w)
 
 
+@pytest.mark.parametrize("rows", [2, 8, 16, 32])
+@pytest.mark.parametrize("out,in_dim", [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)])
+def test_q4_0_int_matmul_bit_equal_to_multi_row(cuda, rows, out, in_dim):
+    """Row 12 at 2–32 rows is row 6's launch: bit-equal to
+    ``q4_0_matmul_multi`` at the 7B shapes."""
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    w, g = _q4(out, in_dim, cuda, seed=rows + out)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    assert torch.equal(qm.q4_0_int_matmul(x, qm.Q4_0WeightT(w.qs, w.d)), mv.q4_0_matmul_multi(x, w))
+
+
+@pytest.mark.parametrize("rows", [1, 33, 40, 57, 64, 65, 100, 130])
+@pytest.mark.parametrize("out,in_dim", [(77, 352), (4096, 4096), (11008, 4096), (4096, 11008)])
+def test_q4_0_int_matmul_launches_and_repeats(cuda, rows, out, in_dim):
+    """Row 12 beyond row 6's rows: within 1e-5 of max |y|, a second call
+    bit-equal, and two kernels (the pre-pass and the product) for each call
+    of at most 64 rows of ``int_matmul_plan``, counted as CUDA-graph nodes
+    (chip_smoke.graph_kernels)."""
+    from chip_smoke import graph_kernels
+    from llama_swift_torch.ops import q4_matmul as qm
+
+    w, g = _q4(out, in_dim, cuda, seed=rows + out)
+    w = qm.Q4_0WeightT(w.qs, w.d)
+    x = torch.randn((rows, in_dim), device=cuda, generator=g)
+    y = qm.q4_0_int_matmul(x, w)
+    assert _rel(y, qm.q4_0_int_matmul_plain(x, w)) <= 1e-5
+    assert torch.equal(y, qm.q4_0_int_matmul(x, w))
+    plan = mv.int_matmul_plan(out, in_dim, rows, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert graph_kernels(torch, lambda: qm.q4_0_int_matmul(x, w)) == 2 * len(plan.launches)
+
+
+def test_int_matmul_plan_smem_matches_the_kernel(cuda):
+    from llama_swift_torch.ops import build
+
+    lib = build.lib("q4_matvec")
+    for B in range(1, mv.MAX_INT_LAUNCH_ROWS + 1):
+        assert lib.q4_0_matmul_multi_smem_bytes(B) == mv.int_matmul_plan(4096, 4096, B).launches[0][2].smem
+
+
+def test_q4_0_int_matmul_refuses_rows_beyond_a_launch(cuda):
+    """The C entry takes 1..64 rows a call (the wrapper cuts more), and
+    row 6's entry 1..32."""
+    from llama_swift_torch.ops import build
+
+    lib = build.lib("q4_matvec")
+    w, g = _q4(64, 256, cuda)
+    x = torch.randn((65, 256), device=cuda, generator=g)
+    xq = torch.empty((72, 256), dtype=torch.int8, device=cuda)
+    bd = torch.empty((8, 72, 2), dtype=torch.int32, device=cuda)
+    y = torch.empty((65, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (w.qs.data_ptr(), w.d.data_ptr(), x.data_ptr(), xq.data_ptr(), bd.data_ptr(), y.data_ptr())
+    assert lib.q4_0_int_matmul(*ptrs, 64, 256, 65, 1, stream) != 0
+    assert lib.q4_0_int_matmul(*ptrs, 64, 256, 0, 1, stream) != 0
+    assert lib.q4_0_matmul_multi(*ptrs, 64, 256, 33, 1, stream) != 0
+    assert lib.q4_0_int_matmul(*ptrs, 64, 256, 64, 3, stream) != 0  # a cluster of 3
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("quantize", [True, False])
 @pytest.mark.parametrize("rows", [1, 2, 8, 32])
 def test_q4_0_t_matmul_multi_matches_plain(cuda, rows, quantize):
@@ -588,6 +652,57 @@ def test_fused_blocks_match_plain(cuda, dtype, n_past):
         flips = int((mv.quantize_activations_q4_0_int(tk)[0] != mv.quantize_activations_q4_0_int(tp)[0]).sum())
         assert bool(torch.isfinite(got).all())
         assert _rel(got, want) <= 5e-4 or 0 < flips <= 8, (_rel(got, want), flips)
+
+
+def test_attn_block_plan_matches_the_kernel(cuda):
+    """The attention block's splits and keys a split, from its C query,
+    are ``attn_block_plan``'s on this card."""
+    from llama_swift_torch.ops import build
+    from llama_swift_torch.ops import fused_layer as fl
+
+    lib = build.lib("fused_layer")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for H in (1, 2, 32, 40, 52, 64):
+        for n_past in (0, 1, 15, 16, 17, 63, 64, 127, 200, 511, 1000, 2047):
+            got = (lib.fused_attn_block_splits(H, n_past), lib.fused_attn_block_split_keys(H, n_past))
+            assert got == fl.attn_block_plan(H, n_past, sms), (H, n_past)
+
+
+@pytest.mark.parametrize("H", [40, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_past", [0, 17, 511])
+def test_attn_block_at_wide_heads(cuda, H, dtype, n_past):
+    """The attention block at 13B's and 65B's head counts (3 and 2 splits a
+    head on 132 SMs), one layer, stale rows at and beyond n_past: the cache
+    unchanged, one kernel a call (CUDA-graph nodes), a second call
+    bit-equal, k_new/v_new and delta under the bars of
+    ``test_fused_blocks_match_plain``."""
+    from chip_smoke import graph_kernels
+    from llama_swift_torch.ops import fused_layer as fl
+    from llama_swift_torch.utils import fused_check
+
+    x, (an, _), (wqkv, wo, _, _), kc, vc = _fused_inputs(cuda, 1, H, 256, 512, dtype, seed=H + n_past)
+    kc[:, :, n_past:] = 1e4
+    vc[:, :, n_past:] = -1e4
+    k0, v0 = kc.clone(), vc.clone()
+    cos, sin = fl.rope_vectors(n_past, device=cuda)
+    tr_k, tr_p = [], []
+    got = fl.fused_attn_block(x, an[0], cos, sin, wqkv, wo, kc, vc, 0, n_past, trace=tr_k)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, k0) and torch.equal(vc, v0)
+    again = fl.fused_attn_block(x, an[0], cos, sin, wqkv, wo, kc, vc, 0, n_past)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert graph_kernels(torch, lambda: fl.fused_attn_block(x, an[0], cos, sin, wqkv, wo, kc, vc, 0, n_past)) == 1
+    delta, k_new, v_new = got
+    ref, k_ref, v_ref = fl.fused_attn_block_plain(x, an[0], cos, sin, wqkv, wo, kc, vc, 0, n_past, trace=tr_p)
+    pairs = ((k_new, k_ref), (v_new, v_ref))
+    if dtype == torch.bfloat16:  # chip_smoke's bar for the same rows, as the cache holds them
+        assert fused_check.kv_rows_ok(tuple((a.to(dtype), b.to(dtype)) for a, b in pairs))[0]
+    else:
+        assert max(_rel(a, b) for a, b in pairs) <= 1e-5
+    flips = int((mv.quantize_activations_q4_0_int(tr_k[0])[0] != mv.quantize_activations_q4_0_int(tr_p[0])[0]).sum())
+    assert bool(torch.isfinite(delta).all())
+    assert _rel(delta, ref) <= 5e-4 or 0 < flips <= 8, (_rel(delta, ref), flips)
 
 
 def test_fused_blocks_grid_and_bad_inputs(cuda):
