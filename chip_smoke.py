@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only int      # build + kernel checks + paths A and B (4f, 4g)
     python3 chip_smoke.py --only bench    # build + kernel checks + the kernelbench path (2b)
     python3 chip_smoke.py --only tiny     # build + kernel checks + the tiny model (2c)
+    python3 chip_smoke.py --only probe    # build + the stream probe's check and split + the kernelbench path
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -21,9 +22,9 @@ Phases:
    the same function; the int8 flash kernels read caches written by the
    port's own int8 write, with stale codes and huge scales beyond n_past;
    batch-1 flash decode also at n_ctx 2048 and its kernel launches a call
-   from a profiler window (one); the whole-stack kernel runs 2 layers at
-   n_past 0, 127 and 511 on f32 and bf16 caches, then all 32 layers of one
-   token on both caches at n_past 127 and 511 (see
+   from a profiler window and from CUDA-graph nodes (one); the whole-stack
+   kernel runs 2 layers at n_past 0, 127 and 511 on f32 and bf16 caches,
+   then all 32 layers of one token on both caches at n_past 127 and 511 (see
    ``check_fused_kernel`` for how 4-bit activation flips are counted); the
    multi-row product (row 6) at B = 2, 8, 16, 32 on the four matvec shapes
    beside row 12 on the same inputs; both dequants (rows 3, 3b: bf16, f32,
@@ -44,9 +45,11 @@ Phases:
    (row 11) at 7B, 13B and 65B widths, one kernel a call by graph nodes,
    the attention block's split plan against its C query; the stream probe
    (``stream_probe``) at kernelbench's five shapes, every row bit-equal,
-   beside ``torch.sum(words, dtype=int32)``; the batched and paged
-   kernels (one launch a call, from a profiler window, a second call
-   bit-equal, their plans logged) also at B = 16 and at n_ctx 2048 (pages
+   a second call bit-equal, one kernel a call by graph nodes, beside
+   ``torch.sum(words, dtype=int32)``, and a launch's fixed part split into
+   gap, ramp, first byte and streaming (``check_stream_probe``); the
+   batched and paged kernels (one launch a call, from a profiler window
+   and from graph nodes, a second call bit-equal, their plans logged) also at B = 16 and at n_ctx 2048 (pages
    of 128 and 16), the batched kernel on dense caches that hold the paged
    kernel's keys beside it; a checksum (``bits``) of the outputs of every
    flash kernel, the whole-stack kernel and all four matvecs on their
@@ -802,17 +805,35 @@ def check_int_t_kernels(torch, g, summary) -> list:
     return failed
 
 
+def probe_split_kernels():
+    """The fixed-part split's two kernels of ``tools/probe_variants.py``
+    (the probe's grid returning at once, and writing its outputs without a
+    read), built from this tree's source, or the reason they cannot be (an
+    older tree in an A/B call)."""
+    try:
+        from llama_swift_torch.tools import probe_variants as pv
+        from llama_swift_torch.tools.matvec_variants import build_variants
+
+        return pv, build_variants(["empty", "write_only"], "stream_probe", pv.VARIANTS)
+    except (ImportError, RuntimeError, TypeError) as e:
+        return None, f"{type(e).__name__}: {e}"
+
+
 def check_stream_probe(torch, g, summary) -> list:
     """Row 14, the HBM stream probe, at kernelbench's five shapes: every
-    row's sum bit-equal to the plain version's; timed over a round robin of
+    row's sum bit-equal to the plain version's, a second call bit-equal and
+    one kernel a call (CUDA-graph nodes); timed over a round robin of
     copies that streams more than 200 MB (the H100's L2 holds 50 MB), beside
     the plain version and ``torch.sum(words, dim=1, dtype=torch.int32)``
     (the one PyTorch call that reads the same words).  Bytes-bound: one
-    integer add per 4 bytes read."""
+    integer add per 4 bytes read.  Then the fixed part of a launch split
+    (``probe_variants.fixed_split``): the probe's grid empty, writing its
+    outputs alone, and reading, each timed behind a sleep kernel."""
     from llama_swift_torch.ops import q4_matvec as mv
     from llama_swift_torch.tools import kernelbench as kb
 
-    failed = []
+    pv, split_libs = probe_split_kernels()
+    failed, split_in = [], {}
     for name, (out, in_dim) in kb.SHAPES.items():
         nib = out * in_dim // 2
         n = max(2, math.ceil(2e8 / nib))
@@ -823,17 +844,31 @@ def check_stream_probe(torch, g, summary) -> list:
         exact = bool(torch.equal(rows, ref)) and bool(torch.equal(mv.stream_probe(qs[1], -7), ref[::128]))
         case = {"case": "stream_probe", "shape": name, "out": out, "in": in_dim, "copies": n, "exact": exact,
                 "max_abs_err": float((rows - ref).abs().max()),
+                "repeat_bit_equal": bool(torch.equal(mv.stream_probe(qs[1], -7, all_rows=True), rows)),
+                "graph_kernels_per_call": graph_kernels(torch, lambda: mv.stream_probe(qs[1], -7, all_rows=True)),
+                "plan": plan_record(mv, "probe_plan", out, in_dim),
                 "kernel_ms": time_ms(torch, lambda i: mv.stream_probe(qs[i % n], i), 200),
                 "plain_ms": time_ms(torch, lambda i: mv.stream_probe_plain(qs[i % n], i), 5),
                 "library_ms": time_ms(torch, lambda i: torch.sum(words[i % n], dim=1, dtype=torch.int32), 200),
-                "bound_ms": (nib + out * 4) / HBM_BYTES_PER_S * 1e3, "ok": exact}
+                "bound_ms": (nib + out * 4) / HBM_BYTES_PER_S * 1e3}
+        case["ok"] = exact and case["repeat_bit_equal"] and case["graph_kernels_per_call"] == 1
         case["gbps"] = nib / case["kernel_ms"] / 1e6
         log(case)
-        if not exact:
+        if not case["ok"]:
             failed.append(case)
         if name == "output":
             summary["stream_probe"] = dict(case, bound_by="bytes", shape=f"{out}x{in_dim}")
+        if pv is not None:
+            y = torch.empty(out, dtype=torch.float32, device="cuda")
+            blocks = mv.probe_plan(out, in_dim).blocks
+            split_in[name] = {"bytes": nib, "probe": case["kernel_ms"] * 1e3, **{
+                k: time_ms(torch, pv.launcher(lib, qs, y, blocks), 200) * 1e3 for k, lib in split_libs.items()}}
         del qs, words
+    if pv is None:
+        log({"case": "stream_probe_fixed_split", "skipped": split_libs})
+    else:
+        for name, parts in pv.fixed_split(split_in).items():
+            log({"case": "stream_probe_fixed_split", "shape": name, **parts})
     return failed
 
 
@@ -1072,9 +1107,12 @@ def check_kernels(torch) -> dict:
             if n_past == 511:
                 case["launches_per_call"] = launches_per_call(
                     torch, lambda i: att.flash_decode_attention(q, kc, vc, i % L, n_past))
-                case["ok"] = case["ok"] and case["launches_per_call"] == 1
+                case["graph_kernels_per_call"] = graph_kernels(
+                    torch, lambda: att.flash_decode_attention(q, kc, vc, 3, n_past))
+                case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["graph_kernels_per_call"] == 1
                 log({"case": "flash_decode_attention_launches", "cache": case["cache"],
-                     "launches_per_call": case["launches_per_call"]})
+                     "launches_per_call": case["launches_per_call"],
+                     "graph_kernels_per_call": case["graph_kernels_per_call"]})
                 if not case["ok"]:
                     failed.append(case)
             if dtype == torch.float32 and n_past == 511:
@@ -1159,13 +1197,14 @@ def check_kernels(torch) -> dict:
                     "bound_ms": bound, "library_ms": time_ms(torch, lib, 200) if lib else None,
                     "ok": err <= 1e-5}
             # one launch a call, the same bits on a second call
-            case.update(launches_per_call=launches_per_call(torch, fn), repeat_bit_equal=bool(torch.equal(out, fn(3))),
-                        bits=bits(out))
+            case.update(launches_per_call=launches_per_call(torch, fn), graph_kernels_per_call=graph_kernels(
+                torch, lambda: fn(3)), repeat_bit_equal=bool(torch.equal(out, fn(3))), bits=bits(out))
             if "paged" in name:
                 case.update(page=page, plan=plan_record(att, "paged_plan", B, H, dh, elt, page, max_np + 1))
             else:
                 case["plan"] = plan_record(att, "batched_plan", B, H, dh, elt, max_np + 1)
-            case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
+            case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["graph_kernels_per_call"] == 1 \
+                and case["repeat_bit_equal"]
             log(case)
             if not case["ok"]:
                 failed.append(case)
@@ -1364,8 +1403,10 @@ def check_int8_kernels(torch, g, summary) -> list:
                     kernel_ms=time_ms(torch, fn, 200), plain_ms=time_ms(torch, plain, 20),
                     bound_ms=bound, library_ms=None, bits=bits(out), ok=err <= 1e-5)
         if case["case"] != "flash_decode_attention_stacked_int8":  # one launch a call
-            case.update(launches_per_call=launches_per_call(torch, fn), repeat_bit_equal=bool(torch.equal(out, fn(3))))
-            case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["repeat_bit_equal"]
+            case.update(launches_per_call=launches_per_call(torch, fn), repeat_bit_equal=bool(torch.equal(out, fn(3))),
+                        graph_kernels_per_call=graph_kernels(torch, lambda: fn(3)))
+            case["ok"] = case["ok"] and case["launches_per_call"] == 1 and case["graph_kernels_per_call"] == 1 \
+                and case["repeat_bit_equal"]
         log(case)
         if not case["ok"]:
             failed.append(case)
@@ -1391,9 +1432,12 @@ def check_int8_kernels(torch, g, summary) -> list:
         if n_past == 511:
             case["launches_per_call"] = launches_per_call(
                 torch, lambda i: att.flash_decode_attention_stacked_int8(q, k8, v8, ks, vs, i % L, n_past))
+            case["graph_kernels_per_call"] = graph_kernels(
+                torch, lambda: att.flash_decode_attention_stacked_int8(q, k8, v8, ks, vs, 3, n_past))
             log({"case": "flash_decode_attention_stacked_int8_launches",
-                 "launches_per_call": case["launches_per_call"]})
-            if case["launches_per_call"] != 1:
+                 "launches_per_call": case["launches_per_call"],
+                 "graph_kernels_per_call": case["graph_kernels_per_call"]})
+            if case["launches_per_call"] != 1 or case["graph_kernels_per_call"] != 1:
                 case["ok"] = False
                 failed.append(case)
             summary["flash_decode_attention_stacked_int8"] = dict(
@@ -3226,11 +3270,13 @@ ONLY_KERNELS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench", "tiny"], default=None,
+    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench", "tiny", "probe"], default=None,
                     help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases; "
                          "tp: those and the TP phases; int: those, the T integer paths' parity, "
                          "path B and path A; bench: those and the kernelbench path; tiny: those and "
-                         "the tiny model's requests and paged wave")
+                         "the tiny model's requests and paged wave; probe: the stream probe's check "
+                         "and fixed-part split and the kernelbench path, no other kernel check (an A/B "
+                         "call of the probe)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -3263,6 +3309,12 @@ def main(argv=None) -> int:
             for stem in build.SOURCES:
                 f.write(f"== {stem}\n{build.build_info.get(stem, '(cached build)')}\n")
 
+    if args.only == "probe":
+        failed = check_stream_probe(torch, torch.Generator(device="cuda").manual_seed(1234), {})
+        run_kernelbench(torch)
+        if failed:
+            raise SystemExit(f"chip_smoke: the stream probe failed: {failed}")
+        return 0
     summary = check_kernels(torch)
     if args.only == "kernels":
         return 0

@@ -14,56 +14,73 @@
 // rows 0, 128, 256, ... as the TPU entry point does.
 //
 // What bounds it on the H100: device-memory bandwidth -- in/2 bytes read and
-// 4 bytes written per row, one integer add per 4 bytes read.
+// 4 bytes written per row, one integer add per 4 bytes read.  At 4096 x 4096
+// (8.4 MB, 2.5 us at 3.35 TB/s) a launch's fixed part weighs as much as the
+// stream: on an H100 the gap between two launches of its grid is ~2.0 us,
+// its warps' start and stores ~0.2, the first byte ~0.4
+// (tools/probe_variants.py's split, PERF.md).
 //
-// Design (not the TPU's grid of out/128 sequential tiles, only 32 blocks at
-// 4096 rows): one warp per row, blocks of 8 warps, so 4096 rows give 512
-// blocks and every SM holds many rows at once.  A lane reads 16-byte vectors
-// with __ldcs (cache-streaming: the words are read once), four in flight
-// before any is summed, neighbouring lanes on neighbouring vectors; unsigned
-// adds give the int32 wrap without undefined behaviour; a warp-shuffle tree
-// (unsigned, so exact in any order) reduces the lanes, and lane 0 rounds the
-// int32 total to f32 (round to nearest even, as XLA's convert does).
+// Design (ops/q4_matvec.probe_plan).  One warp a row, blocks of PROBE_WARPS
+// warps on neighbouring rows, the grid queued to the hardware's block
+// scheduler (at 4096 rows 512 blocks, all resident at once): a warp's first
+// loads are its first instructions, and at large shapes the scheduler hands
+// the next rows to whichever SM drains first.  A lane keeps PROBE_LOADS
+// 16-byte streaming loads (__ldcs, evict first: every byte is read once) in
+// flight, predicated at a row's end so that a chunk's loads go out together,
+// neighbouring lanes on neighbouring vectors (a warp's load is 512
+// contiguous bytes).  Timed against it on an H100 (tools/probe_variants.py,
+// PERF.md): a persistent grid of one or two blocks an SM reading contiguous
+// spans of rows through a ring of bulk copies (TMA) was 1.1-1.9x slower at
+// every shape and ring (a block's bulk copies stream at ~20 KB/us, below an
+// SM's share of the card's rate), and a persistent grid of plain loads
+// 6-20 % slower (static spans end with the slowest SM).
+//
+// The sum: unsigned 32-bit adds wrap exactly in any order, so a lane's
+// vectors, the warp's redux.sync (0-1 % faster than a butterfly of five
+// shuffles) and the bias, added last as bias times the row's word count,
+// give the plain version's bits; lane 0 rounds the int32 total to f32
+// (round to nearest even, as XLA's convert does).  One launch a call, no
+// scratch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
+constexpr int PROBE_WARPS = 8;
+constexpr int PROBE_LOADS = 4;
 
-__device__ __forceinline__ uint32_t add4(uint4 v, uint32_t bias) {
-  return (v.x + bias) + (v.y + bias) + (v.z + bias) + (v.w + bias);
-}
+__device__ __forceinline__ uint32_t add4(uint4 v) { return v.x + v.y + v.z + v.w; }
 
-// words [rows][vecs] as 16-byte vectors (vecs = in/32: four words each)
-__global__ void __launch_bounds__(kWarps * 32)
-stream_probe_kernel(const uint4* __restrict__ words, uint32_t bias, float* __restrict__ out, int rows, int vecs) {
+// qs [rows][rv] as 16-byte vectors (rv = in/32), out [rows] f32; block b on
+// rows b * PROBE_WARPS + w.
+__global__ void __launch_bounds__(PROBE_WARPS * 32)
+stream_probe_kernel(const uint4* __restrict__ qs, uint32_t bias, float* __restrict__ out, int rows, int rv) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.x * PROBE_WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const uint4* p = words + static_cast<size_t>(row) * vecs;
+  const uint4* p = qs + static_cast<size_t>(row) * rv + lane;
   uint32_t acc = 0;
-  int k = lane;
-  for (; k + (kUnroll - 1) * 32 < vecs; k += kUnroll * 32) {
-    uint4 v[kUnroll];
+  for (int k0 = 0; k0 < rv; k0 += PROBE_LOADS * 32) {
+    uint4 v[PROBE_LOADS];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(p + k + u * 32);
+    for (int u = 0; u < PROBE_LOADS; ++u)
+      v[u] = k0 + u * 32 + lane < rv ? __ldcs(p + k0 + u * 32) : make_uint4(0, 0, 0, 0);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) acc += add4(v[u], bias);
+    for (int u = 0; u < PROBE_LOADS; ++u) acc += add4(v[u]);
   }
-  for (; k < vecs; k += 32) acc += add4(__ldcs(p + k), bias);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[row] = __int2float_rn(static_cast<int>(acc));
+  acc = __reduce_add_sync(0xffffffffu, acc);  // redux.sync: the warp's sum in one instruction
+  if (lane == 0) out[row] = __int2float_rn(static_cast<int>(acc + bias * static_cast<uint32_t>(rv) * 4u));
 }
 
 }  // namespace
 
-// qs [rows][in/2] u8 (16-byte aligned, in % 32 == 0), out [rows] f32
-extern "C" int stream_probe(const void* qs, int bias, void* out, int rows, int in_dim, void* stream) {
-  const unsigned grid = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
-  stream_probe_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+// qs [rows][in/2] u8 (16-byte aligned, in % 32 == 0), out [rows] f32, on
+// `blocks` blocks of PROBE_WARPS rows (ops/q4_matvec.probe_plan).  One
+// launch, no scratch.
+extern "C" int stream_probe(const void* qs, int bias, void* out, int rows, int in_dim, int blocks, void* stream) {
+  if (rows < 1 || in_dim < 32 || in_dim % 32 || blocks != (rows + PROBE_WARPS - 1) / PROBE_WARPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  stream_probe_kernel<<<blocks, PROBE_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(qs), static_cast<uint32_t>(bias), static_cast<float*>(out), rows, in_dim / 32);
   return static_cast<int>(cudaGetLastError());
 }

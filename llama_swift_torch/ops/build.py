@@ -66,7 +66,7 @@ SOURCES = {
         "fused_ffn_block_scratch_bytes": [ctypes.c_int] * 2,
     },
     "stream_probe": {
-        "stream_probe": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "stream_probe": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
     "fused_layer": {
         "fused_layers": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6

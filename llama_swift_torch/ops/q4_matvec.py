@@ -931,6 +931,38 @@ def _probe_rows(sums: torch.Tensor, all_rows: bool) -> torch.Tensor:
     return sums if all_rows else sums[::PROBE_TILE]
 
 
+PROBE_WARPS = 8  # warps of a probe block, a row each (``PROBE_WARPS`` in ``csrc/stream_probe.cu``)
+PROBE_LOADS = 4  # 16-byte loads a lane keeps in flight (``PROBE_LOADS``)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbePlan:
+    """The stream probe's launch: ``blocks`` blocks of ``warps`` warps,
+    warp w of block g on row ``g·warps + w`` (``block_rows``: one contiguous
+    span of whole rows a block, the hardware's block scheduler handing the
+    blocks to the SMs), each lane with ``loads`` 16-byte loads of its row in
+    flight; no shared memory."""
+
+    out: int
+    row_bytes: int
+    blocks: int
+    warps: int
+    loads: int
+
+    def block_rows(self, g: int) -> range:
+        return range(g * self.warps, min((g + 1) * self.warps, self.out))
+
+
+@functools.lru_cache(maxsize=None)
+def probe_plan(out: int, in_dim: int) -> ProbePlan:
+    """Plan of the stream probe's kernel: a warp a row, ``PROBE_WARPS``
+    rows a block."""
+    if out < 1 or in_dim < QK or in_dim % QK:
+        raise ValueError(f"probe_plan: out {out}, in dim {in_dim}: the in dim must be a multiple of {QK}")
+    return ProbePlan(out=out, row_bytes=in_dim // 2, blocks=-(-out // PROBE_WARPS), warps=PROBE_WARPS,
+                     loads=PROBE_LOADS)
+
+
 def stream_probe_plain(qs: torch.Tensor, bias: int, *, all_rows: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the probe: every row's ``Σ_k (word[r, k] +
     bias)`` over the little-endian int32 words of ``qs`` uint8 ``[out,
@@ -961,7 +993,7 @@ def stream_probe(qs: torch.Tensor, bias: int, *, all_rows: bool = False) -> torc
     rows, in_dim = qs.shape[0], qs.shape[1] * 2
     sums = torch.empty(rows, dtype=torch.float32, device=qs.device)
     code = build.lib("stream_probe").stream_probe(
-        qs.data_ptr(), _wrap_i32(bias), sums.data_ptr(), rows, in_dim, _stream(qs))
+        qs.data_ptr(), _wrap_i32(bias), sums.data_ptr(), rows, in_dim, probe_plan(rows, in_dim).blocks, _stream(qs))
     build.check(code, "stream_probe")
     stream_probe.launches += 1
     return _probe_rows(sums, all_rows)

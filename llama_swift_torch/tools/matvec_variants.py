@@ -72,39 +72,41 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str, csrc_dir: str = build.CSRC_DIR) -> str:
-    """``csrc/q4_matvec.cu`` with variant ``name``'s replacements; raises
-    unless each replaced text occurs exactly once."""
-    with open(os.path.join(csrc_dir, "q4_matvec.cu")) as f:
+def variant_source(name: str, csrc_dir: str = build.CSRC_DIR, source: str = "q4_matvec", variants=None) -> str:
+    """``csrc/<source>.cu`` with variant ``name``'s replacements (of
+    ``variants``, by default this tool's ``VARIANTS``); raises unless each
+    replaced text occurs exactly once."""
+    with open(os.path.join(csrc_dir, f"{source}.cu")) as f:
         src = f.read()
-    for old, new in VARIANTS[name][0]:
+    for old, new in (VARIANTS if variants is None else variants)[name][0]:
         if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: its text is not found once in q4_matvec.cu")
+            raise RuntimeError(f"variant {name}: its text is not found once in {source}.cu")
         src = src.replace(old, new)
     return src
 
 
-def build_variants(names) -> dict:
-    """{name: loaded library} of the variants ``names``, one nvcc process
-    each, all started together."""
+def build_variants(names, source: str = "q4_matvec", variants=None, csrc_dir: str = build.CSRC_DIR) -> dict:
+    """{name: loaded library} of the variants ``names`` of ``csrc_dir/<source>.cu``
+    (see :func:`variant_source`), one nvcc process each, all started
+    together; each library's C functions typed as ``build.SOURCES[source]``."""
     out_dir = os.path.join(build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name in names:
-        cu, so = os.path.join(out_dir, f"q4_matvec_{name}.cu"), os.path.join(out_dir, f"q4_matvec_{name}.so")
+        cu, so = os.path.join(out_dir, f"{source}_{name}.cu"), os.path.join(out_dir, f"{source}_{name}.so")
         with open(cu, "w") as f:
-            f.write(variant_source(name))
-        procs[name] = (so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o", so, cu],
+            f.write(variant_source(name, csrc_dir, source, variants))
+        procs[name] = (so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", csrc_dir, "-o", so, cu],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         report = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc failed:\n{report}")
-        print(json.dumps({"variant": name, "ptxas": [ln for ln in report.splitlines() if "q4_matvec_kernel" in ln
+        print(json.dumps({"variant": name, "ptxas": [ln for ln in report.splitlines() if "_kernel" in ln
                                                      or "registers" in ln or "spill" in ln]}), flush=True)
         lib = ctypes.CDLL(so)
-        for fn, argtypes in build.SOURCES["q4_matvec"].items():
+        for fn, argtypes in build.SOURCES[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib

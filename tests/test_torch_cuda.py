@@ -26,7 +26,9 @@ exact ties and flat blocks, the in-dim cap refused; the T layout's integer
 product bit-equal to the multi-row product at 2-32 rows of the 7B shapes,
 two kernels a call of at most 64 rows by CUDA-graph nodes, its plan's
 shared memory the kernel's; the attention block's split plan the C
-query's, and the block at 40 and 64 heads, one kernel a call).
+query's, and the block at 40 and 64 heads, one kernel a call; the stream
+probe at row counts 132 blocks do not divide, rows wider than a ring slot
+and an offset view, bit-equal, one kernel a call by CUDA-graph nodes).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -722,19 +724,30 @@ def test_fused_blocks_grid_and_bad_inputs(cuda):
         fl.fused_ffn_block(x, fn[0], mv.Q4_0Weight(w13.qs.cpu(), w13.d.cpu()), w2, 0)
 
 
+@pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("bias", [0, -7, 2**31 - 1])
-@pytest.mark.parametrize("out,in_dim", [(128, 32), (384, 352), (256, 4096), (128, 11008)])
-def test_stream_probe_kernel_bit_equal_to_plain(cuda, out, in_dim, bias):
+@pytest.mark.parametrize("out,in_dim", [(128, 32), (384, 352), (256, 4096), (128, 11008), (4352, 4096),
+                                        (32000, 4096), (128, 65536)])
+def test_stream_probe_kernel_bit_equal_to_plain(cuda, out, in_dim, bias, stacked):
     """Every row's wrapped int32 sum, rounded once to f32, equal to the
-    plain version (in-dims on both sides of a warp's four 512-byte loads)."""
+    plain version: in-dims below and above a 16 KB ring slot (128×65536:
+    two pieces a row), row counts that 132 blocks do not divide (4352,
+    32000), and ``qs[1]`` of a stacked ``[3, out, in/2]`` (an offset view,
+    as kernelbench and chip_smoke.py take it); a second call bit-equal, one
+    kernel node a call in a CUDA graph (chip_smoke.graph_kernels)."""
+    from chip_smoke import graph_kernels
+
     g = torch.Generator(device=cuda).manual_seed(out + in_dim)
-    qs = torch.randint(0, 256, (out, in_dim // 2), dtype=torch.uint8, device=cuda, generator=g)
+    qs = torch.randint(0, 256, (3 if stacked else 1, out, in_dim // 2), dtype=torch.uint8, device=cuda, generator=g)
+    qs = qs[1] if stacked else qs[0]
     before = mv.stream_probe.launches
     rows = mv.stream_probe(qs, bias, all_rows=True)
     torch.cuda.synchronize()
     assert mv.stream_probe.launches == before + 1
     assert torch.equal(rows, mv.stream_probe_plain(qs, bias, all_rows=True))
     assert torch.equal(mv.stream_probe(qs, bias), rows[::128])
+    assert torch.equal(mv.stream_probe(qs, bias, all_rows=True), rows)
+    assert graph_kernels(torch, lambda: mv.stream_probe(qs, bias, all_rows=True)) == 1
     with pytest.raises(ValueError):
         mv.stream_probe(qs[:, 1:], bias)  # not 16-byte aligned
 
