@@ -76,6 +76,7 @@ from ..ops.q4_dequant import q4_0_dequant, q4_1_dequant
 from ..ops.q4_matmul import Q4_0WeightT, from_jax_t, from_jax_w, unpack_qs_v
 from ..ops.q4_matvec import Q4_0Weight, Q4_1Weight
 from ..ops.rope import rope
+from ..utils import profiling
 
 Cache = dict
 
@@ -659,39 +660,45 @@ def forward(
             norm_type=cfg.norm_type, eps=cfg.norm_eps)
         x = norm(x[None].to(compute_dtype), params["norm"], cfg.norm_type, cfg.norm_eps)
         return lin(x, params["output"]).float()[:, : cfg.n_vocab], cache
+    # prefill's spans; the composed batch-1 loop records none
+    span = profiling.span if N > 1 else profiling.no_span
     for il in range(cfg.n_layer):
         layer = _layer_at(stacked, il)
-        h = norm(x, layer["attention_norm"], cfg.norm_type, cfg.norm_eps)
-        q, k, v = _qkv(h, layer, lin, N, H, Dh)
-        # rope over the full head dim (eval recomputes n_rot = n_embd/n_head,
-        # .mm:528, ignoring the file's n_rot field)
-        q = rope(q, positions, Dh)
-        k = rope(k, positions, Dh)
-        # the write comes first: prefill attends the cache as stored (int8:
-        # dequantized), as the JAX package's cache_read does
-        if paged:
-            _paged_write(k_cache, k_scale, table, il, positions, k)
-            _paged_write(v_cache, v_scale, table, il, positions, v)
-        else:
-            rows = (il, slice(None), slice(n_past, n_past + N))
-            _store(k_cache, k_scale, rows, k.transpose(0, 1))
-            _store(v_cache, v_scale, rows, v.transpose(0, 1))
-        if use_flash and k_scale is not None:
-            ctx = flash_decode_attention_stacked_int8(
-                q[0].float().contiguous(), k_cache, v_cache, k_scale, v_scale, il, n_past)
-            ctx = ctx[None].to(compute_dtype)
-        elif use_flash:
-            ctx = flash_decode_attention(q[0].float().contiguous(), k_cache, v_cache, il, n_past)
-            ctx = ctx[None].to(compute_dtype)
-        else:
-            tab = table if paged else None
-            keys = _layer_plane(k_cache, k_scale, il, tab, cfg.n_ctx)
-            values = _layer_plane(v_cache, v_scale, il, tab, cfg.n_ctx)
-            ctx = _attention(q, keys, values, n_past, cfg.n_ctx, compute_dtype)
-        x = x + lin(ctx.reshape(N, cfg.n_embd), layer["wo"])
-        x = _ffn(x, layer, lin, cfg, compute_dtype)
-    x = norm(x, params["norm"], cfg.norm_type, cfg.norm_eps)
-    logits = lin(x, params["output"]).float()
+        with span("prefill.qkv"):
+            h = norm(x, layer["attention_norm"], cfg.norm_type, cfg.norm_eps)
+            q, k, v = _qkv(h, layer, lin, N, H, Dh)
+            # rope over the full head dim (eval recomputes n_rot = n_embd/n_head,
+            # .mm:528, ignoring the file's n_rot field)
+            q = rope(q, positions, Dh)
+            k = rope(k, positions, Dh)
+            # the write comes first: prefill attends the cache as stored (int8:
+            # dequantized), as the JAX package's cache_read does
+            if paged:
+                _paged_write(k_cache, k_scale, table, il, positions, k)
+                _paged_write(v_cache, v_scale, table, il, positions, v)
+            else:
+                rows = (il, slice(None), slice(n_past, n_past + N))
+                _store(k_cache, k_scale, rows, k.transpose(0, 1))
+                _store(v_cache, v_scale, rows, v.transpose(0, 1))
+        with span("prefill.attention"):
+            if use_flash and k_scale is not None:
+                ctx = flash_decode_attention_stacked_int8(
+                    q[0].float().contiguous(), k_cache, v_cache, k_scale, v_scale, il, n_past)
+                ctx = ctx[None].to(compute_dtype)
+            elif use_flash:
+                ctx = flash_decode_attention(q[0].float().contiguous(), k_cache, v_cache, il, n_past)
+                ctx = ctx[None].to(compute_dtype)
+            else:
+                tab = table if paged else None
+                keys = _layer_plane(k_cache, k_scale, il, tab, cfg.n_ctx)
+                values = _layer_plane(v_cache, v_scale, il, tab, cfg.n_ctx)
+                ctx = _attention(q, keys, values, n_past, cfg.n_ctx, compute_dtype)
+        with span("prefill.ffn"):
+            x = x + lin(ctx.reshape(N, cfg.n_embd), layer["wo"])
+            x = _ffn(x, layer, lin, cfg, compute_dtype)
+    with span("prefill.output"):
+        x = norm(x, params["norm"], cfg.norm_type, cfg.norm_eps)
+        logits = lin(x, params["output"]).float()
     return logits[:, : cfg.n_vocab], cache
 
 

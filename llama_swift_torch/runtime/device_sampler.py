@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig, SamplingConfig
+from ..utils import profiling
 
 
 def _per_row(v):
@@ -159,17 +160,21 @@ def sampled_decode_loop(
     scfg: SamplingConfig,
 ):
     """Generate ``n_steps`` tokens: forward + sampling per step, tokens kept
-    on the device.  Returns (tokens ``[n_steps]``, cache, ring, ring_pos)."""
+    on the device.  Returns (tokens ``[n_steps]``, cache, ring, ring_pos).
+    Each step records the spans ``decode.step`` (the forward) and
+    ``decode.sample`` (the draw and the ring write)."""
     from ..models import llama as model_lib
 
     r = ring.shape[0]
     token = last_token.reshape(1)
     toks = []
     for i in range(n_steps):
-        logits, cache = model_lib.forward(params, token, n_past + i, cache, cfg)
-        nxt = sample_token(logits[0], ring, generator, scfg)
-        ring[ring_pos] = nxt
-        ring_pos = (ring_pos + 1) % r
-        token = nxt.reshape(1)
-        toks.append(token)
+        with profiling.span("decode.step"):
+            logits, cache = model_lib.forward(params, token, n_past + i, cache, cfg)
+        with profiling.span("decode.sample"):
+            nxt = sample_token(logits[0], ring, generator, scfg)
+            ring[ring_pos] = nxt
+            ring_pos = (ring_pos + 1) % r
+            token = nxt.reshape(1)
+            toks.append(token)
     return torch.cat(toks), cache, ring, ring_pos

@@ -34,6 +34,7 @@ from ..config import ModelConfig, RunnerConfig
 from ..formats import ggml
 from ..models import llama as model_lib
 from ..tokenizer import Vocab
+from ..utils import profiling
 from .errors import FailedToLoadModelError, LlamaError, PredictionFailedError
 from .events import Event, RunState
 from .sampler import SamplerState
@@ -83,6 +84,7 @@ class LlamaRunner:
         self.config: Optional[ModelConfig] = None
         self.vocab: Optional[Vocab] = None
         self.params = None
+        self._requests = 0
         # perf counters the reference accumulates but never reports
         # (LlamaPredictOperation.mm:778-871) — reported here
         self.stats: dict = {}
@@ -124,7 +126,36 @@ class LlamaRunner:
         self, prompt: str, config: Optional[RunnerConfig] = None
     ) -> Iterator[Event]:
         """Synchronous generator of lifecycle events — the ``_LlamaEvent``
-        stream (``LlamaPredictOperation.mm:785-900``)."""
+        stream (``LlamaPredictOperation.mm:785-900``).
+
+        Each request records its spans (``utils/profiling.span``) into a
+        recorder of its own, installed on the thread only while the
+        request's code runs, never across a ``yield``.  ``stats`` gets
+        ``request`` (its number), ``t_enter`` (``time.perf_counter()`` as
+        the generator first runs), ``spans`` (``{name: [count, seconds]}``)
+        and, if a ``torch.profiler`` recorded while it ran, ``timeline``."""
+        t_enter = time.perf_counter()
+        self._requests += 1
+        rec = profiling.Recorder()
+        self.stats.pop("timeline", None)
+        self.stats.update(request=self._requests, t_enter=t_enter, spans=rec.spans)
+        events = self._events(prompt, config)
+        try:
+            while True:
+                prev = profiling.install(rec)
+                try:
+                    ev = next(events, None)
+                finally:
+                    profiling.install(prev)
+                if ev is None:
+                    return
+                yield ev
+        finally:
+            events.close()
+            if rec.timeline is not None:
+                self.stats["timeline"] = rec.timeline
+
+    def _events(self, prompt: str, config: Optional[RunnerConfig]) -> Iterator[Event]:
         config = config or RunnerConfig()
         yield Event.started_loading_model()
         try:
@@ -143,41 +174,45 @@ class LlamaRunner:
 
             assert self.vocab is not None and self.config is not None
             cfg = self.config
-            prompt_ids = self.vocab.tokenize(prompt, bos=True)
-            if len(prompt_ids) >= cfg.n_ctx:
-                prompt_ids = prompt_ids[: cfg.n_ctx - 1]
-            n_predict = min(sampling.n_predict, cfg.n_ctx - len(prompt_ids))
-            reverse_ids = (
-                self.vocab.tokenize(config.reverse_prompt, bos=False)
-                if config.reverse_prompt
-                else []
-            )
+            with profiling.span("tokenize"):
+                prompt_ids = self.vocab.tokenize(prompt, bos=True)
+                if len(prompt_ids) >= cfg.n_ctx:
+                    prompt_ids = prompt_ids[: cfg.n_ctx - 1]
+                n_predict = min(sampling.n_predict, cfg.n_ctx - len(prompt_ids))
+                reverse_ids = (
+                    self.vocab.tokenize(config.reverse_prompt, bos=False)
+                    if config.reverse_prompt
+                    else []
+                )
 
             t0 = time.perf_counter()
-            cache = model_lib.init_cache(cfg, device=self.device)
-            if config.chunked_prefill:
-                # reference-style n_batch chunked prompt consumption (.mm:878-889)
-                nb = max(1, sampling.n_batch)
-                n_done = 0
-                while n_done < len(prompt_ids):
-                    chunk = prompt_ids[n_done : n_done + nb]
-                    padded, length = model_lib.pad_tokens(chunk, nb)
-                    padded = padded[: cfg.n_ctx - n_done]
+            with profiling.span("cache"):
+                cache = model_lib.init_cache(cfg, device=self.device)
+            with profiling.span("prefill"):
+                if config.chunked_prefill:
+                    # reference-style n_batch chunked prompt consumption (.mm:878-889)
+                    nb = max(1, sampling.n_batch)
+                    n_done = 0
+                    while n_done < len(prompt_ids):
+                        chunk = prompt_ids[n_done : n_done + nb]
+                        padded, length = model_lib.pad_tokens(chunk, nb)
+                        padded = padded[: cfg.n_ctx - n_done]
+                        logits_all, cache = model_lib.prefill(
+                            self.params, self._tokens(padded), n_done, cache, cfg
+                        )
+                        logits = logits_all[length - 1]
+                        n_done += len(chunk)
+                else:
+                    # right-padded to a bucket like the JAX runner: padded slots
+                    # write stale cache entries that decode overwrites
+                    padded, length = model_lib.pad_tokens(prompt_ids, self.prefill_bucket)
+                    padded = padded[: cfg.n_ctx]
                     logits_all, cache = model_lib.prefill(
-                        self.params, self._tokens(padded), n_done, cache, cfg
+                        self.params, self._tokens(padded), 0, cache, cfg
                     )
                     logits = logits_all[length - 1]
-                    n_done += len(chunk)
-            else:
-                # right-padded to a bucket like the JAX runner: padded slots
-                # write stale cache entries that decode overwrites
-                padded, length = model_lib.pad_tokens(prompt_ids, self.prefill_bucket)
-                padded = padded[: cfg.n_ctx]
-                logits_all, cache = model_lib.prefill(
-                    self.params, self._tokens(padded), 0, cache, cfg
-                )
-                logits = logits_all[length - 1]
-            logits = logits.cpu().numpy()
+            with profiling.span("prefill.read"):
+                logits = logits.cpu().numpy()
             self.stats["t_prefill_s"] = time.perf_counter() - t0
             self.stats["prompt_tokens"] = len(prompt_ids)
 
@@ -198,7 +233,8 @@ class LlamaRunner:
                 # host sampler per token (numpy / native-mt19937 RNG stream;
                 # one device→host copy of the logits per token)
                 for _ in range(n_predict):
-                    tid = sampler.sample(logits)
+                    with profiling.span("decode.sample"):
+                        tid = sampler.sample(logits)
                     generated.append(tid)
                     if reverse_ids and generated[-len(reverse_ids):] == reverse_ids:
                         break
@@ -206,10 +242,12 @@ class LlamaRunner:
                     if len(generated) >= n_predict:
                         break
                     t1 = time.perf_counter()
-                    step_logits, cache = model_lib.decode_step(
-                        self.params, self._tokens(tid), n_past, cache, cfg,
-                    )
-                    logits = step_logits.cpu().numpy()
+                    with profiling.span("decode.step"):
+                        step_logits, cache = model_lib.decode_step(
+                            self.params, self._tokens(tid), n_past, cache, cfg,
+                        )
+                    with profiling.span("decode.read"):
+                        logits = step_logits.cpu().numpy()
                     t_decode += time.perf_counter() - t1
                     n_past += 1
                 self.stats["t_decode_s"] = t_decode
@@ -240,11 +278,12 @@ class LlamaRunner:
             import secrets
 
             seed = 0xFFFFFFFF if seed == -1 else secrets.randbits(31)
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(int(seed))
-        ring, pos = init_ring(prompt_ids, sampling.repeat_last_n, self.device)
+        with profiling.span("decode.setup"):
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(seed))
+            ring, pos = init_ring(prompt_ids, sampling.repeat_last_n, self.device)
+            last = self._tokens(prompt_ids[-1])
         chunk = max(1, int(config.device_chunk))
-        last = self._tokens(prompt_ids[-1])
         n_past = len(prompt_ids) - 1  # the loop re-evaluates the last prompt slot
         t_decode = 0.0
         stop = False
@@ -255,7 +294,8 @@ class LlamaRunner:
                 self.params, last, n_past, cache, ring, pos, generator,
                 steps, cfg, sampling,
             )
-            out = toks.cpu().numpy()
+            with profiling.span("decode.read"):
+                out = toks.cpu().numpy()
             t_decode += time.perf_counter() - t1
             for tid in out:
                 tid = int(tid)

@@ -5,8 +5,8 @@ orders; NaN where JAX gives NaN), gradients through the ops the reference's
 backward aborts on (torch autograd against ``jax.grad``, 1e-5),
 llama_swift_torch/utils/optimize.py (Adam on the JAX test's quadratic, and
 its 50-step trajectory against optax's; L-BFGS) and
-llama_swift_torch/utils/profiling.py (``StepTimer``, ``graph_summary``,
-``dump_hlo``, ``trace``)."""
+llama_swift_torch/utils/profiling.py (``graph_summary``, ``dump_hlo``,
+``trace``; its spans: test_torch_spans.py)."""
 
 import json
 import os
@@ -211,21 +211,14 @@ def test_opt_rejects_unknown_method():
 # ---------------------------------------------------------------------------
 
 
-def test_step_timer():
-    t = profiling.StepTimer().start()
-    t.tick()
-    t.tick()
-    t.tick()
-    s = t.summary()
-    assert s["decode_tokens"] == 3
-    assert s["ttft_s"] >= 0
-    assert s["decode_tok_per_s"] is None or s["decode_tok_per_s"] > 0
-
-
 def test_graph_summary_counts_matmul_flops():
+    # no flop count any more (the port's kernels are invisible to
+    # FlopCounterMode): the launches, and on the card the peak memory
     m, k, n = 8, 16, 4
-    s = profiling.graph_summary(torch.matmul, torch.ones(m, k), torch.ones(k, n))
-    assert s["flops"] == 2 * m * n * k
+    calls = []
+    s = profiling.graph_summary(lambda a, b: calls.append(torch.matmul(a, b)), torch.ones(m, k), torch.ones(k, n))
+    assert len(calls) == 1
+    assert set(s) == ({"kernel_launches", "peak_memory_bytes"} if torch.cuda.is_available() else {"kernel_launches"})
     assert s["kernel_launches"] == {}  # the CPU takes the plain versions
 
 
