@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only bench    # build + kernel checks + the kernelbench path (2b)
     python3 chip_smoke.py --only tiny     # build + kernel checks + the tiny model (2c)
     python3 chip_smoke.py --only probe    # build + the stream probe's check and split + the kernelbench path
+    python3 chip_smoke.py --only prefill  # build + the causal prefill kernel's check and times
     python3 chip_smoke.py --profile       # adds profiled decode and engine-step windows
 
 Phases:
@@ -22,7 +23,12 @@ Phases:
    the same function; the int8 flash kernels read caches written by the
    port's own int8 write, with stale codes and huge scales beyond n_past;
    batch-1 flash decode also at n_ctx 2048 and its kernel launches a call
-   from a profiler window and from CUDA-graph nodes (one); the whole-stack
+   from a profiler window and from CUDA-graph nodes (one); causal prefill
+   attention (``check_flash_prefill``) at the cells' shapes (H 32, Dh 128,
+   N 320, 1536, 2560, f32 and bf16 planes) and ragged ones, NaN in every
+   key at or past n_past + N, beside its plain version, SDPA in f32 and
+   the plain version with TF32 allowed (the control its bar must see),
+   one kernel a call by graph nodes; the whole-stack
    kernel runs 2 layers at n_past 0, 127 and 511 on f32 and bf16 caches,
    then all 32 layers of one token on both caches at n_past 127 and 511 (see
    ``check_fused_kernel`` for how 4-bit activation flips are counted); the
@@ -1062,6 +1068,108 @@ def blocks_at(torch, g, summary, failed, H: int, F: int, L: int, n_pasts) -> Non
     torch.cuda.empty_cache()
 
 
+PREFILL_NS = [320, 1536, 2560]  # the cells' prompt buckets: chat's largest, rag's middle and largest
+PREFILL_N_CTX = 4096  # the cells' cache
+PREFILL_DESIGN_FLOPS = BF16_FLOPS / 6  # the design's rate: the bf16 tensor rate over the six products a term
+PREFILL_TOL = 1e-5  # of max|V|: the kernel's bar against the plain version (single-pass TF32 exceeds it)
+
+
+def prefill_flops(H: int, dh: int, n: int, n_past: int) -> float:
+    """The causal products' operations: QK^T and PV over the keys each row attends."""
+    return 4.0 * H * dh * (n * (n + 1) / 2 + n_past * n)
+
+
+def check_flash_prefill(torch, g, summary) -> list:
+    """Causal prefill attention (``csrc/flash_prefill.cu``) against its plain
+    version at the cells' shapes (H 32, Dh 128, n_past 0, N 320 / 1536 /
+    2560, f32 and bf16 planes of 4,096 positions) with NaN in every key at
+    or past n_past + N, and at ragged shapes (n_past > 0, head dims 18, 64,
+    80, 256, N 1 and 17, q off a contiguous layout, bf16 output); times
+    kernel, plain version, SDPA in f32 (``library_ms``: the port never calls
+    it) and the bounds; the plain version with TF32 allowed as the control
+    that the bar can see single-pass TF32; one kernel a call (graph nodes)."""
+    from llama_swift_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    failed = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, dh = 32, 128
+
+    def run_case(n, n_past, dh, kv_dtype, out_dtype=torch.float32, heads=H, n_ctx=PREFILL_N_CTX, timed=False,
+                 q_view=False):
+        kc = torch.randn((heads, n_ctx, dh), device=dev, generator=g).to(kv_dtype)
+        vc = torch.randn((heads, n_ctx, dh), device=dev, generator=g).to(kv_dtype)
+        q = 2.0 * torch.randn((n, heads, dh), device=dev, generator=g)
+        if q_view:  # q's rows as a strided view of a wider tensor, as _qkv leaves them
+            q = torch.randn((n, 3, heads, dh), device=dev, generator=g)[:, 1]
+        ref = att.flash_prefill_attention_plain(q, kc, vc, n_past, torch.float32)
+        clean = att.flash_prefill_attention(q, kc, vc, n_past, out_dtype)
+        kn, vn = kc.clone(), vc.clone()
+        kn[:, n_past + n :] = float("nan")
+        vn[:, n_past + n :] = float("nan")
+        before = (att.flash_prefill_attention.launches, att.flash_prefill_attention.keys_read)
+        out = att.flash_prefill_attention(q, kn, vn, n_past, out_dtype)
+        torch.cuda.synchronize()
+        counted = (att.flash_prefill_attention.launches - before[0],
+                   att.flash_prefill_attention.keys_read - before[1])
+        vmax = float(vc[:, : n_past + n].float().abs().max())
+        err = float((out.float() - ref).abs().max()) / vmax
+        tol = PREFILL_TOL if out_dtype == torch.float32 else 2.0**-8
+        case = {"case": "flash_prefill_attention", "N": n, "n_past": n_past, "H": heads, "dh": dh,
+                "plane": str(kv_dtype).split(".")[-1], "out": str(out_dtype).split(".")[-1], "q_view": q_view,
+                "err_of_max_v": err, "max_abs_err": float((out.float() - ref).abs().max()),
+                "nan_keys_unread": bool(torch.equal(out, clean)), "finite": bool(torch.isfinite(out).all()),
+                "counted": counted, "plan": plan_record(att, "flash_prefill_plan", n, dh, n_past,
+                                                       kc.element_size()),
+                "bits": bits(out)}
+        case["ok"] = (err <= tol and case["nan_keys_unread"] and case["finite"]
+                      and counted == (1, heads * (n_past + n)))
+        if timed:
+            flops = prefill_flops(heads, dh, n, n_past)
+            q4 = q.transpose(0, 1)[None]
+            case.update(
+                kernel_ms=time_ms(torch, lambda i: att.flash_prefill_attention(q, kc, vc, n_past, out_dtype), 20),
+                plain_ms=time_ms(torch, lambda i: att.flash_prefill_attention_plain(q, kc, vc, n_past, out_dtype),
+                                 3),
+                library_ms=time_ms(torch, lambda i: sdpa(q4, kc[None, :, :n], vc[None, :, :n], is_causal=True), 5)
+                if n_past == 0 and kv_dtype == torch.float32 else None,
+                bound_ms=flops / PREFILL_DESIGN_FLOPS * 1e3, f32_bound_ms=flops / F32_FLOPS * 1e3, flops=flops,
+                graph_kernels_per_call=graph_kernels(
+                    torch, lambda: att.flash_prefill_attention(q, kc, vc, n_past, out_dtype)),
+                repeat_bit_equal=bool(torch.equal(out, att.flash_prefill_attention(q, kc, vc, n_past, out_dtype))))
+            case["tflops"] = flops / case["kernel_ms"] / 1e9
+            case["ok"] = case["ok"] and case["graph_kernels_per_call"] == 1 and case["repeat_bit_equal"]
+            if n == max(PREFILL_NS) and kv_dtype == torch.float32:
+                # the control: the plain version with TF32 allowed misses the bar
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    tf32 = att.flash_prefill_attention_plain(q, kc, vc, n_past, torch.float32)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                case["tf32_err_of_max_v"] = float((tf32 - ref).abs().max()) / vmax
+                case["ok"] = case["ok"] and case["tf32_err_of_max_v"] > PREFILL_TOL
+        log(case)
+        if not case["ok"]:
+            failed.append(case)
+        return case
+
+    for n in PREFILL_NS:
+        case = run_case(n, 0, dh, torch.float32, timed=True)
+        if n == max(PREFILL_NS):
+            summary["flash_prefill_attention"] = dict(case, bound_by="ops (bf16 rate / 6)",
+                                                      shape=f"H{H} Dh{dh} N{n} n_past0 f32")
+    run_case(max(PREFILL_NS), 0, dh, torch.bfloat16, timed=True)
+    for n, n_past, d, kv, out_dtype, heads, q_view in [
+        (1, 0, 128, torch.float32, torch.float32, H, False), (1, 700, 128, torch.float32, torch.float32, H, False),
+        (17, 70, 128, torch.float32, torch.float32, 4, True), (100, 1000, 128, torch.bfloat16, torch.float32, 4, False),
+        (64, 64, 18, torch.float32, torch.float32, 4, False), (100, 70, 64, torch.float32, torch.bfloat16, 4, False),
+        (33, 0, 80, torch.bfloat16, torch.float32, 4, False), (130, 5, 256, torch.float32, torch.float32, 4, False),
+        (2560, 0, 128, torch.float32, torch.bfloat16, 4, True),
+    ]:
+        run_case(n, n_past, d, kv, out_dtype, heads=heads, q_view=q_view)
+    return failed
+
+
 def check_kernels(torch) -> dict:
     """Returns {kernel name: summary at its representative shape}."""
     from llama_swift_torch.ops import attention as att
@@ -1213,6 +1321,7 @@ def check_kernels(torch) -> dict:
                                      + (f" page{page}" if "paged" in name else ""))
         del kc, vc, kp, vp
 
+    failed += check_flash_prefill(torch, g, summary)
     failed += check_int8_kernels(torch, g, summary)
     failed += check_paged_kernels(torch, g)
     failed += check_fused_kernel(torch, g, summary)
@@ -1717,8 +1826,8 @@ def check_parity_int8(torch) -> None:
     way (see ``check_batched_parity``).  Also counts the int8 codes that
     differ between the card's and the CPU's caches.  The f32-activation card
     run launches exactly the f32-activation kernels (the prefill's 8 rows on
-    the multi-row one, each decode step on the matvec) and the int8 flash
-    kernel, and no dequant."""
+    the multi-row one, each decode step on the matvec), the int8 flash
+    kernel and the prefill kernel (once a layer), and no dequant."""
     import dataclasses
 
     from llama_swift_torch import ops
@@ -1757,7 +1866,8 @@ def check_parity_int8(torch) -> None:
             rec["f32_act_launches"] = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
             rec["f32_act_launches_ok"] = rec["f32_act_launches"] == {
                 "q4_0_matmul_multi_f32": per, "q4_0_matvec_f32": per * len(steps),
-                "flash_decode_attention_stacked_int8": cfg.n_layer * len(steps)}
+                "flash_decode_attention_stacked_int8": cfg.n_layer * len(steps),
+                "flash_prefill_attention": cfg.n_layer}
         rec[f"{act}_act_prefill_rel_err"] = rel_err(card[0], cpu[0])
         rec[f"{act}_act_decode_rel_err_max"] = max(rel_err(a, b) for a, b in zip(card[1:], cpu[1:]))
         rec[f"{act}_act_codes_differing"] = sum(
@@ -1985,7 +2095,8 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
     card's batched rows against batch-1 ``decode_step`` of the same slot
     state within 2e-3 (same device, so no flip).  The f32-activation card
     runs launch exactly the f32-activation multi-row kernel for every
-    product and the mode's flash kernel for every step, and no dequant."""
+    product, the mode's flash kernel for every step and the prefill kernel
+    once a layer of every slot prefill, and no dequant."""
     import dataclasses
 
     from llama_swift_torch import ops
@@ -2048,7 +2159,7 @@ def check_batched_parity(torch, cache_dtype=None) -> None:
         rec[f"{mode}_f32_act_launches_ok"] = rec[f"{mode}_f32_act_launches"] == {
             "q4_0_matmul_multi_f32": (S + len(steps)) * (7 * base.n_layer + 1),
             ("flash_decode_attention_paged" if mode == "paged" else "flash_decode_attention_batched") + int8:
-                base.n_layer * len(steps)}
+                base.n_layer * len(steps), "flash_prefill_attention": S * base.n_layer}
         rec[f"{mode}_f32_act_rel_err_max"] = max(slot_errs(card, cpu))
         rec[f"{mode}_finite"] = all(bool(torch.isfinite(t).all()) for t in card)
         rec_cpu, rec_card = [], []
@@ -2171,7 +2282,8 @@ def run_requests(torch, runner, requests, prompts, expected, **overrides) -> lis
     ``runner.config.kv_cache_dtype`` set for it (and ``overrides`` of the
     model config, such as ``quantize_activations=False``); each must
     complete its 32 tokens with exactly ``expected(kv_dtype, forwards)``
-    launches (every other kernel 0).  Each record's ``_text`` (not logged)
+    launches and L of the prefill kernel for its one prefill forward
+    (every other kernel 0).  Each record's ``_text`` (not logged)
     is the request's whole output."""
     from llama_swift_torch import ops
     from llama_swift_torch.runtime.events import EventKind
@@ -2194,6 +2306,7 @@ def run_requests(torch, runner, requests, prompts, expected, **overrides) -> lis
         delta = {k: after[k] - before[k] for k in after}
         expect = {k: 0 for k in delta}
         expect.update(expected(kv_dtype, forwards))
+        expect["flash_prefill_attention"] = model_cfg.n_layer
         rec = {"case": "serve", "request": name, "fused": runner.fuse_layer_matmuls, "kv_cache": kv_dtype,
                **overrides, "prompt_tokens": st["prompt_tokens"], "generated_tokens": st["generated_tokens"],
                "t_prefill_s": st["t_prefill_s"], "t_decode_s": st["t_decode_s"],
@@ -2297,6 +2410,7 @@ def serve_q4_1(torch, workdir: str, profile: bool) -> list:
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     expect = {k: 0 for k in runs[-1]}
     expect["q4_1_dequant"] = (7 * cfg.n_layer + 1) * len(summary["window_s"])
+    expect["flash_prefill_attention"] = cfg.n_layer * len(summary["window_s"])
     rec = {"case": "perplexity_q4_1", "wall_s": wall, **summary, "launches": runs[-1], "expected_launches": expect}
     log(rec)
     if code != 0 or runs[-1] != expect or summary["n_scored"] != 512 or not math.isfinite(summary["ppl"]):
@@ -2459,6 +2573,7 @@ def serve_engine(torch, runner, waves, n_predict: int = 32, **overrides) -> dict
         else:
             expect.update({multi: per * st["decode_steps"], flash: n_layer * st["decode_steps"],
                            "q4_0_dequant": per * st["prefill_chunks"]})
+        expect["flash_prefill_attention"] = n_layer * st["prefill_chunks"]
         streams_ok = all(
             len(h.token_ids) == len(runner.vocab.tokenize(p, bos=True)) + n_predict
             and "".join(o[: len(runner.vocab.tokenize(p, bos=True))]) == "".join(
@@ -2802,7 +2917,7 @@ def t_forward_run(torch, fwd, params, cache, device, n_layer: int, n_tok: int, g
     bucket and ``n_tok`` greedy tokens, the launch counters reset just
     before and read just after; exactly 7·L + 1 launches a forward of the
     wrapper that the T gates pick for its rows (``t_product_counts``), L
-    flash launches a decoded token and nothing else.  Returns the counts."""
+    flash launches a decoded token, L prefill launches and nothing else.  Returns the counts."""
     from llama_swift_torch import ops
     from llama_swift_torch.models import llama as model_lib
 
@@ -2827,6 +2942,7 @@ def t_forward_run(torch, fwd, params, cache, device, n_layer: int, n_tok: int, g
     for k, v in t_product_counts(False, n_layer, gates, 1).items():
         expect[k] += v * n_tok
     expect["flash_decode_attention"] = n_layer * n_tok
+    expect["flash_prefill_attention"] = n_layer
     rec = {"case": name, "gates": list(gates), "prefill_s": t_prefill, "decode_s": t_decode,
            "decode_tok_per_s": n_tok / t_decode, "launches": {k: v for k, v in counts.items() if v},
            "ids_tail": ids[-8:], "finite": bool(torch.isfinite(logits).all())}
@@ -2855,7 +2971,7 @@ def serve_tp_v(torch, path: str, n_layer: int, n_tok: int) -> dict:
     m = SERVE_LINE.search(text)
     expect = {k: 0 for k in counts}
     expect.update({"q4_0_matvec": (4 * n_layer + 1) * n_tok, "flash_decode_attention": n_layer * n_tok,
-                   "q4_0_dequant": 4 * n_layer + 1})
+                   "q4_0_dequant": 4 * n_layer + 1, "flash_prefill_attention": n_layer})
     rec = {"case": "serve_tp_v", "rc": rc, "wall_s": wall, "tokens": int(m.group(1)) if m else None,
            "decode_tok_per_s": float(m.group(2)) if m else None, "prefill_s": float(m.group(3)) if m else None,
            "launches": {k: v for k, v in counts.items() if v}, "text_tail": text[-160:]}
@@ -3023,7 +3139,8 @@ def check_parity_dense(torch) -> None:
     an 8-token prefill and 4 decode steps, card vs CPU within 2e-3 (the
     same bf16 weights, f32 products summed in other orders).  The card's
     load makes exactly one Q4_0 dequant launch a packed tensor (7·L + 2) and
-    its forwards no launch of a Q4 kernel (decode: the flash kernel only)."""
+    its forwards no launch of a Q4 kernel (decode: the flash kernel only;
+    the prefill: the prefill kernel once a layer)."""
     import dataclasses
 
     from llama_swift_torch import ops
@@ -3056,6 +3173,7 @@ def check_parity_dense(torch) -> None:
     want_load["q4_0_dequant"] = 7 * cfg.n_layer + 2
     want_fwd = {k: 0 for k in fwd}
     want_fwd["flash_decode_attention"] = cfg.n_layer * len(steps)
+    want_fwd["flash_prefill_attention"] = cfg.n_layer
     rec = {"case": "parity_dense_dequant_7b_width_2_layers", "param_dtype": "bfloat16",
            "prefill_rel_err": errs[0], "decode_rel_err_max": max(errs[1:]),
            "load_launches": {k: v for k, v in load.items() if v},
@@ -3105,7 +3223,8 @@ def serve_dense(torch, path: str, workdir: str) -> dict:
     t_decode = time.perf_counter() - t0
     counts = ops.launch_counts()  # read just after
     expect = {k: 0 for k in counts}
-    expect.update(q4_0_dequant=7 * cfg.n_layer + 2, flash_decode_attention=cfg.n_layer * n_tok)
+    expect.update(q4_0_dequant=7 * cfg.n_layer + 2, flash_decode_attention=cfg.n_layer * n_tok,
+                  flash_prefill_attention=cfg.n_layer)
     trace_dir = os.path.join(workdir, "trace")
     with profiling.trace(trace_dir):
         lg, _ = model_lib.decode_step(params, toks[-1].to("cuda"), len(ids) + n_tok, cache, cfg)
@@ -3253,30 +3372,34 @@ KERNEL_META = {  # the port's kernel: (its source, the TPU kernel it replaces, a
     "fused_attn_block": ("llama_swift_torch/csrc/fused_layer.cu", "llama_swift_tpu/ops/q4_fused_layer.py:481"),
     "fused_ffn_block": ("llama_swift_torch/csrc/fused_blocks.cu", "llama_swift_tpu/ops/q4_fused_layer.py:320"),
     "stream_probe": ("llama_swift_torch/csrc/stream_probe.cu", "llama_swift_tpu/ops/q4_vpu_pallas.py:996"),
+    # no TPU kernel: the JAX package leaves prefill attention to XLA
+    "flash_prefill_attention": ("llama_swift_torch/csrc/flash_prefill.cu",
+                                "none (XLA: llama_swift_tpu/models/llama.py:529 _attention_flash_xla)"),
 }
 
 #: the kernels of the paths that ``--only q4_1|tp|int|bench`` run
 ONLY_KERNELS = {
     "bench": ("q4_0_matvec", "q4_0_matvec_f32", "q4_0_matmul_t", "stream_probe"),
-    "q4_1": ("q4_1_matvec", "q4_1_dequant", "q4_1_matvec_f32"),
+    "q4_1": ("q4_1_matvec", "q4_1_dequant", "q4_1_matvec_f32", "flash_prefill_attention"),
     "tp": ("q4_0_matvec", "flash_decode_attention", "q4_0_dequant", "q4_0_matmul_t", "q4_0_int_matmul",
-           "q4_0_t_matmul_multi"),
+           "q4_0_t_matmul_multi", "flash_prefill_attention"),
     "int": ("flash_decode_attention", "q4_0_matmul_t", "q4_0_int_matmul", "q4_0_t_matmul_multi", "fused_attn_block",
-            "fused_ffn_block"),
+            "fused_ffn_block", "flash_prefill_attention"),
     "tiny": ("q4_0_matvec", "flash_decode_attention", "flash_decode_attention_stacked_int8", "q4_0_dequant",
-             "q4_0_matmul_multi", "flash_decode_attention_paged"),
+             "q4_0_matmul_multi", "flash_decode_attention_paged", "flash_prefill_attention"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench", "tiny", "probe"], default=None,
+    ap.add_argument("--only", choices=["kernels", "q4_1", "tp", "int", "bench", "tiny", "probe", "prefill"],
+                    default=None,
                     help="kernels: build and kernel checks only; q4_1: those and the Q4_1 phases; "
                          "tp: those and the TP phases; int: those, the T integer paths' parity, "
                          "path B and path A; bench: those and the kernelbench path; tiny: those and "
                          "the tiny model's requests and paged wave; probe: the stream probe's check "
                          "and fixed-part split and the kernelbench path, no other kernel check (an A/B "
-                         "call of the probe)")
+                         "call of the probe); prefill: the causal prefill kernel's check and times alone")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--log-dir", default=None, help="where to write the nvcc -Xptxas -v report")
     args = ap.parse_args(argv)
@@ -3314,6 +3437,12 @@ def main(argv=None) -> int:
         run_kernelbench(torch)
         if failed:
             raise SystemExit(f"chip_smoke: the stream probe failed: {failed}")
+        return 0
+    if args.only == "prefill":
+        failed = check_flash_prefill(torch, torch.Generator(device="cuda").manual_seed(1234), {})
+        log(card_line())
+        if failed:
+            raise SystemExit(f"chip_smoke: the prefill kernel failed: {failed}")
         return 0
     summary = check_kernels(torch)
     if args.only == "kernels":

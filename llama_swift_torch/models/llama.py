@@ -67,6 +67,7 @@ from ..ops.attention import (
     flash_decode_attention_paged,
     flash_decode_attention_paged_int8,
     flash_decode_attention_stacked_int8,
+    flash_prefill_attention,
     gather_pages,
     reference_decode_attention_batched,
 )
@@ -104,10 +105,6 @@ FUSED_LAYER_WEIGHTS = ("attention_norm", "wqkv", "wo", "ffn_norm", "w13", "w2")
 #: the packed weight types: dataclasses of tensors with ``.layer(il)``
 #: (:class:`Q4_0WeightT` is a :class:`Q4_0Weight`)
 Q4_WEIGHTS = (Q4_0Weight, Q4_1Weight)
-
-#: prefill contexts at/above this use the chunked online-softmax attention
-#: (peak score memory [H, N, chunk] instead of [H, N, n_ctx])
-FLASH_PREFILL_MIN_CTX = 1024
 
 
 def resolve_device(device=None) -> torch.device:
@@ -537,49 +534,11 @@ def _paged_write(pool, scale_pool, table, il: int, positions, val) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _attention_chunked(q, keys, values, n_past: int, n_ctx: int, compute_dtype, chunk: int = 512):
-    """Online-softmax prefill attention over key chunks, so peak score
-    memory is ``[H, N, chunk]`` (counterpart of ``_attention_flash_xla``).
-    Same mask as :func:`_attention`, softmax reassociated."""
-    N, d = q.shape[0], q.shape[-1]
-    H = keys.shape[0]
-    scale = 1.0 / np.sqrt(float(d))
-    qf = q.float().transpose(0, 1)  # [H, N, Dh]
-    i_idx = torch.arange(N, device=q.device)[:, None]
-    m = torch.full((H, N, 1), float("-inf"), device=q.device)
-    l = torch.zeros((H, N, 1), device=q.device)
-    acc = torch.zeros((H, N, d), device=q.device)
-    for c0 in range(0, n_ctx, chunk):
-        kc = keys[:, c0 : c0 + chunk].float()
-        vc = values[:, c0 : c0 + chunk].float()
-        s = torch.einsum("hnd,hjd->hnj", qf, kc) * scale
-        allowed = (c0 + torch.arange(kc.shape[1], device=q.device)[None, :]) <= (n_past + i_idx)
-        s = torch.where(allowed[None], s, float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
-        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
-        p = torch.exp(s - m_safe)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("hnj,hjd->hnd", p, vc)
-        m = m_new
-    return (acc / l.clamp_min(1e-30)).transpose(0, 1).to(compute_dtype)
-
-
 def _attention(q, keys, values, n_past: int, n_ctx: int, compute_dtype):
-    """Causal attention over the full cache buffer: q ``[N, H, Dh]``,
-    keys/values ``[H, n_ctx, Dh]``; query i attends keys ``j <= n_past + i``
-    (``ggml_diag_mask_inf``, ``ggml.c:6921-6981``), so stale slots beyond
-    the high-water mark are never attended."""
-    if n_ctx >= FLASH_PREFILL_MIN_CTX and n_ctx % 512 == 0:
-        return _attention_chunked(q, keys, values, n_past, n_ctx, compute_dtype)
-    N, d = q.shape[0], q.shape[-1]
-    scale = 1.0 / np.sqrt(float(d))
-    scores = torch.einsum("nhd,hjd->hnj", q.float(), keys.float()) * scale
-    i_idx = torch.arange(N, device=q.device)[:, None]
-    j_idx = torch.arange(n_ctx, device=q.device)[None, :]
-    scores = torch.where((j_idx <= n_past + i_idx)[None], scores, float("-inf"))
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("hnj,hjd->nhd", p, values.float()).to(compute_dtype)
+    """Causal attention of q ``[N, H, Dh]`` over the first ``n_ctx`` keys of
+    the planes ``[H, n_ctx, Dh]``: :func:`flash_prefill_attention` (the
+    kernel on the card, its plain version on the CPU)."""
+    return flash_prefill_attention(q, keys[:, :n_ctx], values[:, :n_ctx], n_past, compute_dtype)
 
 
 def _layer_at(stacked: dict, il: int) -> dict:
@@ -692,7 +651,7 @@ def forward(
                 tab = table if paged else None
                 keys = _layer_plane(k_cache, k_scale, il, tab, cfg.n_ctx)
                 values = _layer_plane(v_cache, v_scale, il, tab, cfg.n_ctx)
-                ctx = _attention(q, keys, values, n_past, cfg.n_ctx, compute_dtype)
+                ctx = flash_prefill_attention(q, keys, values, n_past, compute_dtype)
         with span("prefill.ffn"):
             x = x + lin(ctx.reshape(N, cfg.n_embd), layer["wo"])
             x = _ffn(x, layer, lin, cfg, compute_dtype)

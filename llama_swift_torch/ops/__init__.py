@@ -9,8 +9,9 @@ multi-row matmul on unquantized rows), the T layout of the
 tensor-parallel path (the 1–64-row Q4_0 product on f32 rows, and behind
 gates that are 0, as in the JAX package, the exact integer product on the
 int8 tensor cores and the multi-row T product), one decode layer in two
-kernels (the attention block and the FFN block), and the HBM stream probe
-of ``tools/kernelbench.py``."""
+kernels (the attention block and the FFN block), the HBM stream probe
+of ``tools/kernelbench.py``, and causal prefill attention (one launch a
+layer of every prefill forward)."""
 
 from .attention import (
     flash_decode_attention,
@@ -19,6 +20,7 @@ from .attention import (
     flash_decode_attention_paged,
     flash_decode_attention_paged_int8,
     flash_decode_attention_stacked_int8,
+    flash_prefill_attention,
 )
 from .fused_layer import fused_attn_block, fused_ffn_block, fused_layers_block
 from .q4_dequant import q4_0_dequant, q4_1_dequant
@@ -41,12 +43,14 @@ KERNELS = (
     fused_layers_block, q4_1_matvec, q4_1_dequant,
     q4_0_matvec_f32, q4_1_matvec_f32, q4_0_matmul_multi_f32, q4_0_matmul_t,
     q4_0_int_matmul, q4_0_t_matmul_multi, fused_attn_block, fused_ffn_block, stream_probe,
+    flash_prefill_attention,
 )
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_prefill_attention.keys_read = 0
 
 
 def launch_counts() -> dict:

@@ -1,5 +1,6 @@
-"""Decode attention: the wrappers of the flash-decode kernels
-(``csrc/flash_decode.cu``), their plain versions, and the unfused reference.
+"""Attention: the wrappers of the flash-decode kernels
+(``csrc/flash_decode.cu``) and of the causal prefill kernel
+(``csrc/flash_prefill.cu``), their plain versions, and the unfused reference.
 
 Counterpart of ``llama_swift_tpu/ops/attention.py`` (``flash_decode_attention``,
 ``flash_decode_attention_stacked`` and its ``_int8`` variant,
@@ -28,6 +29,13 @@ on the H100: each call is one launch on the chunk pass of
 the slot's plane or through its page table).  :func:`batched_plan` and
 :func:`paged_plan` mirror those launches' plans (splits, tiles, ring
 stages, shared memory).
+
+Prefill (:func:`flash_prefill_attention`): N query rows against one
+layer's K and V plane ``[H, n_keys, Dh]``, query i attending keys ``j <=
+n_past + i``, in one launch a layer that reads only the keys ``j < n_past +
+N`` and keeps the products at f32 precision (the CUDA source's note).
+:func:`flash_prefill_plan` mirrors its launch (query tiles, their order,
+key tiles, shared memory).
 """
 
 from __future__ import annotations
@@ -517,3 +525,208 @@ def flash_decode_attention_paged_int8(q, k_pool, v_pool, k_scale_pool, v_scale_p
 
 
 flash_decode_attention_paged_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# causal prefill attention (csrc/flash_prefill.cu)
+# ---------------------------------------------------------------------------
+
+#: prefill contexts at/above this use the chunked online-softmax plain
+#: version (peak score memory [H, N, chunk] instead of [H, N, n_ctx])
+FLASH_PREFILL_MIN_CTX = 1024
+PREFILL_MAX_HEAD_DIM = 256  # the widest head the prefill kernel takes
+#: q and output element types -> the CUDA source's ``q_kind``/``out_kind``
+_PREFILL_Q_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: plane element types -> ``kv_kind``
+_PREFILL_KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_prefill_head_dim(what: str, dh: int) -> None:
+    """Raise unless the prefill kernel takes head dim ``dh``: every even
+    dim in [2, 256], zero-padded to the next of 64, 128 and 256."""
+    if dh % 2 or not 2 <= dh <= PREFILL_MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {dh} must be even and in [2, {PREFILL_MAX_HEAD_DIM}]")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """The launch of one prefill call (the CUDA source's ``flash_prefill``):
+    head dim ``dh`` padded to ``dp``, key tiles of ``bk`` rows, ``warps``
+    warps a block of 16 query rows each (``bq`` rows), ``q_tiles`` query
+    tiles, one block a (query tile, head), ``smem_bytes`` of dynamic shared
+    memory a block (``flash_prefill_smem_bytes``)."""
+
+    n: int
+    n_past: int
+    dh: int
+    dp: int
+    bk: int
+    warps: int
+    bq: int
+    q_tiles: int
+    smem_bytes: int
+
+    def order(self) -> list:
+        """``(q0, qn)`` of each query tile in the order the blocks are
+        issued: the last tile, which has the most keys, first."""
+        return [(qt * self.bq, min(self.bq, self.n - qt * self.bq)) for qt in reversed(range(self.q_tiles))]
+
+    def key_end(self, q0: int, qn: int) -> int:
+        """Keys ``0 .. key_end - 1`` a block of rows ``[q0, q0 + qn)`` reads:
+        up to its last row's diagonal, never at or past ``n_past + N``."""
+        return self.n_past + q0 + qn
+
+    def key_tiles(self, q0: int, qn: int) -> list:
+        """``(k0, kn)`` of each key tile a block visits; the copy zero-fills
+        the ``bk - kn`` rows of the last one."""
+        end = self.key_end(q0, qn)
+        return [(k0, min(self.bk, end - k0)) for k0 in range(0, end, self.bk)]
+
+    def warp_rows(self, q0: int, qn: int) -> list:
+        """``(r0, rn)`` of each warp of a block that holds query rows."""
+        return [(q0 + 16 * w, min(16, qn - 16 * w)) for w in range(self.warps) if 16 * w < qn]
+
+    def masked(self, r0: int, k0: int) -> bool:
+        """Whether the key tile at ``k0`` crosses the diagonal of the warp
+        whose first row is ``r0`` (only such tiles are masked)."""
+        return k0 + self.bk - 1 > self.n_past + r0
+
+    def skipped(self, r0: int, rn: int, k0: int) -> bool:
+        """Whether a warp of rows ``[r0, r0 + rn)`` skips the key tile at
+        ``k0``: it lies wholly beyond the warp's last row."""
+        return k0 > self.n_past + r0 + rn - 1
+
+
+@functools.lru_cache(maxsize=4096)
+def flash_prefill_plan(n: int, dh: int, n_past: int = 0, elt: int = 4) -> PrefillPlan:
+    """The prefill kernel's plan for ``n`` query rows after ``n_past``
+    cached keys, heads of dim ``dh``, planes of ``elt``-byte elements (4:
+    f32, 2: bf16), chosen from these shapes alone: ``dp`` the least of 64,
+    128 and 256 (multiples of the MMA depth) that holds ``dh``, key tiles
+    of 64 rows up to ``dp`` 64 and of 32 beyond (registers and shared
+    memory), as few 16-row warps as N needs, at most 4."""
+    if n < 1 or n_past < 0 or elt not in (2, 4):
+        raise ValueError(f"flash_prefill_plan: n={n}, n_past={n_past}, elt={elt} out of range")
+    check_prefill_head_dim("flash_prefill_plan", dh)
+    dp = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    bk = 64 if dp <= 64 else 32
+    warps = 1 if n <= 16 else 2 if n <= 32 else 4
+    bq = 16 * warps
+    # Q rows of dp + 8 f32, two stages of K rows of dp + 8 and V rows of
+    # dp + 4 (f32) or dp + 8 (bf16) elements
+    smem = bq * (dp + 8) * 4 + 2 * bk * (2 * dp + (12 if elt == 4 else 16)) * elt
+    return PrefillPlan(n, n_past, dh, dp, bk, warps, bq, -(-n // bq), smem)
+
+
+def _attention_chunked(q, keys, values, n_past: int, n_ctx: int, compute_dtype, chunk: int = 512):
+    """Online-softmax prefill attention over key chunks, so peak score
+    memory is ``[H, N, chunk]`` (counterpart of ``_attention_flash_xla``).
+    Same mask as :func:`flash_prefill_attention_plain`, softmax
+    reassociated."""
+    N, d = q.shape[0], q.shape[-1]
+    H = keys.shape[0]
+    scale = 1.0 / math.sqrt(float(d))
+    qf = q.float().transpose(0, 1)  # [H, N, Dh]
+    i_idx = torch.arange(N, device=q.device)[:, None]
+    m = torch.full((H, N, 1), float("-inf"), device=q.device)
+    l = torch.zeros((H, N, 1), device=q.device)
+    acc = torch.zeros((H, N, d), device=q.device)
+    for c0 in range(0, n_ctx, chunk):
+        kc = keys[:, c0 : c0 + chunk].float()
+        vc = values[:, c0 : c0 + chunk].float()
+        s = torch.einsum("hnd,hjd->hnj", qf, kc) * scale
+        allowed = (c0 + torch.arange(kc.shape[1], device=q.device)[None, :]) <= (n_past + i_idx)
+        s = torch.where(allowed[None], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+        p = torch.exp(s - m_safe)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("hnj,hjd->hnd", p, vc)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(0, 1).to(compute_dtype)
+
+
+def flash_prefill_attention_plain(q, keys, values, n_past: int, compute_dtype) -> torch.Tensor:
+    """Plain PyTorch version of the prefill kernel: causal attention over
+    the full plane, q ``[N, H, Dh]``, keys/values ``[H, n_ctx, Dh]``; query i
+    attends keys ``j <= n_past + i`` (``ggml_diag_mask_inf``,
+    ``ggml.c:6921-6981``), so stale slots beyond the high-water mark are
+    never attended.  From ``FLASH_PREFILL_MIN_CTX`` keys (a multiple of 512)
+    it takes :func:`_attention_chunked`."""
+    n_ctx = keys.shape[1]
+    if n_ctx >= FLASH_PREFILL_MIN_CTX and n_ctx % 512 == 0:
+        return _attention_chunked(q, keys, values, n_past, n_ctx, compute_dtype)
+    N, d = q.shape[0], q.shape[-1]
+    scale = 1.0 / math.sqrt(float(d))
+    scores = torch.einsum("nhd,hjd->hnj", q.float(), keys.float()) * scale
+    i_idx = torch.arange(N, device=q.device)[:, None]
+    j_idx = torch.arange(n_ctx, device=q.device)[None, :]
+    scores = torch.where((j_idx <= n_past + i_idx)[None], scores, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("hnj,hjd->nhd", p, values.float()).to(compute_dtype)
+
+
+def _check_prefill(what, q, keys, values, n_past: int) -> None:
+    """Raise unless q ``[N, H, Dh]`` and the planes ``[H, >= n_past + N,
+    Dh]`` are on one device, of one head count and head dim, with a head
+    dim the kernel takes (every caller, CPU tensors too)."""
+    if keys.device != q.device or values.device != q.device:
+        raise ValueError(f"{what}: q and the planes must be on one device")
+    if q.dim() != 3 or keys.dim() != 3 or values.shape != keys.shape:
+        raise ValueError(f"{what}: q must be [N, H, Dh] and the planes [H, n_keys, Dh] of one shape")
+    N, H, dh = q.shape
+    if keys.shape[0] != H or keys.shape[2] != dh:
+        raise ValueError(f"{what}: planes {list(keys.shape)} do not match q {list(q.shape)}")
+    check_prefill_head_dim(what, dh)
+    if N < 1 or n_past < 0 or n_past + N > keys.shape[1]:
+        raise ValueError(f"{what}: {N} rows at n_past={n_past} overflow {keys.shape[1]} keys")
+
+
+def _launch_prefill(what, q, keys, values, n_past: int, compute_dtype) -> torch.Tensor:
+    if not q.is_cuda:
+        raise ValueError(f"{what}: q and the planes must be on a CUDA device")
+    if q.dtype not in _PREFILL_Q_KIND or compute_dtype not in _PREFILL_Q_KIND:
+        raise ValueError(f"{what}: q and the output must be float32, bfloat16 or float16")
+    if keys.dtype not in _PREFILL_KV_KIND or values.dtype != keys.dtype:
+        raise ValueError(f"{what}: planes must both be float32 or both bfloat16")
+    if q.stride(2) != 1 or keys.stride(2) != 1 or values.stride() != keys.stride():
+        raise ValueError(f"{what}: q and the planes need a unit dim stride, the planes one set of strides")
+    N, H, dh = q.shape
+    elt = keys.element_size()
+    words = [keys.data_ptr(), values.data_ptr(), keys.stride(0) * elt, keys.stride(1) * elt]
+    if any(x % 4 for x in words):
+        raise ValueError(f"{what}: planes and their strides must be 4-byte aligned")
+    vec16 = all(x % 16 == 0 for x in words + [dh * elt])
+    plan = flash_prefill_plan(N, dh, n_past, elt)
+    out = torch.empty((N, H, dh), dtype=compute_dtype, device=q.device)
+    code = build.lib("flash_prefill").flash_prefill(
+        q.data_ptr(), q.stride(0), q.stride(1), _PREFILL_Q_KIND[q.dtype], keys.data_ptr(), values.data_ptr(),
+        keys.stride(0), keys.stride(1), _PREFILL_KV_KIND[keys.dtype], out.data_ptr(),
+        _PREFILL_Q_KIND[compute_dtype], N, H, dh, n_past, plan.dp, plan.warps, int(vec16),
+        1.0 / math.sqrt(float(dh)), _stream(q),
+    )
+    build.check(code, what)
+    return out
+
+
+def flash_prefill_attention(q, keys, values, n_past: int, compute_dtype) -> torch.Tensor:
+    """Causal attention of N query rows ``q [N, H, Dh]`` (f32, bf16 or f16,
+    any row and head strides) over a layer's K and V planes ``[H, n_keys,
+    Dh]`` (f32 or bf16; int8 and paged caches pass the f32 plane the model
+    builds): query i attends keys ``j <= n_past + i``.  Returns ``[N, H,
+    Dh]`` in ``compute_dtype``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise).  ``launches`` counts the launches
+    and ``keys_read`` the keys their heads read, ``H · (n_past + N)`` a
+    launch: no key at or past ``n_past + N``."""
+    _check_prefill("flash_prefill_attention", q, keys, values, n_past)
+    if q.device.type == "cpu":
+        return flash_prefill_attention_plain(q, keys, values, n_past, compute_dtype)
+    out = _launch_prefill("flash_prefill_attention", q, keys, values, n_past, compute_dtype)
+    flash_prefill_attention.launches += 1
+    flash_prefill_attention.keys_read += q.shape[1] * (n_past + q.shape[0])
+    return out
+
+
+flash_prefill_attention.launches = 0
+flash_prefill_attention.keys_read = 0

@@ -68,6 +68,12 @@ SOURCES = {
     "stream_probe": {
         "stream_probe": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
+    "flash_prefill": {
+        "flash_prefill": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+        "flash_prefill_smem_bytes": [ctypes.c_int] * 3,
+    },
     "fused_layer": {
         "fused_layers": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],

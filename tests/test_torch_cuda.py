@@ -28,7 +28,11 @@ two kernels a call of at most 64 rows by CUDA-graph nodes, its plan's
 shared memory the kernel's; the attention block's split plan the C
 query's, and the block at 40 and 64 heads, one kernel a call; the stream
 probe at row counts 132 blocks do not divide, rows wider than a ring slot
-and an offset view, bit-equal, one kernel a call by CUDA-graph nodes).
+and an offset view, bit-equal, one kernel a call by CUDA-graph nodes;
+causal prefill attention within 1e-5 of max|V| at N up to 2560, n_past up
+to 1000 and head dims 16-256 on f32 and bf16 planes, where single-pass TF32
+misses that bar, with NaN past n_past + N unread, and a tiny model's
+prefill on it, one launch a layer).
 
 These tests need a CUDA device and skip without one: a CUDA kernel has no
 CPU mode.  They import nothing of JAX, so on a machine with a card they run
@@ -1720,3 +1724,153 @@ def test_q4_matvec_refuses_in_dims_beyond_its_cap(cuda, kind):
     with pytest.raises(ValueError):
         fn(torch.randn(mv.MAX_Q4_IN + 32, device=cuda, generator=g), w)
     assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# causal prefill attention: one launch a layer, live keys only, f32 precision
+# ---------------------------------------------------------------------------
+
+PREFILL_TOL = 1e-5  # of max|V| over the live keys; single-pass TF32 misses it (the control below)
+
+
+def _prefill_inputs(N, n_past, dh, dtype, device, seed, H=2, extra=9):
+    """q ``[N, H, dh]`` and planes of ``n_past + N + extra`` keys (the extra
+    ones stale, as a cache's rows past the prompt)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_keys = n_past + N + extra
+    q = 2.0 * torch.randn((N, H, dh), device=device, generator=g)
+    kc = torch.randn((H, n_keys, dh), device=device, generator=g).to(dtype)
+    vc = torch.randn((H, n_keys, dh), device=device, generator=g).to(dtype)
+    return q, kc, vc
+
+
+def _prefill_err(out, ref, vc, n_keys):
+    return float((out.float() - ref).abs().max()) / float(vc[:, :n_keys].float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 18, 64, 128, 256])
+@pytest.mark.parametrize("n_past", [0, 70, 1000])
+@pytest.mark.parametrize("N", [1, 17, 64, 100, 2560])
+def test_flash_prefill_kernel_matches_plain(cuda, N, n_past, dh, dtype):
+    """The kernel within 1e-5 of max|V| of the plain version, one launch,
+    ``H · (n_past + N)`` keys counted."""
+    q, kc, vc = _prefill_inputs(N, n_past, dh, dtype, cuda, seed=N + n_past + dh)
+    before = (att.flash_prefill_attention.launches, att.flash_prefill_attention.keys_read)
+    out = att.flash_prefill_attention(q, kc, vc, n_past, torch.float32)
+    torch.cuda.synchronize()
+    assert (att.flash_prefill_attention.launches, att.flash_prefill_attention.keys_read) == (
+        before[0] + 1, before[1] + 2 * (n_past + N))
+    ref = att.flash_prefill_attention_plain(q, kc, vc, n_past, torch.float32)
+    assert _prefill_err(out, ref, vc, n_past + N) <= PREFILL_TOL
+
+
+def test_flash_prefill_tolerance_sees_single_pass_tf32(cuda):
+    """The control: at N = 2560 the plain version with TF32 allowed misses
+    the bar that the kernel meets, so the bar can tell f32 products from
+    TF32 ones."""
+    q, kc, vc = _prefill_inputs(2560, 0, 128, torch.float32, cuda, seed=5, H=4)
+    ref = att.flash_prefill_attention_plain(q, kc, vc, 0, torch.float32)
+    assert _prefill_err(att.flash_prefill_attention(q, kc, vc, 0, torch.float32), ref, vc, 2560) <= PREFILL_TOL
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = att.flash_prefill_attention_plain(q, kc, vc, 0, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert _prefill_err(tf32, ref, vc, 2560) > PREFILL_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,n_past,dh", [(1, 0, 128), (17, 0, 18), (100, 70, 64), (2560, 0, 128), (33, 1000, 256)])
+def test_flash_prefill_never_reads_past_n_past_plus_n(cuda, N, n_past, dh, dtype):
+    """NaN in every key and value at or past n_past + N: the output, bit
+    for bit the same."""
+    q, kc, vc = _prefill_inputs(N, n_past, dh, dtype, cuda, seed=3, extra=40)
+    out = att.flash_prefill_attention(q, kc, vc, n_past, torch.float32)
+    kc[:, n_past + N :] = float("nan")
+    vc[:, n_past + N :] = float("nan")
+    assert torch.equal(att.flash_prefill_attention(q, kc, vc, n_past, torch.float32), out)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float16])
+def test_flash_prefill_reads_strided_q_and_writes_compute_dtype(cuda, out_dtype):
+    """q as a strided view (the rows of a fused qkv product) in the output's
+    dtype, written by the kernel in that dtype."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = torch.randn((100, 3, 4, 128), device=cuda, generator=g).to(out_dtype)
+    q = qkv[:, 0]
+    _, kc, vc = _prefill_inputs(100, 70, 128, torch.float32, cuda, seed=4, H=4)
+    out = att.flash_prefill_attention(q, kc, vc, 70, out_dtype)
+    assert out.dtype == out_dtype and out.shape == (100, 4, 128)
+    ref = att.flash_prefill_attention_plain(q, kc, vc, 70, torch.float32)
+    assert _prefill_err(out, ref, vc, 170) <= 2.0**-8
+
+
+def test_flash_prefill_plan_smem_matches_the_kernel(cuda):
+    from llama_swift_torch.ops import build
+
+    lib = build.lib("flash_prefill")
+    for n in (1, 17, 33, 2560):
+        for dh in (16, 64, 128, 200, 256):
+            for elt, kind in ((4, 0), (2, 1)):
+                plan = att.flash_prefill_plan(n, dh, 0, elt)
+                assert lib.flash_prefill_smem_bytes(plan.dp, kind, plan.warps) == plan.smem_bytes
+
+
+def test_flash_prefill_refuses_what_the_kernel_does_not_take(cuda):
+    q, kc, vc = _prefill_inputs(8, 0, 128, torch.float32, cuda, seed=2)
+    before = att.flash_prefill_attention.launches
+    bad = [
+        (q, kc.to(torch.int8), vc.to(torch.int8)),  # int8 planes: the model dequantizes them first
+        (q, kc, vc.to(torch.bfloat16)),  # two plane types
+        (q.cpu(), kc, vc),  # devices differ
+        (q.to(torch.int32), kc, vc),
+        (q, kc.transpose(1, 2).contiguous().transpose(1, 2), vc),  # a dim stride of n_keys
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            att.flash_prefill_attention(*args, 0, torch.float32)
+    with pytest.raises(ValueError):
+        att.flash_prefill_attention(q, kc, vc, 0, torch.int8)  # an output type the kernel does not write
+    q2, k2, v2 = _prefill_inputs(8, 0, 258, torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError):
+        att.flash_prefill_attention(q2, k2, v2, 0, torch.float32)
+    assert att.flash_prefill_attention.launches == before
+
+
+def test_prefill_forward_one_launch_a_layer_and_agrees_with_cpu(cuda, monkeypatch):
+    """A tiny model's prefill and a second chunk at n_past > 0 on the card:
+    ``launches`` rises by n_layer and ``keys_read`` by n_layer · H ·
+    (n_past + N) a forward, no plain attention runs on the card, and the
+    logits agree with the CPU's."""
+    from llama_swift_torch.config import ModelConfig
+    from llama_swift_torch.models import llama as model_lib
+
+    cfg = ModelConfig.tiny(quantize_activations=False, prefill_bf16=False)
+    tensors = model_lib.random_params(cfg, seed=3)
+    chunks = [([1, 17, 40, 99, 3, 8, 200, 31, 5, 6], 0), ([77, 12, 9, 250, 4, 4, 60], 10)]
+
+    def run(device):
+        params = model_lib.params_from_tensors(tensors, cfg, device=device, param_dtype=torch.float32)
+        cache = model_lib.init_cache(cfg, device=device)
+        out = []
+        for toks, n_past in chunks:
+            before = (att.flash_prefill_attention.launches, att.flash_prefill_attention.keys_read)
+            lg, cache = model_lib.forward(params, torch.tensor(toks, device=device), n_past, cache, cfg)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                assert (att.flash_prefill_attention.launches, att.flash_prefill_attention.keys_read) == (
+                    before[0] + cfg.n_layer, before[1] + cfg.n_layer * cfg.n_head * (n_past + len(toks)))
+            out.append(lg.cpu())
+        return out
+
+    cpu = run("cpu")
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("plain attention ran on the card")
+
+    monkeypatch.setattr(att, "flash_prefill_attention_plain", no_plain)
+    monkeypatch.setattr(att, "_attention_chunked", no_plain)
+    card = run(cuda)
+    for c, r in zip(card, cpu):
+        assert _rel(c, r) <= 1e-4
